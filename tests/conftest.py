@@ -33,3 +33,8 @@ jax.config.update("jax_default_matmul_precision", "highest")
 from snuffy_tpu.utils.compile_cache import enable as _enable_compile_cache  # noqa: E402
 
 _enable_compile_cache()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU; skips without one")
