@@ -58,8 +58,8 @@ def build_embedder(
     seed: int = 0,
     device: Optional[torch.device] = None,
 ) -> Embedder:
-    """Seeded embedder in eval mode on `device` (weights are overlaid by a
-    checkpoint load)."""
+    """Seeded embedder in eval mode on `device`, the card unless the caller
+    passes another (weights are overlaid by a checkpoint load)."""
     if embedder.upper() == "SIMCLR" or backbone == "resnet18":
         raise NotImplementedError(
             "SimCLR/ResNet18 is not ported yet (ROADMAP.md Queue 1, slice 3)"
@@ -77,4 +77,4 @@ def build_embedder(
     model = factories[backbone](patch_size=patch_size,
                                 compute_dtype=compute_dtype, seed=seed)
     emb = Embedder(model, model.embed_dim, num_classes, imagenet_norm, seed)
-    return emb.to(device).eval()
+    return emb.to(device or torch.device("cuda")).eval()

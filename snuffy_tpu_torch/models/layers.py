@@ -2,7 +2,8 @@
 
 flax's `Dense(dtype=…)` casts its input and its f32 parameters to the
 compute dtype; its `LayerNorm(dtype=…)` normalises in f32 and returns the
-compute dtype. Its LayerNorm eps is 1e-6, not torch's 1e-5.
+compute dtype. Its LayerNorm eps is 1e-6, not torch's 1e-5. Its Dropout
+keeps x / (1 − rate) with probability 1 − rate and zeroes the rest.
 """
 
 from __future__ import annotations
@@ -23,3 +24,14 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype):
     """flax LayerNorm(dtype=…): normalise in f32, return `dtype`."""
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
                         ln.eps).to(dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator
+            ) -> torch.Tensor:
+    """Inverted dropout drawn from `generator` (F.dropout takes none): keep
+    each element with probability 1 − rate and scale it by 1/(1 − rate).
+    The generator lives on x's device."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))

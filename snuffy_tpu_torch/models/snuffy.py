@@ -1,6 +1,6 @@
 """Snuffy sparse-transformer MIL aggregator (binary), in PyTorch.
 
-Port of `snuffy_tpu/models/snuffy.py` for inference. A bag is a static
+Port of `snuffy_tpu/models/snuffy.py`. A bag is a static
 (N_pad, d) tensor with an (N_pad,) bool mask; with `segments` = k > 1 the
 rows hold k equal-length bags packed on the row axis and each bag's rows
 attend only to its own slots (one forward at GEMM height k·N).
@@ -18,9 +18,14 @@ Kept from the JAX model:
     stream runs bf16 and the masked mean pool accumulates in f32;
   * the top share is chosen once per forward, the random share per layer.
 
-Inference only: the forward raises in training mode, and the sparse
-attention has no backward yet. Multiclass, mesh, sp, tp and remat are not
-ported.
+In training mode (`model.train()`) the forward is differentiable and runs
+the three dropouts of the JAX model: on the attention probabilities
+(`attention_dropout`, the kernels' hash with one seed per layer call), on
+the attention output and the FFN output (`encoder_dropout`), and inside
+the FFN after the activation (`encoder_dropout` for the binary model).
+The hash seeds come from a CPU generator, so no device value is read back
+each layer (JAX draws them on the device). Multiclass, mesh, sp, tp and
+remat are not ported.
 """
 
 from __future__ import annotations
@@ -31,10 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# Shared with the JAX package (it imports no JAX); users of the port take
-# it from here.
-from snuffy_tpu.configs import SnuffyModelConfig
-from snuffy_tpu_torch.models.layers import LN_EPS, layer_norm, linear
+from snuffy_tpu_torch.configs import SnuffyModelConfig
+from snuffy_tpu_torch.models.layers import LN_EPS, dropout, layer_norm, linear
 from snuffy_tpu_torch.ops.fused_attention import (
     fused_packed_inverted_sparse_attention,
 )
@@ -82,7 +85,7 @@ class MultiHeadedAttention(nn.Module):
         self.linears = nn.ModuleList(nn.Linear(d, d) for _ in range(4))
 
     def forward(self, normed, key_tokens, slot_valid, q_valid, segments,
-                dtype):
+                dtype, dropout_rate=0.0, dropout_seed=None):
         d = normed.shape[1]
         h, dk = self.num_heads, d // self.num_heads
         wq, wk, wv, wo = self.linears
@@ -98,7 +101,8 @@ class MultiHeadedAttention(nn.Module):
         q, v = split_heads(qv[:, :d]), split_heads(qv[:, d:])
         k = split_heads(linear(key_tokens, wk, dtype))
         out = fused_packed_inverted_sparse_attention(
-            q, k, v, slot_valid, q_valid, segments
+            q, k, v, slot_valid, q_valid, segments,
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed,
         )
         out = out.transpose(0, 1).reshape(out.shape[1], d)
         return linear(out, wo, dtype)
@@ -111,13 +115,14 @@ class PositionwiseFeedForward(nn.Module):
         self.w_2 = nn.Linear(d * mult, d)
         self.act = ACTIVATIONS[activation]
 
-    def forward(self, x, dtype):
-        return linear(self.act(linear(x, self.w_1, dtype)), self.w_2, dtype)
+    def forward(self, x, dtype, rate=0.0, generator=None):
+        hidden = dropout(self.act(linear(x, self.w_1, dtype)), rate, generator)
+        return linear(hidden, self.w_2, dtype)
 
 
 class SublayerConnection(nn.Module):
     """Holds the pre-norm of one residual branch (reference
-    `sublayer.{0,1}.norm`); its dropout is inactive at inference."""
+    `sublayer.{0,1}.norm`); its dropout runs in `EncoderLayer`."""
 
     def __init__(self, d: int):
         super().__init__()
@@ -137,27 +142,36 @@ class EncoderLayer(nn.Module):
         self.sublayer = nn.ModuleList(SublayerConnection(d) for _ in range(2))
 
     def forward(self, x, prep: PreparedSelection, mask, segments, generator,
-                dtype):
+                seed_generator, dtype):
         n, d = x.shape
+        cfg = self.cfg
+        attn_rate = cfg.attention_dropout if self.training else 0.0
+        enc_rate = cfg.encoder_dropout if self.training else 0.0
+        seed = None
+        if attn_rate > 0.0:
+            seed = int(torch.randint(0, 2**31 - 1, (),
+                                     generator=seed_generator))
         if segments > 1:
-            sel = packed_selection_draw(generator, prep, self.cfg.k_rand,
+            sel = packed_selection_draw(generator, prep, cfg.k_rand,
                                         n // segments)
         else:
-            sel = binary_selection_draw(generator, prep, self.cfg.k_rand)
+            sel = binary_selection_draw(generator, prep, cfg.k_rand)
         # Keys and the residual read the PRE-norm selected rows.
         sel_tokens = x.index_select(0, sel.indices)
         normed = layer_norm(x, self.sublayer[0].norm, dtype)
-        new_sel = sel_tokens + self.self_attn(
-            normed, sel_tokens, sel.slot_valid, mask, segments, dtype
-        )
-        # Dead slots scatter into one extra row that is then dropped.
+        attn = self.self_attn(normed, sel_tokens, sel.slot_valid, mask,
+                              segments, dtype, attn_rate, seed)
+        new_sel = sel_tokens + dropout(attn, enc_rate, generator)
+        # Dead slots scatter into one extra row that is then dropped; out
+        # of place, so the gradient reaches both x and new_sel.
         scatter_idx = torch.where(sel.slot_valid, sel.indices,
                                   torch.full_like(sel.indices, n))
-        y = torch.cat([x, x.new_zeros(1, d)]).index_copy_(
+        y = torch.cat([x, x.new_zeros(1, d)]).index_copy(
             0, scatter_idx, new_sel)[:n]
+        # The binary model's FFN dropout is encoder_dropout.
         ff = self.feed_forward(layer_norm(y, self.sublayer[1].norm, dtype),
-                               dtype)
-        return y + ff
+                               dtype, enc_rate, generator)
+        return y + dropout(ff, enc_rate, generator)
 
 
 class Encoder(nn.Module):
@@ -167,8 +181,9 @@ class Encoder(nn.Module):
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(cfg.feats_size, eps=LN_EPS)
 
-    def forward(self, x, c, mask, segments, generator, dtype):
+    def forward(self, x, c, mask, segments, generator, seed_generator, dtype):
         n = x.shape[0]
+        c = c.detach()  # the selection passes no gradient
         if segments > 1:
             n_seg = n // segments
             prep = packed_selection_prepare(
@@ -179,7 +194,8 @@ class Encoder(nn.Module):
             prep = binary_selection_prepare(c[:, 0], mask,
                                             min(self.cfg.k_top, n))
         for layer in self.layers:
-            x = layer(x, prep, mask, segments, generator, dtype)
+            x = layer(x, prep, mask, segments, generator, seed_generator,
+                      dtype)
         return layer_norm(x, self.norm, dtype)
 
 
@@ -191,8 +207,10 @@ class BClassifier(nn.Module):
         self.encoder = Encoder(cfg)
         self.linear = nn.Linear(cfg.feats_size, cfg.num_classes)
 
-    def forward(self, x, c, mask, segments, generator, dtype):
-        enc = self.encoder(x, c, mask, segments, generator, dtype)
+    def forward(self, x, c, mask, segments, generator, seed_generator,
+                dtype):
+        enc = self.encoder(x, c, mask, segments, generator, seed_generator,
+                           dtype)
         k = segments
         enc_b = enc.reshape(k, enc.shape[0] // k, -1)
         mask_b = mask.reshape(k, -1)
@@ -206,9 +224,13 @@ class BClassifier(nn.Module):
 class MILNet(nn.Module):
     """i_classifier + b_classifier.
 
-    forward(feats (N, d), mask (N,) bool, segments=1, generator=None) →
+    forward(feats (N, d), mask (N,) bool, segments=1, generator=None,
+            seed_generator=None) →
         (ins_logits (N, C) f32, bag_logits (C,) f32 — (k, C) when packed)
-    `generator` draws the random share; it lives on the feats' device.
+    `generator` lives on the feats' device and draws the random share and,
+    in training mode, the encoder dropout; `seed_generator`, a CPU
+    generator, draws the attention-dropout seeds in training mode. None
+    takes torch's default generator.
     """
 
     def __init__(self, cfg: SnuffyModelConfig, seed: int = 0):
@@ -234,12 +256,8 @@ class MILNet(nn.Module):
         mask: Optional[torch.Tensor] = None,
         segments: int = 1,
         generator: Optional[torch.Generator] = None,
+        seed_generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError(
-                "MILNet is inference-only until the training slice; call "
-                ".eval()"
-            )
         if mask is None:
             mask = torch.ones(feats.shape[0], dtype=torch.bool,
                               device=feats.device)
@@ -249,11 +267,13 @@ class MILNet(nn.Module):
         feats = feats.float() * mask[:, None].float()
         ins_logits = self.i_classifier(feats)
         bag_logits = self.b_classifier(feats.to(dtype), ins_logits, mask,
-                                       segments, generator, dtype)
+                                       segments, generator, seed_generator,
+                                       dtype)
         return ins_logits, bag_logits
 
 
 def build_milnet(cfg: SnuffyModelConfig, seed: int = 0,
                  device: Optional[torch.device] = None) -> MILNet:
-    """Seeded MILNet in eval mode on `device`."""
-    return MILNet(cfg, seed).to(device).eval()
+    """Seeded MILNet in eval mode on `device`: the card unless the caller
+    passes another."""
+    return MILNet(cfg, seed).to(device or torch.device("cuda")).eval()

@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` compiles on first use into
 `build/snuffy_tpu_torch/lib<name>-<hash>.so` at the repository root, with a
 plain C interface (no PyTorch headers, so a build takes seconds). The hash
-covers the source and the flags, so a library is rebuilt only when either
-changes. A failed build raises with nvcc's output. Nothing here runs at
+covers the source, the shared headers `csrc/*.cuh` and the flags, so a
+library is rebuilt only when one of them changes. A failed build raises with nvcc's output. Nothing here runs at
 import time: this module is imported on machines without nvcc or a GPU.
 """
 
@@ -55,8 +55,9 @@ def find_nvcc() -> str:
 def load_library(name: str) -> BuiltLibrary:
     """Compile `csrc/<name>.cu` if its build is missing, then load it."""
     src = CSRC_DIR / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     build_s, log = 0.0, ""

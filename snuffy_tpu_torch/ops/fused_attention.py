@@ -1,13 +1,22 @@
-"""Fused inverted sparse attention: the hand-written Hopper kernel.
+"""Fused inverted sparse attention: the hand-written Hopper kernels.
 
-Replaces `snuffy_tpu/ops/pallas_attention.py::_fwd_kernel` (with its
-`_keep_factor` dropout hash and its segment mode) by the CUDA C++ kernel
-in `csrc/sparse_attention_fwd.cu`, built for sm_90a by `_build.py` and
-called through ctypes. The public functions keep the JAX signatures.
+Replaces the TPU kernels of `snuffy_tpu/ops/pallas_attention.py`, with
+their `_keep_factor` dropout hash and their segment mode:
 
-For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
-tensor it runs the plain version in `sparse_attention.py`, which is the
-kernel's oracle. `launches` counts the kernel's launches and nothing else.
+  sparse_attention_fwd  `_fwd_kernel` → `csrc/sparse_attention_fwd.cu`
+  sparse_attention_bwd  `_bwd_kernel` → `csrc/sparse_attention_bwd.cu`
+
+Each is built for sm_90a by `_build.py` and called through ctypes. A
+`torch.autograd.Function` ties them together as `jax.custom_vjp` does in
+the JAX package: the forward launches the forward kernel and keeps its
+row statistics (max and q_valid/sum, 8 bytes a row) for the backward
+kernel, which runs no softmax again. The public functions keep the JAX
+signatures.
+
+For CUDA tensors the wrappers launch the kernels or raise; for CPU
+tensors the same Function runs the plain versions in `sparse_attention.py`,
+which are the kernels' oracles. Each kernel's `launches` counts its own
+launches and nothing else.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -22,29 +32,48 @@ import torch
 from snuffy_tpu_torch.ops import _build
 from snuffy_tpu_torch.ops.sparse_attention import (
     packed_inverted_sparse_attention,
+    packed_inverted_sparse_attention_bwd,
 )
 
-KERNEL = "sparse_attention_fwd"
-SOURCE = "snuffy_tpu_torch/csrc/sparse_attention_fwd.cu"
-REPLACES = "snuffy_tpu/ops/pallas_attention.py:94"
 MAX_DK = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0
+
+@dataclass
+class Kernel:
+    name: str        # csrc/<name>.cu and its C entry snuffy_<name>
+    source: str
+    replaces: str    # file:line of the TPU kernel
+    argtypes: tuple
+    launches: int = 0
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+FWD = Kernel(
+    "sparse_attention_fwd", "snuffy_tpu_torch/csrc/sparse_attention_fwd.cu",
+    "snuffy_tpu/ops/pallas_attention.py:94",
+    (_P,) * 8 + (_I,) * 6 + (_F, _I, _F, _F, _P),
+)
+BWD = Kernel(
+    "sparse_attention_bwd", "snuffy_tpu_torch/csrc/sparse_attention_bwd.cu",
+    "snuffy_tpu/ops/pallas_attention.py:194",
+    (_P,) * 11 + (_I,) * 6 + (_F, _I, _F, _F, _P),
+)
+KERNELS = (FWD, BWD)
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    for kernel in KERNELS:
+        kernel.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def load_kernel() -> _build.BuiltLibrary:
-    """Build (first use) and bind the kernel's C entry points, once."""
-    built = _build.load_library(KERNEL)
-    fn = built.lib.snuffy_sparse_attention_fwd
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, f, f, p]
+def load_kernel(name: str) -> _build.BuiltLibrary:
+    """Build (first use) and bind one kernel's C entry points, once."""
+    kernel = next(k for k in KERNELS if k.name == name)
+    built = _build.load_library(name)
+    fn = getattr(built.lib, f"snuffy_{name}")
+    fn.argtypes = list(kernel.argtypes)
     fn.restype = ctypes.c_int
     err = built.lib.snuffy_cuda_error_string
     err.argtypes = [ctypes.c_int]
@@ -95,6 +124,91 @@ def _check_cuda_args(q, k, v, slot_valid, q_valid, segments):
         raise ValueError("tensors of 2**31 or more elements are not supported")
 
 
+def _launch(kernel: Kernel, device: torch.device, *args) -> None:
+    """Call the kernel's C entry on the current stream of `device`; raise
+    on a refused launch."""
+    lib = load_kernel(kernel.name).lib
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"snuffy_{kernel.name}")(*args, stream)
+    if err != 0:
+        msg = lib.snuffy_cuda_error_string(err).decode()
+        raise RuntimeError(
+            f"{kernel.name} launch failed: cudaError {err} ({msg})")
+    kernel.launches += 1
+
+
+def _scalar_args(q, rate, seed):
+    """dtype code, 1/√dk, the seed as int32, rate and 1/(1 − rate)."""
+    return (_DTYPES[q.dtype], 1.0 / math.sqrt(q.shape[2]),
+            _int32(0 if seed is None else seed), rate, 1.0 / (1.0 - rate))
+
+
+def _fwd_cuda(q, k, v, slot_valid, q_valid, segments, rate, seed):
+    """Forward kernel → (out, row_max, row_scale)."""
+    h, kn, dk = q.shape
+    n, s = kn // segments, k.shape[1] // segments
+    out = torch.empty((h, k.shape[1], dk), dtype=q.dtype, device=q.device)
+    row_max = torch.empty((h * kn,), dtype=torch.float32, device=q.device)
+    row_scale = torch.empty_like(row_max)
+    _launch(FWD, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            slot_valid.data_ptr(), q_valid.data_ptr(), out.data_ptr(),
+            row_max.data_ptr(), row_scale.data_ptr(), h, segments, n, s, dk,
+            *_scalar_args(q, rate, seed))
+    return out, row_max, row_scale
+
+
+def _bwd_cuda(q, k, v, slot_valid, row_max, row_scale, g, segments, rate,
+              seed):
+    """Backward kernel → (dq, dk, dv)."""
+    h, kn, dk = q.shape
+    n, s = kn // segments, k.shape[1] // segments
+    dq, dkey, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(row_max)
+    _launch(BWD, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            g.data_ptr(), slot_valid.data_ptr(), row_max.data_ptr(),
+            row_scale.data_ptr(), dq.data_ptr(), dkey.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), h, segments, n, s, dk,
+            *_scalar_args(q, rate, seed))
+    return dq, dkey, dv
+
+
+class SparseAttention(torch.autograd.Function):
+    """out = σᵀv per segment, with its gradient for q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, slot_valid, q_valid, segments, rate, seed):
+        ctx.segments, ctx.rate, ctx.seed = segments, rate, seed
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, slot_valid, q_valid)
+            return packed_inverted_sparse_attention(
+                q, k, v, slot_valid, q_valid, segments,
+                dropout_rate=rate, dropout_seed=seed)
+        out, row_max, row_scale = _fwd_cuda(q, k, v, slot_valid, q_valid,
+                                            segments, rate, seed)
+        ctx.save_for_backward(q, k, v, slot_valid, row_max, row_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        segments, rate, seed = ctx.segments, ctx.rate, ctx.seed
+        if g.device.type == "cpu":
+            q, k, v, slot_valid, q_valid = ctx.saved_tensors
+            grads = packed_inverted_sparse_attention_bwd(
+                q, k, v, slot_valid, q_valid, g, segments,
+                dropout_rate=rate, dropout_seed=seed)
+        else:
+            q, k, v, slot_valid, row_max, row_scale = ctx.saved_tensors
+            if g.dtype != q.dtype or g.shape != k.shape:
+                raise TypeError(
+                    f"gradient {g.dtype} {tuple(g.shape)} does not match "
+                    f"the output {q.dtype} {tuple(k.shape)}")
+            # the gradient arriving from wo's matmul may be a transposed view
+            grads = _bwd_cuda(q, k, v, slot_valid, row_max, row_scale,
+                              g.contiguous(), segments, rate, seed)
+        return (*grads, None, None, None, None, None)
+
+
 def fused_packed_inverted_sparse_attention(
     q: torch.Tensor,           # (h, k·N, dk): k bags packed on the row axis
     k: torch.Tensor,           # (h, k·S, dk)
@@ -106,45 +220,16 @@ def fused_packed_inverted_sparse_attention(
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
 ) -> torch.Tensor:
-    """Segment-aware fused inverted sparse attention → (h, k·S, dk)."""
-    if q.device.type == "cpu":
-        return packed_inverted_sparse_attention(
-            q, k, v, slot_valid, q_valid, segments,
-            dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-        )
-    if q.device.type != "cuda":
-        raise ValueError(f"no sparse attention for device {q.device}")
-    _check_cuda_args(q, k, v, slot_valid, q_valid, segments)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            f"{KERNEL} has no backward kernel yet (the training slice adds "
-            "it); run under torch.no_grad() or torch.inference_mode()"
-        )
+    """Segment-aware fused inverted sparse attention → (h, k·S, dk),
+    differentiable in q, k and v."""
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
-    h, kn, dk = q.shape
-    n, s = kn // segments, k.shape[1] // segments
-    out = torch.empty((h, k.shape[1], dk), dtype=q.dtype, device=q.device)
-    row_max = torch.empty((h * kn,), dtype=torch.float32, device=q.device)
-    row_scale = torch.empty_like(row_max)
-    lib = load_kernel().lib
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.snuffy_sparse_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), slot_valid.data_ptr(),
-            q_valid.data_ptr(), out.data_ptr(), row_max.data_ptr(),
-            row_scale.data_ptr(), h, segments, n, s, dk, _DTYPES[q.dtype],
-            1.0 / math.sqrt(dk),
-            _int32(0 if dropout_seed is None else dropout_seed),
-            dropout_rate, 1.0 / (1.0 - dropout_rate), stream,
-        )
-    if err != 0:
-        msg = lib.snuffy_cuda_error_string(err).decode()
-        raise RuntimeError(f"{KERNEL} launch failed: cudaError {err} ({msg})")
-    global launches
-    launches += 1
-    return out
+    if q.device.type == "cuda":
+        _check_cuda_args(q, k, v, slot_valid, q_valid, segments)
+    elif q.device.type != "cpu":
+        raise ValueError(f"no sparse attention for device {q.device}")
+    return SparseAttention.apply(q, k, v, slot_valid, q_valid, segments,
+                                 float(dropout_rate), dropout_seed)
 
 
 def fused_inverted_sparse_attention(

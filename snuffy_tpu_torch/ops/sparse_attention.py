@@ -12,14 +12,15 @@ run in float32 whatever the input type; the output takes v's type.
 
 Dropout uses the counter hash of the TPU kernel
 (`snuffy_tpu/ops/pallas_attention.py::_keep_factor`) instead of a random
-generator, so this module is the exact oracle of the CUDA kernel in
-`fused_attention.py` and of the JAX kernel, dropout included.
+generator, so this module is the exact oracle of the CUDA kernels in
+`fused_attention.py` and of the JAX kernel, dropout included, in both
+directions: `packed_inverted_sparse_attention_bwd` is the backward.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -64,6 +65,45 @@ def keep_factor(seed, hh, row, col, rate: float) -> torch.Tensor:
     return keep * torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)
 
 
+def _split_segments(q, k, segments):
+    h, kn, dk = q.shape
+    ks = k.shape[1]
+    if kn % segments or ks % segments:
+        raise ValueError(
+            f"packed rows ({kn}) and slots ({ks}) must divide segments="
+            f"{segments}"
+        )
+    return h, kn // segments, ks // segments, dk
+
+
+def _softmax_and_factor(q, k, slot_valid, q_valid, segments, dropout_rate,
+                        dropout_seed):
+    """σ (h, k, N, S), the per-segment softmax over the slots, and the
+    factor f = q_valid · keep/(1−rate) that scales it, both f32."""
+    h, n, s, dk = _split_segments(q, k, segments)
+    qb = q.reshape(h, segments, n, dk).float()
+    kb = k.reshape(h, segments, s, dk).float()
+    sv = slot_valid.reshape(segments, s).to(torch.bool)
+    qv = q_valid.reshape(segments, n).to(q.device, torch.float32)
+
+    scores = torch.einsum("hknd,hksd->hkns", qb, kb) * (1.0 / math.sqrt(dk))
+    scores = scores.masked_fill(~sv[None, :, None, :], NEG_INF)
+    sigma = torch.softmax(scores, dim=-1)
+    factor = qv[None, :, :, None]
+    if dropout_rate > 0.0:
+        dev = q.device
+        hh = (torch.arange(h, device=dev)[:, None] * segments
+              + torch.arange(segments, device=dev)[None, :])
+        factor = factor * keep_factor(
+            0 if dropout_seed is None else int(dropout_seed),
+            hh[:, :, None, None],
+            torch.arange(n, device=dev)[:, None],
+            torch.arange(s, device=dev),
+            dropout_rate,
+        ).to(dev)
+    return sigma, factor
+
+
 def packed_inverted_sparse_attention(
     q: torch.Tensor,           # (h, k·N, dk): k bags packed on the row axis
     k: torch.Tensor,           # (h, k·S, dk)
@@ -77,37 +117,57 @@ def packed_inverted_sparse_attention(
 ) -> torch.Tensor:
     """Per-segment inverted sparse attention → (h, k·S, dk): bag s's rows
     attend only to bag s's slots."""
-    h, kn, dk = q.shape
-    ks = k.shape[1]
-    if kn % segments or ks % segments:
-        raise ValueError(
-            f"packed rows ({kn}) and slots ({ks}) must divide segments="
-            f"{segments}"
-        )
-    n, s = kn // segments, ks // segments
+    h, n, s, dk = _split_segments(q, k, segments)
+    sigma, factor = _softmax_and_factor(q, k, slot_valid, q_valid, segments,
+                                        dropout_rate, dropout_seed)
+    vb = v.reshape(h, segments, n, dk).float()
+    out = torch.einsum("hkns,hknd->hksd", sigma * factor, vb)
+    return out.reshape(h, segments * s, dk).to(v.dtype)
+
+
+def packed_inverted_sparse_attention_bwd(
+    q: torch.Tensor,           # (h, k·N, dk)
+    k: torch.Tensor,           # (h, k·S, dk)
+    v: torch.Tensor,           # (h, k·N, dk)
+    slot_valid: torch.Tensor,  # (k·S,) bool
+    q_valid: torch.Tensor,     # (k·N,) bool
+    g: torch.Tensor,           # (h, k·S, dk): gradient of the output
+    segments: int,
+    *,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `packed_inverted_sparse_attention`, in f32 and
+    returned in the inputs' types: the formulas of the TPU backward
+    (`snuffy_tpu/ops/pallas_attention.py::_bwd_kernel`). With p̃ = σ·f:
+
+        dv = p̃ g          dσ = (v gᵀ)·f
+        ds = σ (dσ − rowsum(σ·dσ)) · slot_valid
+        dq = ds k / √dk    dk = dsᵀ q / √dk
+
+    The slot mask on ds is the JAX einsum oracle's gradient, where a dead
+    slot's constant score passes none back. It matters only in a segment
+    with live rows and no live slot, whose σ is uniform: the TPU kernel
+    leaves ds unmasked there and sends gradient into the dead slots.
+    """
+    h, n, s, dk = _split_segments(q, k, segments)
+    sigma, factor = _softmax_and_factor(q, k, slot_valid, q_valid, segments,
+                                        dropout_rate, dropout_seed)
     qb = q.reshape(h, segments, n, dk).float()
     kb = k.reshape(h, segments, s, dk).float()
     vb = v.reshape(h, segments, n, dk).float()
-    sv = slot_valid.reshape(segments, s).to(torch.bool)
-    qv = q_valid.reshape(segments, n).to(q.device, torch.float32)
+    gb = g.reshape(h, segments, s, dk).float()
+    sv = slot_valid.reshape(segments, s).to(q.device, torch.float32)
 
-    scale = 1.0 / math.sqrt(dk)
-    scores = torch.einsum("hknd,hksd->hkns", qb, kb) * scale
-    scores = scores.masked_fill(~sv[None, :, None, :], NEG_INF)
-    p = torch.softmax(scores, dim=-1) * qv[None, :, :, None]
-    if dropout_rate > 0.0:
-        dev = q.device
-        hh = (torch.arange(h, device=dev)[:, None] * segments
-              + torch.arange(segments, device=dev)[None, :])
-        p = p * keep_factor(
-            0 if dropout_seed is None else int(dropout_seed),
-            hh[:, :, None, None],
-            torch.arange(n, device=dev)[:, None],
-            torch.arange(s, device=dev),
-            dropout_rate,
-        ).to(dev)
-    out = torch.einsum("hkns,hknd->hksd", p, vb)
-    return out.reshape(h, ks, dk).to(v.dtype)
+    dv = torch.einsum("hkns,hksd->hknd", sigma * factor, gb)
+    dsig = torch.einsum("hknd,hksd->hkns", vb, gb) * factor
+    ds = sigma * (dsig - (sigma * dsig).sum(dim=-1, keepdim=True))
+    ds = ds * sv[None, :, None, :] * (1.0 / math.sqrt(dk))
+    dq = torch.einsum("hkns,hksd->hknd", ds, kb)
+    dkey = torch.einsum("hkns,hknd->hksd", ds, qb)
+    return (dq.reshape(q.shape).to(q.dtype),
+            dkey.reshape(k.shape).to(k.dtype),
+            dv.reshape(v.shape).to(v.dtype))
 
 
 def inverted_sparse_attention(

@@ -1,11 +1,12 @@
 """Slide inference on the GPU: tiles → embeddings → bag score.
 
-Port of `snuffy_tpu/pipeline/slide_inference.py` (the per-tile path; the
-streaming, prefetch and scaled-decode path is not ported yet). Tiles go
-to the device as uint8; the resize to the embed size (when the tile size
-differs), the cast and the normalisation run there. Embeddings fill one
-preallocated (bucket_length(n), D) f32 device buffer, which is the padded
-bag the aggregator classifies; only the scores come back to the host.
+Port of `snuffy_tpu/pipeline/slide_inference.py` (the tile reader and the
+per-tile path; the streaming, prefetch and scaled-decode path is not
+ported yet). Tiles go to the device as uint8; the resize to the embed
+size (when the tile size differs), the cast and the normalisation run
+there. Embeddings fill one preallocated (bucket_length(n), D) f32 device
+buffer, which is the padded bag the aggregator classifies; only the
+scores come back to the host.
 
 Timings: embed_s (upload + embed, synchronised), classify_s (aggregator
 forward and the copy of the scores), total_s, n_patches; predict_slide
@@ -14,15 +15,94 @@ adds read_filter_s for the tile reader.
 
 from __future__ import annotations
 
+import multiprocessing as mp
 import time
-from typing import Optional
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from snuffy_tpu.data.bucketing import bucket_length
-from snuffy_tpu.pipeline.slide_inference import SlidePrediction, read_slide_tiles
-from snuffy_tpu.tiling.deepzoom import TilerConfig
+from snuffy_tpu_torch.data.bucketing import bucket_length
+from snuffy_tpu_torch.tiling.deepzoom import (
+    TilerConfig,
+    edge_energy,
+    pick_read_level,
+)
+
+
+@dataclass
+class SlidePrediction:
+    bag_score: float
+    instance_scores: np.ndarray       # (N,)
+    positions: List[Tuple[int, int]]  # (col, row) per kept tile
+    timings: dict
+
+
+# The slide handle of a reader process (set by its pool initializer).
+_reader_state: dict = {}
+
+
+def _init_reader(slide_path):
+    from snuffy_tpu_torch.native import NativeSlide
+
+    _reader_state["slide"] = NativeSlide(slide_path)
+
+
+def _read_tile(args):
+    col, row, level, read, tile, threshold = args
+    import cv2
+
+    slide = _reader_state["slide"]
+    region = slide.read_region(level, col * read, row * read, read, read)
+    if read != tile:
+        region = cv2.resize(region, (tile, tile), interpolation=cv2.INTER_AREA)
+    if edge_energy(region) <= threshold:
+        return None
+    return col, row, region
+
+
+def read_slide_tiles(
+    slide_path: str,
+    cfg: TilerConfig,
+    workers: int = 8,
+) -> Tuple[np.ndarray, List[Tuple[int, int]]]:
+    """WSI → (kept tiles (N, t, t, 3) uint8, their (col, row) positions).
+
+    Port of `snuffy_tpu/pipeline/slide_inference.py:31-95`: a process
+    pool of `workers` readers, each with its own slide handle, reads the
+    tile grid of the chosen level and drops background tiles."""
+    from snuffy_tpu_torch.native import NativeSlide
+
+    with NativeSlide(slide_path) as slide:
+        level, residual = pick_read_level(
+            slide, cfg.objective_power / cfg.base_mag)
+        read = int(round(cfg.tile_size * residual))
+        lw, lh = slide.level_dimensions(level)
+    cols, rows = lw // read, lh // read
+
+    jobs = [
+        (c, r, level, read, cfg.tile_size, cfg.background_threshold)
+        for r in range(rows)
+        for c in range(cols)
+    ]
+    if workers > 1:
+        with mp.get_context("spawn").Pool(
+                workers, initializer=_init_reader,
+                initargs=(slide_path,)) as pool:
+            results = pool.map(_read_tile, jobs)
+    else:
+        _init_reader(slide_path)
+        try:
+            results = [_read_tile(j) for j in jobs]
+        finally:
+            _reader_state.pop("slide").close()
+    kept = [r for r in results if r is not None]
+    if not kept:
+        return np.zeros((0, cfg.tile_size, cfg.tile_size, 3), np.uint8), []
+    positions = [(c, r) for c, r, _ in kept]
+    tiles = np.stack([t for _, _, t in kept])
+    return tiles, positions
 
 
 def _linear_resize_weights(in_size: int, out_size: int) -> torch.Tensor:

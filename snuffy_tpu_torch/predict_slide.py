@@ -21,12 +21,12 @@ import json
 
 import torch
 
-from snuffy_tpu.configs import SnuffyModelConfig
-from snuffy_tpu.tiling.deepzoom import TilerConfig
 from snuffy_tpu_torch.bridge import load_reference_pth
+from snuffy_tpu_torch.configs import SnuffyModelConfig
 from snuffy_tpu_torch.embed.registry import build_embedder
 from snuffy_tpu_torch.models.snuffy import build_milnet
 from snuffy_tpu_torch.pipeline.slide_inference import predict_slide
+from snuffy_tpu_torch.tiling.deepzoom import TilerConfig
 
 
 def get_args_parser():

@@ -125,7 +125,7 @@ def main(argv=None) -> int:
         print("profile_serve: needs a CUDA GPU", file=sys.stderr)
         return 2
 
-    from snuffy_tpu.data.bucketing import bucket_length
+    from snuffy_tpu_torch.data.bucketing import bucket_length
     from snuffy_tpu_torch.embed.registry import build_embedder
     from snuffy_tpu_torch.models.snuffy import SnuffyModelConfig, build_milnet
     from snuffy_tpu_torch.ops import fused_attention as fa
@@ -180,11 +180,11 @@ def main(argv=None) -> int:
     for pass_name in ("row_stats_kernel", "slot_accumulate_kernel"):
         ms = sum(m for name, m in kernels if pass_name in name) / cfg.depth
         kernel_ms += ms
-        lines.append(f"{fa.KERNEL} {pass_name}: {ms:.4f} ms per call, "
+        lines.append(f"{fa.FWD.name} {pass_name}: {ms:.4f} ms per call, "
                      f"{100 * ms * cfg.depth / busy:.2f} % of classify busy")
     flops = attention_flops(cfg.num_heads, n_pad, cfg.big_lambda,
                             cfg.feats_size // cfg.num_heads)
-    lines.append(f"{fa.KERNEL}: {kernel_ms:.4f} ms per call, "
+    lines.append(f"{fa.FWD.name}: {kernel_ms:.4f} ms per call, "
                  f"{flops / 1e9:.3f} GFLOP -> "
                  f"{flops / kernel_ms / 1e9:.3f} TFLOP/s")
     print("\n".join(lines), flush=True)

@@ -76,7 +76,7 @@ def test_predict_tiles_matches_the_jax_pair():
     vit.load_state_dict({k: torch.from_numpy(v)
                          for k, v in vit_from_jax(vparams).items()})
     embedder = Embedder(vit, 64, 1).eval()
-    milnet = milnet_from_jax(mparams, CFG)
+    milnet = milnet_from_jax(mparams, CFG, device="cpu")
     pred = predict_tiles(torch.from_numpy(tiles), embedder, milnet,
                          embed_batch=8, embed_size=224)
     assert pred.timings["n_patches"] == 19
@@ -90,7 +90,8 @@ def test_predict_tiles_matches_the_jax_pair():
 def test_predict_tiles_empty_bag():
     vit = VisionTransformer(**VIT)
     pred = predict_tiles(torch.zeros((0, 224, 224, 3), dtype=torch.uint8),
-                         Embedder(vit, 64, 1).eval(), build_milnet(CFG))
+                         Embedder(vit, 64, 1).eval(),
+                         build_milnet(CFG, device="cpu"))
     assert pred.bag_score == 0.0 and pred.timings["n_patches"] == 0
 
 
@@ -109,7 +110,8 @@ def test_run_eval_epoch_matches_jax():
     state = jt.init_state(0)
     want = jt.run_eval_epoch(state, bucketed, seed=7)
 
-    tt = SnuffyTrainer(cfg, "cpu", model=milnet_from_jax(state.params, CFG),
+    tt = SnuffyTrainer(cfg, "cpu",
+                       model=milnet_from_jax(state.params, CFG, device="cpu"),
                        w=float(state.w))
     got = tt.run_eval_epoch(bucketed, seed=7)
     np.testing.assert_array_equal(got[3], want[3])
@@ -124,7 +126,7 @@ def test_run_eval_epoch_matches_jax():
 def test_package_imports_with_jax_blocked():
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
-        BLOCKED = ("jax", "jaxlib", "flax", "optax")
+        BLOCKED = ("jax", "jaxlib", "flax", "optax", "snuffy_tpu")
 
         class Block:
             def find_spec(self, name, path=None, target=None):
@@ -179,7 +181,7 @@ def test_predict_slide_cli_on_a_synthetic_slide(tmp_path):
     cfg = SnuffyModelConfig(feats_size=384, num_heads=2, big_lambda=8,
                             depth=1)
     weights = str(tmp_path / "milnet.pth")
-    torch.save(build_milnet(cfg, seed=5).state_dict(), weights)
+    torch.save(build_milnet(cfg, seed=5, device="cpu").state_dict(), weights)
     args = [
         "--slide", slide, "--embedder", "DINO", "--backbone", "vit_small",
         "--feats_size", "384", "--big_lambda", "8", "--num_heads", "2",

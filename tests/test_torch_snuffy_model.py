@@ -53,7 +53,7 @@ def test_milnet_matches_jax(dtype):
     params = init_milnet_params(cfg, seed=0, n_example=128)
     feats, mask = bag()
     want_ins, want_bag = jax_forward(cfg, params, feats, mask)
-    model = milnet_from_jax(params, cfg)
+    model = milnet_from_jax(params, cfg, device="cpu")
     with torch.inference_mode():
         ins, bag_logits = model(torch.from_numpy(feats), torch.from_numpy(mask))
     assert ins.dtype == bag_logits.dtype == torch.float32
@@ -79,7 +79,8 @@ def test_compute_dtype_reaches_the_attention(dtype, monkeypatch):
 
     port_attention = port.fused_packed_inverted_sparse_attention
     monkeypatch.setattr(port, "fused_packed_inverted_sparse_attention", spy)
-    model = build_milnet(dataclasses.replace(CFG, compute_dtype=dtype))
+    model = build_milnet(dataclasses.replace(CFG, compute_dtype=dtype),
+                         device="cpu")
     feats, mask = (torch.from_numpy(a) for a in bag())
     with torch.inference_mode():
         model(feats, mask)
@@ -93,7 +94,7 @@ def test_packed_milnet_matches_jax_packed():
     feats = rng.standard_normal((3 * 128, 32)).astype(np.float32)
     mask = np.concatenate([np.arange(128) < n for n in (100, 0, 57)])
     want_ins, want_bag = jax_forward(CFG, params, feats, mask, segments=3)
-    model = milnet_from_jax(params, CFG)
+    model = milnet_from_jax(params, CFG, device="cpu")
     with torch.inference_mode():
         ins, bag_logits = model(torch.from_numpy(feats),
                                 torch.from_numpy(mask), segments=3)
@@ -105,7 +106,7 @@ def test_packed_milnet_matches_jax_packed():
 
 def test_random_share_forward_is_finite_and_seeded():
     cfg = dataclasses.replace(CFG, random_patch_share=0.5)
-    model = build_milnet(cfg, seed=3)
+    model = build_milnet(cfg, seed=3, device="cpu")
     feats, mask = (torch.from_numpy(a) for a in bag(n=40, n_pad=48))
     with torch.inference_mode():
         out = [model(feats, mask, generator=torch.Generator().manual_seed(s))
@@ -115,15 +116,20 @@ def test_random_share_forward_is_finite_and_seeded():
 
 
 def test_training_mode_refuses():
-    model = build_milnet(CFG).train()
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(16, 32))
+    """A rate of 1 would drop every attention weight: training mode
+    refuses it, eval mode (no dropout) runs."""
+    cfg = dataclasses.replace(CFG, attention_dropout=1.0)
+    model = build_milnet(cfg, device="cpu")
+    with torch.inference_mode():
+        assert torch.isfinite(model(torch.zeros(16, 32))[1]).all()
+    with pytest.raises(ValueError, match="dropout_rate"):
+        model.train()(torch.zeros(16, 32))
 
 
 @pytest.mark.parametrize("name", sorted(WEIGHT_INITS))
 def test_every_weight_init_builds_a_model(name):
     cfg = dataclasses.replace(CFG, weight_init_i=name, weight_init_b=name)
-    model = build_milnet(cfg, seed=0)
+    model = build_milnet(cfg, seed=0, device="cpu")
     w = model.b_classifier.encoder.layers[0].feed_forward.w_1.weight.detach()
     assert all(torch.isfinite(p).all() for p in model.parameters())
     feats, mask = (torch.from_numpy(a) for a in bag())

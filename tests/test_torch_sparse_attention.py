@@ -1,10 +1,15 @@
-"""Port's sparse attention and dropout hash vs the JAX package.
+"""Port's sparse attention, its backward and the dropout hash vs the JAX
+package.
 
-The plain PyTorch attention (the CUDA kernel's oracle) is held against the
-JAX einsum oracle and against the JAX fused kernel (Pallas, interpret mode
-on the CPU), dropout included; the hash is held bit for bit.
+The plain PyTorch attention and its backward (the CUDA kernels' oracles)
+are held against the JAX einsum oracle and against the JAX fused kernel
+and its custom VJP (Pallas, interpret mode on the CPU), dropout included;
+the hash is held bit for bit.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +28,7 @@ from snuffy_tpu_torch.ops.sparse_attention import (
     inverted_sparse_attention,
     keep_factor,
     packed_inverted_sparse_attention,
+    packed_inverted_sparse_attention_bwd,
 )
 
 # f32 on both sides; the sums run in other orders.
@@ -157,3 +163,108 @@ def test_plain_matches_jax_fused_kernel_bf16():
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                rtol=2.0 ** -7, atol=1e-6)
+
+
+def bwd_inputs(segments, seed=8):
+    """h=2, N=70, S=12, dk=24; with segments > 1 the last segment is a
+    dummy bag (no live row)."""
+    q, k, v, sv, qv = make_inputs(h=2, n=70, s=12, dk=24, segments=segments,
+                                  seed=seed)
+    if segments > 1:
+        qv[-70:] = False
+    g = np.random.default_rng(seed + 1).standard_normal(
+        (2, segments * 12, 24)).astype(np.float32)
+    return (q, k, v, sv, qv), g
+
+
+def jax_vjp(fn, arrs, g, segments, rate, seed):
+    """(dq, dk, dv) of the JAX fused op or of its einsum oracle."""
+    q, k, v, sv, qv = to_jax(arrs)
+    if fn is jax_plain_packed:
+        op = functools.partial(fn, slot_valid=sv, q_valid=qv,
+                               segments=segments, dropout_rate=rate)
+    elif segments == 1:  # the one-bag entry takes the (1, S) mask blocks
+        op = functools.partial(jax_fused, slot_valid=sv, q_valid=qv,
+                               dropout_rate=rate,
+                               dropout_seed=jnp.int32(seed), tile_n=128)
+    else:
+        op = functools.partial(fn, slot_valid=sv, q_valid=qv,
+                               segments=segments, dropout_rate=rate,
+                               dropout_seed=jnp.int32(seed), tile_n=128)
+    _, pull = jax.vjp(op, q, k, v)
+    return [np.asarray(x) for x in pull(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("segments", [1, 3])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_plain_backward_matches_jax_fused_vjp(segments, rate):
+    """K2's oracle against jax.vjp of the JAX fused op (its custom VJP is
+    the TPU backward kernel); f32, the same hash masks."""
+    arrs, g = bwd_inputs(segments)
+    want = jax_vjp(jax_fused_packed, arrs, g, segments, rate, 13)
+    got = packed_inverted_sparse_attention_bwd(
+        *to_torch(arrs), torch.from_numpy(g), segments, dropout_rate=rate,
+        dropout_seed=13)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-5, atol=ATOL)
+    if segments > 1:  # the dummy bag gets no gradient
+        assert not got[0][:, -70:].any() and not got[2][:, -70:].any()
+
+
+@pytest.mark.parametrize("segments", [1, 3])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_plain_backward_matches_autograd_of_plain_forward(segments, rate):
+    arrs, g = bwd_inputs(segments, seed=9)
+    q, k, v, sv, qv = to_torch(arrs)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    packed_inverted_sparse_attention(
+        *leaves, sv, qv, segments, dropout_rate=rate, dropout_seed=-4
+    ).backward(torch.from_numpy(g))
+    got = packed_inverted_sparse_attention_bwd(
+        q, k, v, sv, qv, torch.from_numpy(g), segments, dropout_rate=rate,
+        dropout_seed=-4)
+    for a, leaf in zip(got, leaves):
+        np.testing.assert_allclose(a.numpy(), leaf.grad.numpy(), rtol=1e-5,
+                                   atol=ATOL)
+
+
+def test_plain_backward_bf16_returns_the_input_type():
+    arrs, g = bwd_inputs(3)
+    q, k, v, sv, qv = to_torch(arrs)
+    lo = [t.bfloat16() for t in (q, k, v)]
+    got = packed_inverted_sparse_attention_bwd(
+        *lo, sv, qv, torch.from_numpy(g).bfloat16(), 3)
+    want = packed_inverted_sparse_attention_bwd(
+        *[t.float() for t in lo], sv, qv, torch.from_numpy(g).bfloat16().float(), 3)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        assert torch.equal(a, b.bfloat16())  # f32 arithmetic, one rounding
+
+
+def test_dead_slot_segment_backward_follows_the_oracle_not_the_tpu_kernel():
+    """Live rows and no live slot: σ is uniform. The TPU backward kernel
+    leaves ds unmasked and sends gradient into the dead slots (dq ≠ 0, dk
+    of dead slots ≠ 0), although their scores are the constant −1e30; the
+    JAX einsum oracle, and the port, send none."""
+    arrs, g = bwd_inputs(3, seed=10)
+    q, k, v, sv, qv = arrs
+    sv[12:24] = False          # segment 1: every slot dead
+    qv[70:140] = True          # ... and every row live
+    oracle = jax_vjp(jax_plain_packed, arrs, g, 3, 0.0, 0)
+    tpu = jax_vjp(jax_fused_packed, arrs, g, 3, 0.0, 0)
+    got = packed_inverted_sparse_attention_bwd(
+        *to_torch(arrs), torch.from_numpy(g), 3)
+    for a, b in zip(got, oracle):
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-5, atol=ATOL)
+    rows, slots = slice(70, 140), slice(12, 24)
+    assert not got[0][:, rows].any() and not got[1][:, slots].any()
+    assert np.abs(tpu[0][:, rows]).max() > 1e-3
+    assert np.abs(tpu[1][:, slots]).max() > 1e-3
+    # in the other segments the TPU kernel agrees
+    for a, b, live in zip(got, tpu, ([0, 2], [0, 2], [0, 2])):
+        seg = a.shape[1] // 3
+        for i in live:
+            part = slice(i * seg, (i + 1) * seg)
+            np.testing.assert_allclose(a[:, part].numpy(), b[:, part],
+                                       rtol=1e-5, atol=ATOL)
