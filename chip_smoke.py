@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA H100 and the CUDA
-toolkit. It builds the sparse-attention kernels from csrc/ with nvcc (one
-nvcc per kernel, all at once), then:
+toolkit. It builds the port's three kernels from csrc/ with nvcc (one nvcc
+per kernel, all at once), then:
 
   1. environment: torch/CUDA versions, the nvcc builds, the card's name
      and power limit (nvidia-smi);
@@ -16,22 +16,35 @@ nvcc per kernel, all at once), then:
   3. backward kernel vs plain: the same inputs and cases with a seeded
      output gradient; dq, dk and dv errors, median times of the kernel,
      of each of its passes (torch.profiler) and of the plain version;
-  4. serve: ViT-S/16 + MILNet (d=384, 4 heads, Λ=512, ρ=0.5, depth 2,
+  4. dense-attention kernel vs plain: f32 and bf16 at the shapes of the
+     TPU probes P1-P3 (z=1536, n=197, dk=64: a ViT-S/16 batch of 256) and
+     P4 (z=384, n=785, dk=64), at the extraction batch (z=768, n=785), and
+     ragged (n_valid < n, dk=32); errors against the stated tolerance,
+     median times by CUDA events, the bound, and scaled_dot_product_attention
+     as the library yardstick;
+  5. serve: ViT-S/16 + MILNet (d=384, 4 heads, Λ=512, ρ=0.5, depth 2,
      bf16) from seeded weights answer requests of 10000, 2500 and 300
-     uint8 224² tiles; a small request is checked against the same models
-     in f32 on the CPU (plain attention path);
-  5. packed eval: 30 bags of seeded (10240, 384) embeddings through
+     uint8 224² tiles, 12 dense-attention launches a 256-tile batch; a
+     small request is checked against the same models in f32 on the CPU
+     (plain attention path);
+  6. packed eval: 30 bags of seeded (10240, 384) embeddings through
      run_eval_epoch (chunks of 8, the tail padded with dummy bags), and
      each bag's score against a one-bag (segments=1) run;
-  6. train: the same MILNet with attention dropout 0.1, AdamW (lr 2e-2,
+  7. extraction: DINO ViT-S/8 + adapter (384-d, depth 12, 6 heads,
+     bottleneck 64, scale 4.0, up-projections drawn non-zero), bf16, batch
+     128, embeds two bags of 700 and 300 seeded uint8 224² tiles (tails
+     padded), writes the per-bag and dataset CSVs to a temporary directory
+     and reads them back; tiles/s, 12 dense-attention launches a batch; a
+     GPU (kernel) vs CPU (plain) f32 check on two tiles;
+  8. train: the same MILNet with attention dropout 0.1, AdamW (lr 2e-2,
      weight decay 5e-2, soft_average), 8 bags of 10240 rows (10000 valid)
      in serial steps, then 16 bags in packed steps of 8;
-  7. GPU vs CPU training: from the same weights, f32, ρ=0, no dropout,
+  9. GPU vs CPU training: from the same weights, f32, ρ=0, no dropout,
      3 serial steps through the kernels on the card and through the plain
      versions on the CPU.
 
-Each path of the main path (serve, eval, train) runs with the launch
-counts set to 0 just before it and read just after. Every phase asserts;
+Each path of the main path (serve, eval, extraction, train) runs with the
+launch counts set to 0 just before it and read just after. Every phase asserts;
 any failure exits non-zero. The line before the last is the kernels' JSON
 record, the last line the device record. It exits non-zero at once
 without a CUDA device.
@@ -45,7 +58,6 @@ import dataclasses
 import json
 import math
 import statistics
-import subprocess
 import sys
 import time
 
@@ -55,6 +67,18 @@ import time
 # bf16: both compute in f32 from the same bf16 inputs and round the result
 # to bf16 once; one-ulp flips are 2^-7.
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+# Dense attention (max |kernel − plain| relative to max |plain|): f32, both
+# sum in f32 in other orders over ≤ 785 keys; bf16, both round p and the
+# output to bf16 from f32 values that differ in their last bits, so an
+# output may flip by one bf16 ulp, 2^-8.
+DENSE_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
+# (label, z, n, n_valid, dk); the JSON record is the extraction batch, bf16
+DENSE_CASES = (("P1-P3", 1536, 197, 197, 64), ("P4", 384, 785, 785, 64),
+               ("S/8 extract", 768, 785, 785, 64),
+               ("ragged", 96, 300, 280, 32))
+# ViT embeddings, f32: GPU (kernel) vs CPU (plain), absolute.
+EMBED_TOL = 1e-3
+EXTRACT_BAGS, EXTRACT_BATCH = (700, 300), 128
 # Bag/instance scores, f32 model: GPU (kernel) vs CPU (plain), and packed
 # (segments=8) vs one bag (segments=1), both f32 GEMMs in other orders.
 SCORE_TOL = 1e-4
@@ -74,15 +98,6 @@ def log(*args):
     print(*args, flush=True)
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Median of `reps` CUDA-event timings of fn()."""
     import torch
@@ -100,10 +115,6 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
-
-
-def launch_counts(fa) -> dict:
-    return {k.name: k.launches for k in fa.KERNELS}
 
 
 def attention_inputs(dtype, segments, gen, dev):
@@ -248,6 +259,47 @@ def phase_backward(fa, plain_bwd, dev):
     return worst, record
 
 
+def phase_dense(dev):
+    import torch
+
+    from snuffy_tpu_torch.ops.dense_attention import (
+        dense_attention_reference,
+        fused_self_attention,
+    )
+    from snuffy_tpu_torch.tools.profile_vit_attention import (
+        dense_bound_ms,
+        sdpa,
+    )
+
+    log("== phase 4: dense-attention kernel vs plain PyTorch")
+    gen = torch.Generator(dev).manual_seed(7)
+    worst, record = 0.0, None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for label, z, n, n_valid, dk in DENSE_CASES:
+            q, k, v = (torch.randn((z, n, dk), generator=gen, device=dev)
+                       .to(dtype) for _ in range(3))
+            with torch.inference_mode():
+                got = fused_self_attention(q, k, v, n_valid)
+                ref = dense_attention_reference(q, k, v, n_valid)
+                torch.cuda.synchronize()
+                log(f"  {name:8s} {label} z={z} n={n} n_valid={n_valid} "
+                    f"dk={dk}:")
+                worst = max(worst, check_kernel("out", got, ref,
+                                                DENSE_TOL[name]))
+                ms = time_ms(lambda: fused_self_attention(q, k, v, n_valid))
+                plain_ms = time_ms(
+                    lambda: dense_attention_reference(q, k, v, n_valid))
+                lib_ms = time_ms(lambda: sdpa(q, k, v, n_valid))
+            bound, by = dense_bound_ms(z, n, n_valid, dk, dtype)
+            log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
+                f"{lib_ms:.4f} ms  bound {bound:.4f} ms ({by})")
+            if (name, label) == ("bfloat16", "S/8 extract"):
+                record = (ms, plain_ms, bound, by, lib_ms)
+            del q, k, v, got, ref
+    return worst, record
+
+
 def check_scores(label, got, ref, tol):
     import numpy as np
 
@@ -257,7 +309,7 @@ def check_scores(label, got, ref, tol):
         raise AssertionError(f"{label}: {err} > {tol}")
 
 
-def phase_serve(cfg, dev, fa):
+def phase_serve(cfg, dev, kernels):
     import numpy as np
     import torch
 
@@ -265,7 +317,7 @@ def phase_serve(cfg, dev, fa):
     from snuffy_tpu_torch.models.snuffy import build_milnet
     from snuffy_tpu_torch.pipeline.slide_inference import predict_tiles
 
-    log("== phase 4: serve (ViT-S/16 + MILNet, bf16, seeded weights)")
+    log("== phase 5: serve (ViT-S/16 + MILNet, bf16, seeded weights)")
     embedder = build_embedder("DINO", "vit_small", patch_size=16,
                               compute_dtype="bfloat16", device=dev)
     milnet = build_milnet(cfg, seed=0, device=dev)
@@ -279,18 +331,19 @@ def phase_serve(cfg, dev, fa):
         predict_tiles(tiles(n), embedder, milnet)
     torch.cuda.synchronize()
 
-    fa.reset_launches()
-    before = 0
+    kernels.reset_launches()
     for n in REQUESTS:
         batch = tiles(n)
         torch.cuda.synchronize()
+        before = kernels.launch_counts()
         pred = predict_tiles(batch, embedder, milnet)
         t = pred.timings
-        grew = fa.FWD.launches - before
-        before = fa.FWD.launches
+        grew, dense = (kernels.launch_counts()[k.name] - before[k.name]
+                       for k in (kernels.FWD, kernels.DENSE))
         log(f"  request n_patches={t['n_patches']} embed_s={t['embed_s']:.4f} "
             f"classify_s={t['classify_s']:.4f} total_s={t['total_s']:.4f} "
-            f"bag_score={pred.bag_score:.6f} kernel_launches={grew}")
+            f"bag_score={pred.bag_score:.6f} kernel_launches={grew} "
+            f"dense_attention_launches={dense}")
         if t["n_patches"] != n or pred.instance_scores.shape != (n,):
             raise AssertionError("wrong output shape")
         if not (math.isfinite(pred.bag_score) and 0.0 <= pred.bag_score <= 1.0):
@@ -299,7 +352,10 @@ def phase_serve(cfg, dev, fa):
             raise AssertionError("instance scores not finite")
         if grew < cfg.depth:
             raise AssertionError(f"kernel launched {grew} < depth times")
-    serve_launches = launch_counts(fa)
+        if dense != 12 * math.ceil(n / 256):
+            raise AssertionError(f"dense attention launched {dense} times, "
+                                 "not 12 a 256-tile batch")
+    serve_launches = kernels.launch_counts()
 
     # Reference on a small input: the same weights in f32, kernel on the
     # GPU against the plain attention on the CPU (ρ=0: no random draw).
@@ -312,7 +368,7 @@ def phase_serve(cfg, dev, fa):
         f_gpu, _ = emb32(small)
         f_cpu, _ = emb32.cpu()(small.cpu())
     check_scores("ViT-S/16 f32 embeddings, GPU vs CPU", f_gpu.cpu().numpy(),
-                 f_cpu.numpy(), 1e-3)
+                 f_cpu.numpy(), EMBED_TOL)
     m_gpu = build_milnet(ref_cfg, device=dev)
     m_gpu.load_state_dict(milnet.state_dict())
     m_cpu = copy.deepcopy(m_gpu).cpu()
@@ -328,14 +384,14 @@ def phase_serve(cfg, dev, fa):
     return milnet, serve_launches
 
 
-def phase_eval(cfg, milnet, dev, fa):
+def phase_eval(cfg, milnet, dev, kernels):
     import torch
 
     from snuffy_tpu_torch.models.snuffy import build_milnet
     from snuffy_tpu_torch.train.losses import mixed_mil_loss
     from snuffy_tpu_torch.train.trainer import MILTrainConfig, SnuffyTrainer
 
-    log(f"== phase 5: packed eval ({EVAL_BAGS} bags of ({N}, "
+    log(f"== phase 6: packed eval ({EVAL_BAGS} bags of ({N}, "
         f"{cfg.feats_size}), {N_VALID} rows valid, chunks of "
         f"{SnuffyTrainer.EVAL_CHUNK})")
     gen = torch.Generator(dev).manual_seed(3)
@@ -349,12 +405,12 @@ def phase_eval(cfg, milnet, dev, fa):
     trainer.run_eval_epoch(
         {N: (feats[:8], masks[:8], labels[:8].float(), list(range(8)))}, 0)
     torch.cuda.synchronize()
-    fa.reset_launches()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     losses, scores, ins, order = trainer.run_eval_epoch(bucketed, seed=0)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    eval_launches = launch_counts(fa)
+    eval_launches = kernels.launch_counts()
     import numpy as np
 
     if scores.shape != (EVAL_BAGS, 1) or not np.isfinite(scores).all():
@@ -364,7 +420,7 @@ def phase_eval(cfg, milnet, dev, fa):
     log(f"  eval: {EVAL_BAGS} bags in {elapsed:.4f} s = "
         f"{EVAL_BAGS / elapsed:.3f} bags/s (bf16, rho={cfg.random_patch_share}"
         f") kernel_launches={eval_launches}")
-    if eval_launches[fa.FWD.name] < cfg.depth * math.ceil(EVAL_BAGS / 8):
+    if eval_launches[kernels.FWD.name] < cfg.depth * math.ceil(EVAL_BAGS / 8):
         raise AssertionError("packed eval did not run through the kernel")
 
     # K4 (segments=8) against K1 (segments=1), f32 and ρ=0 so both runs
@@ -387,6 +443,87 @@ def phase_eval(cfg, milnet, dev, fa):
     return eval_launches, EVAL_BAGS / elapsed
 
 
+def phase_extract(dev, kernels):
+    import csv
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from snuffy_tpu_torch.embed.pipeline import (
+        embed_tiles,
+        write_bag_csv,
+        write_dataset_csv,
+    )
+    from snuffy_tpu_torch.tools.profile_vit_attention import (
+        extraction_embedder,
+    )
+
+    log("== phase 7: extraction (DINO ViT-S/8 + adapter, bottleneck 64, "
+        f"scale 4.0, bf16, batch {EXTRACT_BATCH}, seeded weights; bags of "
+        f"{EXTRACT_BAGS} uint8 224² tiles)")
+    embedder = extraction_embedder(dev)
+    rng = np.random.default_rng(8)
+    bags = [rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+            for n in EXTRACT_BAGS]
+    embed_tiles(embedder, bags[1][:EXTRACT_BATCH], EXTRACT_BATCH)  # warm-up
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    rows, feats = [], []
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        embed_s = 0.0
+        for i, tiles in enumerate(bags):
+            t1 = time.perf_counter()
+            f = embed_tiles(embedder, tiles, EXTRACT_BATCH)
+            embed_s += time.perf_counter() - t1
+            path = f"{out}/train/1_tumor/slide_{i}.csv"
+            write_bag_csv(path, f, [f"{j}_{i}" for j in range(len(f))],
+                          [j % 2 for j in range(len(f))])
+            rows.append((path, 1))
+            feats.append(f)
+        write_dataset_csv(f"{out}/dataset.csv", rows)
+        elapsed = time.perf_counter() - t0
+        extract_launches = kernels.launch_counts()
+        total = sum(EXTRACT_BAGS)
+        dense = extract_launches[kernels.DENSE.name]
+        log(f"  {total} tiles in {elapsed:.4f} s = {total / elapsed:.3f} "
+            f"tiles/s with the CSVs; embed {embed_s:.4f} s = "
+            f"{total / embed_s:.3f} tiles/s; dense_attention_launches={dense}")
+        batches = sum(math.ceil(n / EXTRACT_BATCH) for n in EXTRACT_BAGS)
+        if dense != 12 * batches:
+            raise AssertionError(f"dense attention launched {dense} times, "
+                                 f"not 12 x {batches} batches")
+        for i, ((path, _), f, n) in enumerate(zip(rows, feats, EXTRACT_BAGS)):
+            if f.shape != (n, 384) or not np.isfinite(f).all():
+                raise AssertionError(f"{path}: feats {f.shape} not finite")
+            with open(path, newline="") as fh:
+                header, *body = list(csv.reader(fh))
+            back = np.array([r[:384] for r in body], np.float32)
+            positions = [f"{j}_{i}" for j in range(n)]
+            if (header[-2:] != ["label", "position"] or len(body) != n
+                    or not np.array_equal(back, f)
+                    or [r[-1] for r in body] != positions):
+                raise AssertionError(f"{path} does not read back")
+        with open(f"{out}/dataset.csv", newline="") as fh:
+            if list(csv.reader(fh)) != [["0", "1"]] + [[p, str(c)]
+                                                       for p, c in rows]:
+                raise AssertionError("dataset CSV does not read back")
+    log(f"  wrote and read back {len(rows)} bag CSVs and the dataset CSV")
+
+    # GPU (kernel) vs CPU (plain), f32, on two tiles
+    emb32 = copy.deepcopy(embedder)
+    emb32.backbone.compute_dtype = "float32"
+    small = torch.from_numpy(bags[0][:2])
+    with torch.inference_mode():
+        f_gpu, _ = emb32(small.to(dev))
+        f_cpu, _ = emb32.cpu()(small)
+    check_scores("ViT-S/8 + adapter f32 embeddings, GPU vs CPU",
+                 f_gpu.cpu().numpy(), f_cpu.numpy(), EMBED_TOL)
+    return extract_launches
+
+
 def train_bags(count, d, gen, dev):
     import torch
 
@@ -396,7 +533,7 @@ def train_bags(count, d, gen, dev):
     return {N: (feats, masks, labels, list(range(count)))}
 
 
-def phase_train(cfg, dev, fa):
+def phase_train(cfg, dev, kernels):
     import numpy as np
     import torch
 
@@ -407,7 +544,7 @@ def phase_train(cfg, dev, fa):
         SnuffyTrainer,
     )
 
-    log(f"== phase 6: train (MILNet d={cfg.feats_size}, bf16, attention "
+    log(f"== phase 8: train (MILNet d={cfg.feats_size}, bf16, attention "
         f"dropout {cfg.attention_dropout}; AdamW lr 2e-2; bags of ({N}, "
         f"{cfg.feats_size}), {N_VALID} rows valid)")
     optim = OptimizerConfig(optimizer="adamw", lr=2e-2, weight_decay=5e-2)
@@ -424,13 +561,13 @@ def phase_train(cfg, dev, fa):
         before = {k: v.detach().clone()
                   for k, v in trainer.model.state_dict().items()}
         torch.cuda.synchronize()
-        fa.reset_launches()
+        kernels.reset_launches()
         t0 = time.perf_counter()
         losses, scores, ins, order = trainer.run_train_epoch(
             bucketed, optim.lr, np.random.default_rng(1), 7)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        got = launch_counts(fa)
+        got = kernels.launch_counts()
         steps = count if batch == 1 else math.ceil(count / batch)
         w = trainer.w.item()
         if batch == 1:
@@ -450,7 +587,7 @@ def phase_train(cfg, dev, fa):
         still = [k for k in before if torch.equal(before[k], after[k])]
         if still:
             raise AssertionError(f"parameters did not move: {still}")
-        for kernel in fa.KERNELS:
+        for kernel in (kernels.FWD, kernels.BWD):
             if got[kernel.name] < cfg.depth * steps:
                 raise AssertionError(
                     f"{kernel.name} launched {got[kernel.name]} < "
@@ -475,7 +612,7 @@ def phase_train_gpu_vs_cpu(cfg, dev):
     ref_cfg = dataclasses.replace(cfg, compute_dtype="float32",
                                   random_patch_share=0.0,
                                   attention_dropout=0.0, encoder_dropout=0.0)
-    log("== phase 7: GPU (kernels) vs CPU (plain) training, f32, rho=0, no "
+    log("== phase 9: GPU (kernels) vs CPU (plain) training, f32, rho=0, no "
         "dropout: one gradient, then 3 serial steps")
     tcfg = MILTrainConfig(
         model=ref_cfg, soft_average=True,
@@ -547,12 +684,13 @@ def phase_train_gpu_vs_cpu(cfg, dev):
         raise AssertionError(f"parameters disagree: {failed}")
 
 
-def build_kernels(fa):
+def build_kernels(kernels):
     """Build every kernel at once, one nvcc each; print ptxas's lines."""
-    with concurrent.futures.ThreadPoolExecutor(len(fa.KERNELS)) as pool:
-        futures = [pool.submit(fa.load_kernel, k.name) for k in fa.KERNELS]
+    with concurrent.futures.ThreadPoolExecutor(len(kernels.KERNELS)) as pool:
+        futures = [pool.submit(kernels.load_kernel, k.name)
+                   for k in kernels.KERNELS]
         builds = [f.result() for f in futures]
-    for kernel, built in zip(fa.KERNELS, builds):
+    for kernel, built in zip(kernels.KERNELS, builds):
         log(f"  kernel {kernel.name}: {built.path} built by nvcc in "
             f"{built.build_s:.2f} s (0.00 = already built)")
         for line in built.log.splitlines():
@@ -570,10 +708,12 @@ def main() -> int:
         return 2
     from snuffy_tpu_torch.models.snuffy import SnuffyModelConfig
     from snuffy_tpu_torch.ops import fused_attention as fa
+    from snuffy_tpu_torch.ops import kernels
     from snuffy_tpu_torch.ops.sparse_attention import (
         packed_inverted_sparse_attention,
         packed_inverted_sparse_attention_bwd,
     )
+    from snuffy_tpu_torch.tools.profile_vit_attention import nvidia_smi_line
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 GEMMs in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -584,31 +724,36 @@ def main() -> int:
     log(f"  python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
     log(f"  nvidia-smi: {smi}")
-    build_kernels(fa)
+    build_kernels(kernels)
 
     # the JSON record's times and bounds: bf16, one bag, no dropout
     fwd_err, fwd_record = phase_kernel(
         fa, packed_inverted_sparse_attention, dev)
     bwd_err, bwd_record = phase_backward(
         fa, packed_inverted_sparse_attention_bwd, dev)
+    dense_err, dense_record = phase_dense(dev)
 
     cfg = SnuffyModelConfig(
         feats_size=384, num_classes=1, num_heads=4, big_lambda=512,
         random_patch_share=0.5, activation="gelu", depth=2,
         compute_dtype="bfloat16",
     )
-    milnet, serve_launches = phase_serve(cfg, dev, fa)
-    eval_launches, bags_per_s = phase_eval(cfg, milnet, dev, fa)
-    train_launches = phase_train(cfg, dev, fa)
+    milnet, serve_launches = phase_serve(cfg, dev, kernels)
+    eval_launches, bags_per_s = phase_eval(cfg, milnet, dev, kernels)
+    extract_launches = phase_extract(dev, kernels)
+    train_launches = phase_train(cfg, dev, kernels)
     phase_train_gpu_vs_cpu(cfg, dev)
 
     log(f"  main-path kernel launches: serve {serve_launches}, eval "
-        f"{eval_launches}, train {train_launches}")
-    paths = (serve_launches, eval_launches, train_launches)
+        f"{eval_launches}, extraction {extract_launches}, train "
+        f"{train_launches}")
+    paths = (serve_launches, eval_launches, extract_launches, train_launches)
     no_library = None  # no one PyTorch call computes the slot sums σᵀv
     records = []
-    for kernel, err, (ms, plain_ms, bound, bound_by) in (
-            (fa.FWD, fwd_err, fwd_record), (fa.BWD, bwd_err, bwd_record)):
+    for kernel, err, (ms, plain_ms, bound, bound_by, library_ms) in (
+            (kernels.FWD, fwd_err, (*fwd_record, no_library)),
+            (kernels.BWD, bwd_err, (*bwd_record, no_library)),
+            (kernels.DENSE, dense_err, dense_record)):
         records.append({
             "name": kernel.name,
             "route": "cuda",
@@ -620,7 +765,7 @@ def main() -> int:
             "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": bound_by,
-            "library_ms": no_library,
+            "library_ms": library_ms,
         })
     log(smi)
     log(json.dumps({"kernels": records}))

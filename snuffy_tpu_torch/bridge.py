@@ -5,11 +5,14 @@
   milnet_state_dict(params)     flax MILNet params → reference-keyed numpy
                                 state dict (the map of
                                 snuffy_tpu/embed/torch_export.py:28-59)
-  vit_from_jax(params)          flax ViT params → DINO-keyed numpy state
-                                dict (the inverse of
+  vit_from_jax(params)          flax ViT params (± adapter) → DINO-keyed
+                                numpy state dict (the inverse of
                                 snuffy_tpu/embed/torch_import.py:import_vit)
   load_reference_pth(path)      a reference/DINO `.pth` → state dict of
                                 tensors, `module.`/`backbone.` stripped
+  load_vit_weights(model, path) a DINO(-adapter) `.pth` onto a port ViT,
+                                not strict, with the matched/mismatched
+                                audit of the root compute_feats.py
 
 A parameter tree is nested dicts of arrays: numpy arrays, or any array
 that converts with `np.asarray`. Nothing here imports JAX.
@@ -17,7 +20,7 @@ that converts with `np.asarray`. Nothing here imports JAX.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,6 +98,19 @@ def vit_from_jax(params: dict) -> Dict[str, np.ndarray]:
             sd[f"{pre}.{key}.weight"] = _f32(np.asarray(dense["kernel"]).T)
             if "bias" in dense:
                 sd[f"{pre}.{key}.bias"] = _f32(dense["bias"])
+        if "adaptmlp" in blk:
+            ad, apre = blk["adaptmlp"], f"{pre}.adaptmlp"
+            for name, key in (("down", "down_proj"), ("up", "up_proj")):
+                sd[f"{apre}.{key}.weight"] = _f32(
+                    np.asarray(ad[name]["kernel"]).T)
+                sd[f"{apre}.{key}.bias"] = _f32(ad[name]["bias"])
+            if "scale" in ad:
+                sd[f"{apre}.scale"] = _f32(ad["scale"])
+            if "ln" in ad:
+                sd[f"{apre}.adapter_layer_norm_before.weight"] = _f32(
+                    ad["ln"]["scale"])
+                sd[f"{apre}.adapter_layer_norm_before.bias"] = _f32(
+                    ad["ln"]["bias"])
     return sd
 
 
@@ -116,3 +132,26 @@ def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
                 k = k[len(prefix):]
         out[k] = v
     return out
+
+
+def load_vit_weights(model: torch.nn.Module, path: str
+                     ) -> Tuple[List[str], List[str]]:
+    """Overlay a DINO(-adapter) `.pth` onto `model` as the root
+    compute_feats.py does (import_vit + check_layers + merge_into): every
+    parameter whose name and shape the checkpoint holds is copied, the rest
+    (adapter keys absent from a plain DINO checkpoint, say) keep their
+    init. Prints the audit and returns (matched, mismatched) names."""
+    sd = load_reference_pth(path)
+    own = model.state_dict()
+    matched = [k for k, v in own.items()
+               if k in sd and tuple(sd[k].shape) == tuple(v.shape)]
+    mismatched = [k for k in own if k not in matched]
+    print(f"layer audit: {len(matched)} matched, {len(mismatched)} "
+          f"missing/mismatched, {len(set(sd) - set(own))} unused in "
+          f"{path}")
+    for k in mismatched:
+        have = tuple(sd[k].shape) if k in sd else "absent"
+        print(f"  missing: {k} (model {tuple(own[k].shape)}, "
+              f"checkpoint {have})")
+    model.load_state_dict({k: sd[k] for k in matched}, strict=False)
+    return matched, mismatched

@@ -1,6 +1,8 @@
 // Device helpers shared by the sparse-attention kernels
 // (sparse_attention_fwd.cu, sparse_attention_bwd.cu): the tile shape, the
 // dropout hash of the TPU kernel, tile loads and the 64 x 64 score tile.
+// dense_attention.cu takes the block size, the type conversions and the
+// 16-lane reductions from here.
 
 #pragma once
 

@@ -1,10 +1,10 @@
 """Embedder registry: backbone + linear instance head, uint8 in.
 
-Port of `snuffy_tpu/embed/registry.py` for the DINO ViTs. `Embedder`
-takes uint8 (or float in [0, 1]) images (B, H, W, 3) on its device, casts
-and normalises them there (uint8 payloads are 4× smaller to upload), and
-returns (feats (B, D) f32, logits (B, C) f32). SimCLR/ResNet18 and MAE are
-not ported yet.
+Port of `snuffy_tpu/embed/registry.py` for the DINO ViTs, with or without
+the parallel adapter. `Embedder` takes uint8 (or float in [0, 1]) images
+(B, H, W, 3) on its device, casts and normalises them there (uint8
+payloads are 4× smaller to upload), and returns (feats (B, D) f32, logits
+(B, C) f32). SimCLR/ResNet18 and MAE are not ported yet.
 """
 
 from __future__ import annotations
@@ -53,6 +53,10 @@ def build_embedder(
     backbone: str = "vit_small",
     num_classes: int = 2,
     patch_size: int = 16,
+    use_adapter: bool = False,
+    adapter_ffn_num: int = 64,
+    adapter_ffn_scalar: float = 4.0,
+    img_size: int = 224,
     compute_dtype: str = "float32",
     imagenet_norm: bool = False,
     seed: int = 0,
@@ -62,11 +66,11 @@ def build_embedder(
     passes another (weights are overlaid by a checkpoint load)."""
     if embedder.upper() == "SIMCLR" or backbone == "resnet18":
         raise NotImplementedError(
-            "SimCLR/ResNet18 is not ported yet (ROADMAP.md Queue 1, slice 3)"
+            "SimCLR/ResNet18 is not ported yet (ROADMAP.md Queue 1, slice 4)"
         )
     if embedder.upper() == "MAE":
         raise NotImplementedError(
-            "MAE is not ported yet (ROADMAP.md Queue 1, slice 3)"
+            "MAE is not ported yet (ROADMAP.md Queue 1, slice 4)"
         )
     if embedder.upper() != "DINO":
         raise KeyError(f"Unknown embedder {embedder!r}/{backbone!r}")
@@ -74,7 +78,14 @@ def build_embedder(
     if backbone not in factories:
         raise KeyError(f"Unknown DINO backbone {backbone!r}; have "
                        f"{list(factories)}")
-    model = factories[backbone](patch_size=patch_size,
-                                compute_dtype=compute_dtype, seed=seed)
+    if img_size != 224:
+        raise NotImplementedError(
+            f"img_size={img_size}: the ViT's position grid is 224² and its "
+            "bicubic resize is not ported yet (ROADMAP.md Queue 1, slice 4)"
+        )
+    model = factories[backbone](
+        patch_size=patch_size, use_adapter=use_adapter,
+        adapter_bottleneck=adapter_ffn_num, adapter_scale=adapter_ffn_scalar,
+        compute_dtype=compute_dtype, seed=seed)
     emb = Embedder(model, model.embed_dim, num_classes, imagenet_norm, seed)
     return emb.to(device or torch.device("cuda")).eval()

@@ -1,16 +1,20 @@
 """DINO Vision Transformer embedder (CLS output), in PyTorch.
 
-Port of `snuffy_tpu/models/vit.py` for feature extraction: no adapter, no
-sequence packing, output = LayerNorm(x)[:, 0]. Parameter names are the
-DINO/timm keys (`patch_embed.proj`, `blocks.{i}.attn.qkv`, `norm1`,
-`mlp.fc1`, `norm`, `cls_token`, `pos_embed`), so a published DINO state
-dict loads with `strict=True`.
+Port of `snuffy_tpu/models/vit.py` for feature extraction, with its
+optional parallel adapter; no sequence packing, output =
+LayerNorm(x)[:, 0]. Parameter names are the DINO/timm keys
+(`patch_embed.proj`, `blocks.{i}.attn.qkv`, `norm1`, `mlp.fc1`, `norm`,
+`cls_token`, `pos_embed`) and the DINO-adapter ones
+(`blocks.{i}.adaptmlp.{down_proj,up_proj,scale,adapter_layer_norm_before}`),
+so a published DINO state dict loads with `strict=True`.
 
 Images come in the JAX package's layout, (B, H, W, 3) float. The patch
 embedding is a reshape and one GEMM (the stride-p conv written out).
-Attention is a plain matmul + softmax, as the JAX model computes it with
-einsum outside any Pallas kernel; with `compute_dtype="bfloat16"` the
-scores are bf16 too. LayerNorm eps is 1e-6 (flax's default), stats in f32.
+Attention runs on (b·h, n, dk), the JAX MHSA layout, through the dense
+attention kernel (`ops/dense_attention.py`): its scores and softmax are
+f32 whatever the compute dtype, where the JAX MHSA rounds the scores to
+bf16 under `compute_dtype="bfloat16"`. LayerNorm eps is 1e-6 (flax's
+default), stats in f32.
 The positional embedding is not interpolated: JAX resizes it with its
 bicubic kernel (Keys a=−0.5; torch's bicubic uses a=−0.75), so an input
 whose patch grid differs from the 224² one raises instead of differing.
@@ -18,11 +22,14 @@ whose patch grid differs from the 224² one raises instead of differing.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from snuffy_tpu_torch.models.layers import LN_EPS, layer_norm, linear
+from snuffy_tpu_torch.ops.dense_attention import fused_self_attention
 from snuffy_tpu_torch.ops.init import lecun_normal
 
 
@@ -37,11 +44,53 @@ class Attention(nn.Module):
         b, n, c = x.shape
         h, dk = self.num_heads, c // self.num_heads
         qkv = linear(x, self.qkv, dtype).reshape(b, n, 3, h, dk)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)   # (b, h, n, dk)
-        attn = torch.matmul(q, k.transpose(-2, -1)) * (dk ** -0.5)
-        attn = torch.softmax(attn, dim=-1).to(dtype)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, c)
+        qkv = qkv.permute(2, 0, 3, 1, 4).contiguous()     # (3, b, h, n, dk)
+        q, k, v = qkv.view(3, b * h, n, dk).unbind(0)
+        out = fused_self_attention(q, k, v, n)            # (b·h, n, dk)
+        out = out.reshape(b, h, n, dk).transpose(1, 2).reshape(b, n, c)
         return linear(out, self.proj, dtype)
+
+
+class Adapter(nn.Module):
+    """Parallel bottleneck adapter, eval mode: [LN] → down → ReLU → up →
+    × scale → [LN] (JAX `Adapter`; its dropout is off at inference). Init
+    as JAX's: down N(0, 1/(3·dim)), up and biases 0, a learnable scale 1."""
+
+    def __init__(self, dim: int, bottleneck: int = 64, scale: float = 0.1,
+                 learnable_scale: bool = False,
+                 layernorm_option: str = "none"):
+        super().__init__()
+        if layernorm_option not in ("in", "out", "none"):
+            raise ValueError(f"layernorm_option {layernorm_option!r}")
+        self.layernorm_option = layernorm_option
+        if layernorm_option != "none":
+            self.adapter_layer_norm_before = nn.LayerNorm(dim, eps=LN_EPS)
+        self.down_proj = nn.Linear(dim, bottleneck)
+        self.up_proj = nn.Linear(bottleneck, dim)
+        self.scale = (nn.Parameter(torch.ones(1)) if learnable_scale
+                      else scale)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        with torch.no_grad():
+            self.down_proj.weight.normal_(
+                0.0, (3.0 * self.down_proj.in_features) ** -0.5,
+                generator=gen)
+            for t in (self.down_proj.bias, self.up_proj.weight,
+                      self.up_proj.bias):
+                t.zero_()
+            if isinstance(self.scale, nn.Parameter):
+                self.scale.fill_(1.0)
+
+    def forward(self, x, dtype):
+        if self.layernorm_option == "in":
+            x = layer_norm(x, self.adapter_layer_norm_before, dtype)
+        h = linear(F.relu(linear(x, self.down_proj, dtype)), self.up_proj,
+                   dtype)
+        # a learnable f32 scale promotes a bf16 branch to f32, as in JAX
+        h = h * self.scale
+        if self.layernorm_option == "out":
+            h = layer_norm(h, self.adapter_layer_norm_before, dtype)
+        return h
 
 
 class Mlp(nn.Module):
@@ -55,19 +104,25 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block."""
+    """Pre-norm transformer block with the optional parallel adapter, fed
+    by the post-attention sequence: x = x + attn; x + mlp(norm2(x)) +
+    adapter(x)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True):
+                 qkv_bias: bool = True, adapter: Optional[dict] = None):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = Attention(dim, num_heads, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.adaptmlp = Adapter(dim, **adapter) if adapter else None
 
     def forward(self, x, dtype):
         x = x + self.attn(layer_norm(x, self.norm1, dtype), dtype)
-        return x + self.mlp(layer_norm(x, self.norm2, dtype), dtype)
+        out = x + self.mlp(layer_norm(x, self.norm2, dtype), dtype)
+        if self.adaptmlp is not None:
+            out = out + self.adaptmlp(x, dtype)
+        return out
 
 
 class PatchEmbed(nn.Module):
@@ -91,8 +146,11 @@ class VisionTransformer(nn.Module):
 
     def __init__(self, patch_size: int = 16, embed_dim: int = 384,
                  depth: int = 12, num_heads: int = 6, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, compute_dtype: str = "float32",
-                 seed: int = 0):
+                 qkv_bias: bool = True, use_adapter: bool = False,
+                 adapter_bottleneck: int = 64, adapter_scale: float = 0.1,
+                 adapter_learnable_scale: bool = False,
+                 adapter_layernorm_option: str = "none",
+                 compute_dtype: str = "float32", seed: int = 0):
         super().__init__()
         self.embed_dim = embed_dim
         self.compute_dtype = compute_dtype
@@ -100,15 +158,19 @@ class VisionTransformer(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(
             torch.zeros(1, 1 + (224 // patch_size) ** 2, embed_dim))
+        adapter = (dict(bottleneck=adapter_bottleneck, scale=adapter_scale,
+                        learnable_scale=adapter_learnable_scale,
+                        layernorm_option=adapter_layernorm_option)
+                   if use_adapter else None)
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, qkv_bias)
+            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, adapter)
             for _ in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self._init_weights(torch.Generator().manual_seed(seed))
 
     def _init_weights(self, gen: torch.Generator) -> None:
         """The JAX model's init: flax's lecun_normal kernels, zero biases,
-        trunc_normal(0.02) cls/pos tokens."""
+        trunc_normal(0.02) cls/pos tokens, the adapters' LoRA-style init."""
         with torch.no_grad():
             for p in (self.cls_token, self.pos_embed):
                 nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=gen)
@@ -118,6 +180,9 @@ class VisionTransformer(nn.Module):
                     lecun_normal(mod.weight, gen)
                     if mod.bias is not None:
                         mod.bias.zero_()
+            for mod in self.modules():
+                if isinstance(mod, Adapter):
+                    mod.reset_parameters(gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = (torch.bfloat16 if self.compute_dtype == "bfloat16"

@@ -6,79 +6,30 @@ their `_keep_factor` dropout hash and their segment mode:
   sparse_attention_fwd  `_fwd_kernel` → `csrc/sparse_attention_fwd.cu`
   sparse_attention_bwd  `_bwd_kernel` → `csrc/sparse_attention_bwd.cu`
 
-Each is built for sm_90a by `_build.py` and called through ctypes. A
-`torch.autograd.Function` ties them together as `jax.custom_vjp` does in
-the JAX package: the forward launches the forward kernel and keeps its
-row statistics (max and q_valid/sum, 8 bytes a row) for the backward
-kernel, which runs no softmax again. The public functions keep the JAX
-signatures.
+Each is built for sm_90a and launched through the registry in
+`kernels.py`, which counts launches. A `torch.autograd.Function` ties
+them together as `jax.custom_vjp` does in the JAX package: the forward
+launches the forward kernel and keeps its row statistics (max and
+q_valid/sum, 8 bytes a row) for the backward kernel, which runs no
+softmax again. The public functions keep the JAX signatures.
 
 For CUDA tensors the wrappers launch the kernels or raise; for CPU
 tensors the same Function runs the plain versions in `sparse_attention.py`,
-which are the kernels' oracles. Each kernel's `launches` counts its own
-launches and nothing else.
+which are the kernels' oracles.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
-from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
-from snuffy_tpu_torch.ops import _build
+from snuffy_tpu_torch.ops.kernels import BWD, DTYPES, FWD, MAX_DK, launch
 from snuffy_tpu_torch.ops.sparse_attention import (
     packed_inverted_sparse_attention,
     packed_inverted_sparse_attention_bwd,
 )
-
-MAX_DK = 256
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-@dataclass
-class Kernel:
-    name: str        # csrc/<name>.cu and its C entry snuffy_<name>
-    source: str
-    replaces: str    # file:line of the TPU kernel
-    argtypes: tuple
-    launches: int = 0
-
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-FWD = Kernel(
-    "sparse_attention_fwd", "snuffy_tpu_torch/csrc/sparse_attention_fwd.cu",
-    "snuffy_tpu/ops/pallas_attention.py:94",
-    (_P,) * 8 + (_I,) * 6 + (_F, _I, _F, _F, _P),
-)
-BWD = Kernel(
-    "sparse_attention_bwd", "snuffy_tpu_torch/csrc/sparse_attention_bwd.cu",
-    "snuffy_tpu/ops/pallas_attention.py:194",
-    (_P,) * 11 + (_I,) * 6 + (_F, _I, _F, _F, _P),
-)
-KERNELS = (FWD, BWD)
-
-
-def reset_launches() -> None:
-    for kernel in KERNELS:
-        kernel.launches = 0
-
-
-@functools.lru_cache(maxsize=None)
-def load_kernel(name: str) -> _build.BuiltLibrary:
-    """Build (first use) and bind one kernel's C entry points, once."""
-    kernel = next(k for k in KERNELS if k.name == name)
-    built = _build.load_library(name)
-    fn = getattr(built.lib, f"snuffy_{name}")
-    fn.argtypes = list(kernel.argtypes)
-    fn.restype = ctypes.c_int
-    err = built.lib.snuffy_cuda_error_string
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return built
 
 
 def _int32(seed: int) -> int:
@@ -93,9 +44,9 @@ def _check_cuda_args(q, k, v, slot_valid, q_valid, segments):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"q/k/v must share one of {list(_DTYPES)}, got "
+            f"q/k/v must share one of {list(DTYPES)}, got "
             f"{q.dtype}/{k.dtype}/{v.dtype}"
         )
     if slot_valid.dtype != torch.bool or q_valid.dtype != torch.bool:
@@ -124,23 +75,9 @@ def _check_cuda_args(q, k, v, slot_valid, q_valid, segments):
         raise ValueError("tensors of 2**31 or more elements are not supported")
 
 
-def _launch(kernel: Kernel, device: torch.device, *args) -> None:
-    """Call the kernel's C entry on the current stream of `device`; raise
-    on a refused launch."""
-    lib = load_kernel(kernel.name).lib
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, f"snuffy_{kernel.name}")(*args, stream)
-    if err != 0:
-        msg = lib.snuffy_cuda_error_string(err).decode()
-        raise RuntimeError(
-            f"{kernel.name} launch failed: cudaError {err} ({msg})")
-    kernel.launches += 1
-
-
 def _scalar_args(q, rate, seed):
     """dtype code, 1/√dk, the seed as int32, rate and 1/(1 − rate)."""
-    return (_DTYPES[q.dtype], 1.0 / math.sqrt(q.shape[2]),
+    return (DTYPES[q.dtype], 1.0 / math.sqrt(q.shape[2]),
             _int32(0 if seed is None else seed), rate, 1.0 / (1.0 - rate))
 
 
@@ -151,7 +88,7 @@ def _fwd_cuda(q, k, v, slot_valid, q_valid, segments, rate, seed):
     out = torch.empty((h, k.shape[1], dk), dtype=q.dtype, device=q.device)
     row_max = torch.empty((h * kn,), dtype=torch.float32, device=q.device)
     row_scale = torch.empty_like(row_max)
-    _launch(FWD, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    launch(FWD, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             slot_valid.data_ptr(), q_valid.data_ptr(), out.data_ptr(),
             row_max.data_ptr(), row_scale.data_ptr(), h, segments, n, s, dk,
             *_scalar_args(q, rate, seed))
@@ -165,7 +102,7 @@ def _bwd_cuda(q, k, v, slot_valid, row_max, row_scale, g, segments, rate,
     n, s = kn // segments, k.shape[1] // segments
     dq, dkey, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(row_max)
-    _launch(BWD, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    launch(BWD, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             g.data_ptr(), slot_valid.data_ptr(), row_max.data_ptr(),
             row_scale.data_ptr(), dq.data_ptr(), dkey.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), h, segments, n, s, dk,

@@ -7,6 +7,7 @@ on a synthetic slide.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -116,3 +117,95 @@ def test_read_slide_tiles_matches_jax(tmp_path, workers):
         np.testing.assert_array_equal(tiles, want_tiles)
     with pytest.raises(FileNotFoundError):
         native.NativeSlide(str(tmp_path / "missing.tif"))
+
+
+def test_position_and_patch_label_parsers_match(tmp_path):
+    from snuffy_tpu.embed import pipeline as jax_pipeline
+    from snuffy_tpu_torch.embed import pipeline
+
+    for name in ("12_34.jpeg", "a/b/0_7-3.JPG", "5_6.jpg", "x.jpeg",
+                 "1_2.png", "7_8-9.jpeg"):
+        assert pipeline.parse_position(name) == \
+            jax_pipeline.parse_position(name)
+    path = tmp_path / "tile_label.csv"
+    path.write_text("s_1_2,1\ns_3_4,0\nt_1_2,1\ns_1_2,1\n")
+    assert pipeline.load_patch_labels(str(path)) == \
+        jax_pipeline.load_patch_labels(str(path))
+    path.write_text("s_1_2,1\ns_1_2,0\n")
+    for mod in (pipeline, jax_pipeline):
+        with pytest.raises(ValueError, match="conflicting"):
+            mod.load_patch_labels(str(path))
+
+
+def test_bag_listing_and_csv_writers_match(tmp_path):
+    from snuffy_tpu.embed import pipeline as jax_pipeline
+    from snuffy_tpu_torch.embed import pipeline
+
+    for bag in ("train/0_n/s0", "train/1_t/s1", "test/0_n/s2", "empty"):
+        (tmp_path / "single" / "f1" / bag).mkdir(parents=True)
+    for bag, name in (("train/0_n/s0", "1_2.jpeg"),
+                      ("train/1_t/s1", "3_4.jpg"), ("test/0_n/s2", "5_6.jpeg")):
+        (tmp_path / "single" / "f1" / bag / name).write_bytes(b"")
+    assert pipeline.list_bags(str(tmp_path), "f1") == \
+        jax_pipeline.list_bags(str(tmp_path), "f1")
+
+    rng = np.random.default_rng(5)
+    feats = (rng.standard_normal((9, 6))
+             * 10.0 ** rng.integers(-9, 5, (9, 6))).astype(np.float32)
+    feats[0, :2] = (0.0, -0.0)
+    positions = [f"{i}_{i + 1}" for i in range(9)]
+    labels = [i % 2 for i in range(9)]
+    for args in ((feats,), (feats, positions, labels)):
+        ours, theirs = tmp_path / "o" / "bag.csv", tmp_path / "t" / "bag.csv"
+        pipeline.write_bag_csv(str(ours), *args)
+        jax_pipeline.write_bag_csv(str(theirs), *args)
+        assert ours.read_bytes() == theirs.read_bytes()
+    rows = [("a/b.csv", 1), ("c,d.csv", 0)]
+    pipeline.write_dataset_csv(str(tmp_path / "o" / "ds.csv"), rows)
+    jax_pipeline.write_dataset_csv(str(tmp_path / "t" / "ds.csv"), rows)
+    assert (tmp_path / "o" / "ds.csv").read_bytes() == \
+        (tmp_path / "t" / "ds.csv").read_bytes()
+
+
+@pytest.mark.parametrize("n, seed", [(1, 0), (7, 0), (12, 3), (200, 11)])
+def test_save_class_features_matches_pandas_order(tmp_path, n, seed):
+    from snuffy_tpu.embed import pipeline as jax_pipeline
+    from snuffy_tpu_torch.embed import pipeline
+
+    for root in ("o", "t"):
+        for i in range(n):
+            split, cls = ("train", "test")[i % 2], ("0_n", "1_t", "2_x")[i % 3]
+            d = tmp_path / root / split / cls
+            d.mkdir(parents=True, exist_ok=True)
+            (d / f"slide_{i}.csv").write_text("0\n")
+    ours = pipeline.save_class_features(str(tmp_path / "o"), "ds.csv",
+                                        seed=seed)
+    theirs = jax_pipeline.save_class_features(str(tmp_path / "t"), "ds.csv",
+                                              seed=seed)
+    assert [(os.path.relpath(p, tmp_path / "o"), c) for p, c in ours] == [
+        (os.path.relpath(p, tmp_path / "t"), c)
+        for p, c in zip(theirs.iloc[:, 0], theirs["label"])]
+    for name in ["ds.csv"] + [f"{s}/{c}.csv" for s in ("train", "test")
+                              for c in ("0_n", "1_t", "2_x")]:
+        o, t = tmp_path / "o" / name, tmp_path / "t" / name
+        assert o.exists() == t.exists()
+        if o.exists():
+            assert o.read_text().replace(str(tmp_path / "o"), "") == \
+                t.read_text().replace(str(tmp_path / "t"), "")
+    assert pipeline.save_class_features(str(tmp_path / "o"), "x.csv",
+                                        droped=1) is None
+
+
+def test_compute_feats_flags_are_the_root_flags():
+    import compute_feats as root_cli
+
+    from snuffy_tpu_torch import compute_feats
+
+    def flags(parser):
+        return {a.dest: (a.option_strings, a.default, a.type, a.choices,
+                         a.nargs, type(a).__name__)
+                for a in parser._actions if a.dest != "help"}
+
+    ours = flags(compute_feats.get_args_parser())
+    assert ours.pop("device")[1] == "cuda"
+    assert ours == flags(root_cli.get_args_parser())

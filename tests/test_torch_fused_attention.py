@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from snuffy_tpu_torch.ops import fused_attention as fa
+from snuffy_tpu_torch.ops import kernels
 from snuffy_tpu_torch.ops.sparse_attention import (
     packed_inverted_sparse_attention,
     packed_inverted_sparse_attention_bwd,
@@ -34,7 +35,7 @@ def make(h=2, n=100, s=24, dk=16, segments=1, dtype=torch.float32, seed=0,
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     args = make(segments=2)
-    fa.reset_launches()
+    kernels.reset_launches()
     got = fa.fused_packed_inverted_sparse_attention(
         *args, 2, dropout_rate=0.1, dropout_seed=5)
     want = packed_inverted_sparse_attention(*args, 2, dropout_rate=0.1,
@@ -49,7 +50,7 @@ def test_cpu_gradients_are_the_plain_backward_and_launch_nothing():
     q, k, v, sv, qv = make(segments=2)
     g = torch.randn((2, 48, 16), generator=torch.Generator().manual_seed(9))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    fa.reset_launches()
+    kernels.reset_launches()
     out = fa.fused_packed_inverted_sparse_attention(
         *leaves, sv, qv, 2, dropout_rate=0.1, dropout_seed=5)
     out.backward(g)
