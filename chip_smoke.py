@@ -7,12 +7,16 @@ Run from the repository root on a machine with an NVIDIA H100 and the CUDA
 toolkit. It builds the port's three kernels from csrc/ with nvcc (one nvcc
 per kernel, all at once), then:
 
-  1. environment: torch/CUDA versions, the nvcc builds, the card's name
-     and power limit (nvidia-smi);
+  1. environment: torch/CUDA versions, the nvcc builds (registers, stack
+     and spills of each kernel), the card's name and power limit
+     (nvidia-smi);
   2. forward kernel vs plain: at h=4, N=10240 (10000 rows valid), S=512
      (some slots dead), dk=96, for f32/bf16, segments 1/8 and dropout
      0/0.1, with a dummy bag and an all-dead segment; errors against the
-     stated tolerance, median times by CUDA events;
+     stated tolerance, two launches bitwise equal, median times of one
+     call by CUDA events, and the device time of a call and of each pass
+     (row stats, slot accumulate, reduce of the N splits) by
+     torch.profiler;
   3. backward kernel vs plain: the same inputs and cases with a seeded
      output gradient; dq, dk and dv errors, median times of the kernel,
      of each of its passes (torch.profiler) and of the plain version;
@@ -20,8 +24,9 @@ per kernel, all at once), then:
      TPU probes P1-P3 (z=1536, n=197, dk=64: a ViT-S/16 batch of 256) and
      P4 (z=384, n=785, dk=64), at the extraction batch (z=768, n=785), and
      ragged (n_valid < n, dk=32); errors against the stated tolerance,
-     median times by CUDA events, the bound, and scaled_dot_product_attention
-     as the library yardstick;
+     median times of one call by CUDA events and the device time of a call
+     by torch.profiler, the bound, and scaled_dot_product_attention as the
+     library yardstick, timed both ways;
   5. serve: ViT-S/16 + MILNet (d=384, 4 heads, Λ=512, ρ=0.5, depth 2,
      bf16) from seeded weights answer requests of 10000, 2500 and 300
      uint8 224² tiles, 12 dense-attention launches a 256-tile batch; a
@@ -65,7 +70,13 @@ import time
 # f32: both sum in f32, in different orders, over 10000 rows (forward,
 # dq, dv) or 512 slots (dk), so a few f32 roundings of the largest value.
 # bf16: both compute in f32 from the same bf16 inputs and round the result
-# to bf16 once; one-ulp flips are 2^-7.
+# to bf16 once; a one-ulp flip is at most 2^-7 of max|out|, and a two-ulp
+# one needs the f32 results to differ by 2^-8 of it. The forward kernel's
+# tensor-core product σᵀv takes p as two bf16 parts, hi + lo, because p
+# rounded once to bf16 (as the TPU's MXU takes it at JAX's default
+# precision) moves the f32 result by 1.6e-3-2.0e-3 of max|out| at these
+# widths, which gave two-ulp flips up to 7.2e-3 (emulated on the CPU,
+# tests/test_torch_sparse_attention.py); hi + lo keeps p within 2^-16.
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 # Dense attention (max |kernel − plain| relative to max |plain|): f32, both
 # sum in f32 in other orders over ≤ 785 keys; bf16, both round p and the
@@ -168,6 +179,8 @@ def check_kernel(label, got, ref, tol) -> float:
 def phase_kernel(fa, plain, dev):
     import torch
 
+    from snuffy_tpu_torch.tools.profile_serve import device_profile
+
     log("== phase 2: forward kernel vs plain PyTorch "
         f"(h={H}, N={N} with {N_VALID} valid, S={S}, dk={DK})")
     gen = torch.Generator(dev).manual_seed(1)
@@ -185,11 +198,25 @@ def phase_kernel(fa, plain, dev):
                 torch.cuda.synchronize()
                 log(f"  {name:8s} segments={segments} rate={rate}:")
                 err = check_kernel("out", got, ref, KERNEL_TOL[name])
+
+                def kernel():
+                    return fa.fused_packed_inverted_sparse_attention(
+                        *args, segments, **kw)
+
                 with torch.inference_mode():
-                    ms = time_ms(lambda: fa.fused_packed_inverted_sparse_attention(
-                        *args, segments, **kw))
+                    if not torch.equal(kernel(), got):
+                        raise AssertionError("two launches on the same inputs "
+                                             "differ")
+                    ms = time_ms(kernel)
                     plain_ms = time_ms(lambda: plain(*args, segments, **kw))
-                log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+                    # device ms per call, and of each pass (torch.profiler)
+                    device, _, passes = device_profile(kernel)
+                split = "  ".join(
+                    f"{p} {sum(t for key, t in passes if p in key):.4f}"
+                    for p in ("row_stats", "slot_accumulate", "split_reduce"))
+                log(f"    kernel {ms:.4f} ms (device {device:.4f}: {split})  "
+                    f"plain {plain_ms:.4f} ms  (bitwise equal over two "
+                    "launches)")
                 worst = max(worst, err)
                 if (name, segments, rate) == ("bfloat16", 1, 0.0):
                     q, k, v, sv, qv = args
@@ -266,6 +293,7 @@ def phase_dense(dev):
         dense_attention_reference,
         fused_self_attention,
     )
+    from snuffy_tpu_torch.tools.profile_serve import device_profile
     from snuffy_tpu_torch.tools.profile_vit_attention import (
         dense_bound_ms,
         sdpa,
@@ -287,13 +315,23 @@ def phase_dense(dev):
                     f"dk={dk}:")
                 worst = max(worst, check_kernel("out", got, ref,
                                                 DENSE_TOL[name]))
-                ms = time_ms(lambda: fused_self_attention(q, k, v, n_valid))
+
+                def kernel():
+                    return fused_self_attention(q, k, v, n_valid)
+
+                def library():
+                    return sdpa(q, k, v, n_valid)
+
+                ms, lib_ms = time_ms(kernel), time_ms(library)
                 plain_ms = time_ms(
                     lambda: dense_attention_reference(q, k, v, n_valid))
-                lib_ms = time_ms(lambda: sdpa(q, k, v, n_valid))
+                # device ms per call (torch.profiler)
+                device, lib_device = (device_profile(f)[0]
+                                      for f in (kernel, library))
             bound, by = dense_bound_ms(z, n, n_valid, dk, dtype)
-            log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
-                f"{lib_ms:.4f} ms  bound {bound:.4f} ms ({by})")
+            log(f"    kernel {ms:.4f} ms (device {device:.4f})  plain "
+                f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms (device "
+                f"{lib_device:.4f})  bound {bound:.4f} ms ({by})")
             if (name, label) == ("bfloat16", "S/8 extract"):
                 record = (ms, plain_ms, bound, by, lib_ms)
             del q, k, v, got, ref
@@ -693,10 +731,32 @@ def build_kernels(kernels):
     for kernel, built in zip(kernels.KERNELS, builds):
         log(f"  kernel {kernel.name}: {built.path} built by nvcc in "
             f"{built.build_s:.2f} s (0.00 = already built)")
-        for line in built.log.splitlines():
-            if "ptxas info" in line and ("registers" in line
-                                         or "spill" in line):
-                log(f"    {line.strip()}")
+        for line in ptxas_summary(built.log):
+            log(f"    {line}")
+
+
+def ptxas_summary(log_text: str) -> list:
+    """One line per entry function of `nvcc -Xptxas -v`'s output: the
+    kernel's name and template arguments as they stand in the mangled
+    symbol, its registers, stack and spills."""
+    import re
+
+    lines, name, frame = [], "?", ""
+    for line in log_text.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = re.search(r"([a-z_]+_kernel)(?:I(\w*?)E[Ev])?",
+                          entry.group(1))
+            name = (entry.group(1) if m is None
+                    else m.group(1) + (f"[{m.group(2)}]" if m.group(2)
+                                       else ""))
+            frame = ""
+        elif "bytes spill stores" in line:
+            frame = line.strip()
+        elif "ptxas info" in line and "Used" in line and "registers" in line:
+            used = line.split(":", 1)[1].strip()
+            lines.append(f"{name}: {used}; {frame}")
+    return lines
 
 
 def main() -> int:

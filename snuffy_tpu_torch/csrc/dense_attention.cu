@@ -21,32 +21,43 @@
 // (n=785, z=768) the operations, 4 * z * n * n_valid * dk = 121 GFLOP over
 // the 989.4 TFLOP/s bf16 tensor-core peak = 122 us. The TPU kernel holds a
 // whole (bz, n_pad, n_pad) f32 score block in VMEM and pads n to 128. An SM
-// has 227 KB of shared memory and blocks run in no order, so here one block
-// owns 64 query rows of one z and sweeps the keys twice in tiles of 64:
-//   pass 1 keeps an online max and sum for each row;
-//   pass 2 recomputes the scores, forms p exactly as the reference does
+// has 227 KB of shared memory and blocks run in no order, so here a block
+// owns query rows of one z and sweeps the keys twice:
+//   sweep 1 keeps an online max and sum for each row;
+//   sweep 2 recomputes the scores, forms p exactly as the reference does
 //     (divided by the final sum, rounded to T) and accumulates p . v in
 //     registers.
-// Two passes cost 3 tile products where a one-pass kernel needs 2, and buy
-// the reference's rounding of p. The scores never reach device memory,
-// nothing is padded in device memory, and the ragged edges of n and dk are
-// masked here. Two bodies:
-//   bf16 with dk <= 128 (the ViTs): 4 warps, 16 rows each, q . k^T and
-//     p . v on the tensor cores (mma.sync m16n8k16, bf16 in, f32 sums;
-//     ldmatrix from bf16 tiles, dk padded to 32, 64 or 128 in shared
-//     memory); p goes from the score fragment to the A fragment of p . v
-//     in registers.
-//   f32, or dk > 128: 256 threads, every product on CUDA cores in f32
+// Two sweeps cost 3 tile products where a one-pass kernel needs 2 (and
+// twice the exponentials), and buy the reference's rounding of p: rounded
+// against a running max instead, p flips large outputs by a bf16 ulp. The
+// scores never reach device memory, nothing is padded in device memory,
+// and the ragged edges of n and dk are masked here. Two bodies:
+//   bf16, dk <= 128, dk % 8 == 0 (the ViTs): two warpgroups of 64 query
+//     rows; thread 0 keeps K/V tiles of 64 keys in flight by TMA
+//     (mbarriers, a ring of 4 stages; when n <= 256 one block owns the
+//     whole z and loads K and V once for both sweeps and all its
+//     row tiles). q . k^T is wgmma m64n32k16 from shared memory (q and k
+//     K-major, 128-byte swizzle), p . v wgmma with p from registers (the
+//     score accumulator repacked to bf16) and v MN-major. Each 64-key tile
+//     is two halves: one half's scores run on the tensor cores while the
+//     other's softmax runs. exp is 2^x on the special-function unit with
+//     scale * log2 e folded into one FMA, one reciprocal a row; the last
+//     tile costs whole halves of 32 keys (narrower wgmma tails made ptxas
+//     serialise the pipeline, which cost more); warpgroups with no row
+//     exit. Bound in practice, far above the bound above, by the
+//     exponentials (2 a score) and by the wgmma pipeline, which ptxas
+//     still serialises in part (its C7513 note) behind the softmax.
+//   f32, or other dk: 256 threads, every product on CUDA cores in f32
 //     (float4 shared-memory reads, 16 FMAs a read), 4 rows x 4 dims a
 //     thread for each 64 dims of dk.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
-#include <atomic>
-
+#include "mma_common.cuh"
 #include "sparse_attention_common.cuh"
 
 namespace {
@@ -256,243 +267,332 @@ dense_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- The tensor-core body: bf16, dk <= DKP in {32, 64, 128}. ----
+// ---- The tensor-core body: bf16, dk <= 128, dk % 8 == 0. ----
+//
+// A block is two warpgroups of 64 query rows each. Its thread 0 loads
+// 64 x 64 bf16 boxes (128 bytes a row, 128-byte swizzle) by TMA from the
+// (z, n, dk) tensors seen as 3-D maps, so rows past n and columns past dk
+// arrive as zeros. Q stays in shared memory as wgmma's A operand. When
+// n > kResidentN the block owns 128 query rows and K/V tiles stream through
+// a ring of kStages stages (full/empty mbarriers) in the order the
+// warpgroups use them: sweep 1 K only, sweep 2 K and V. When
+// n <= kResidentN the block owns the whole z, every K/V tile is loaded once
+// into its own stage, and the warpgroups walk all the z's 64-row query
+// tiles over it. No producer warp: with one, ptxas capped the two blocks an
+// SM at 96 registers a thread and spilled (PERF.md §6).
 
-using bf16 = __nv_bfloat16;
-constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
+constexpr int kWgRows = 64;                    // query rows of a warpgroup
+constexpr int kKeys = 64;                      // keys of a K/V tile
+constexpr int kHalf = kKeys / 2;               // keys of a half tile
+constexpr int kHalfBytes = kHalf * 128;        // its offset in a k or v tile
+constexpr int kBox = 64 * 64 * 2;              // one TMA box: 64 rows x 128 bytes
+constexpr int kConsumers = 2;                  // warpgroups of a block
+constexpr int kWgThreads = 128 * kConsumers;
+constexpr int kStages = 4;
+constexpr int kResidentN = kStages * kKeys;    // K and V held whole up to here
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// dst[r * (DKP + 8) + d] = src[r * dk + d] for r < avail and d < dk, 0
-// elsewhere, for r < kTile and d < DKP. The row stride of DKP + 8 bf16
-// puts the 8 rows of an ldmatrix on 8 different groups of 4 banks. `vec`:
-// dk % 8 == 0 and 16-byte aligned rows, so 16 bytes a load.
 template <int DKP>
-__device__ __forceinline__ void load_rows_bf16(bf16* dst, const bf16* __restrict__ src,
-                                               int avail, int dk, bool vec) {
-  constexpr int kS = DKP + 8;
-  if (vec) {
-    constexpr int kChunks = DKP / 8;
-    for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kMmaThreads) {
-      const int r = idx / kChunks;
-      const int d = (idx - r * kChunks) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < avail && d < dk)
-        val = *reinterpret_cast<const uint4*>(src + (size_t)r * dk + d);
-      *reinterpret_cast<uint4*>(dst + r * kS + d) = val;
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < kTile * DKP; idx += kMmaThreads) {
-      const int r = idx / DKP;
-      const int d = idx - r * DKP;
-      dst[r * kS + d] = (r < avail && d < dk) ? src[(size_t)r * dk + d]
-                                              : __float2bfloat16_rn(0.0f);
-    }
-  }
-}
+struct WgLayout {
+  static constexpr int kTileBytes = DKP / 64 * kBox;    // 64 rows of q, k or v
+  static constexpr int kStageBytes = 2 * kTileBytes;   // k, then v
+  static constexpr int kQTiles = kResidentN / kWgRows;  // q tiles held at most
+  static constexpr size_t kSmem = 1024 + (size_t)kQTiles * kTileBytes +
+                                  (size_t)kStages * kStageBytes +
+                                  (2 * kStages + 1) * sizeof(uint64_t);
+};
 
-// The warp's (16 rows, 64 keys) scores. sc[j][e]: key 8j + 2t + (e & 1),
-// row g + 8 (e >> 1), where g = lane / 4 and t = lane % 4.
+// Issues (one commit group) the warpgroup's raw scores q . k^T of a half
+// tile, 32 keys, over DKP dims: sc[i] is the C fragment of an m64n32 tile.
 template <int DKP>
-__device__ __forceinline__ void mma_scores(float (&sc)[8][4],
-                                           const uint32_t (&qf)[DKP / 16][4],
-                                           const bf16* ks, int lane) {
-  constexpr int kS = DKP + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+__device__ __forceinline__ void issue_qk(float (&sc)[16], uint32_t qaddr, uint32_t kaddr) {
+  wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < DKP / 16; ++kk) {
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      // matrices: keys 16jp + {0-7, 0-7, 8-15, 8-15} x dims 16kk + {0-7, 8-15, 0-7, 8-15}
-      uint32_t b[4];
-      ldsm_x4(b, ks + (16 * jp + (lane >> 4) * 8 + (lane & 7)) * kS + 16 * kk +
-                     ((lane >> 3) & 1) * 8);
-      mma_bf16(sc[2 * jp], qf[kk], b[0], b[1]);
-      mma_bf16(sc[2 * jp + 1], qf[kk], b[2], b[3]);
-    }
+    // 16 dims = 32 bytes along the swizzled row; a new box every 64 dims
+    const uint32_t off = (kk >> 2) * kBox + (kk & 3) * 32;
+    wgmma_ss_n32(sc, wgmma_desc(qaddr + off, 0, 1024), wgmma_desc(kaddr + off, 0, 1024),
+                 kk > 0);
   }
+  wgmma_commit();
 }
 
+// Issues out (64 rows, DKP) += p (64 rows, the half tile's 32 keys, as the
+// A fragments of two 16-key steps) . v.
 template <int DKP>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * (size_t)3 * kTile * (DKP + 8);
+__device__ __forceinline__ void issue_pv(float (&acc)[DKP / 2], const uint32_t (&pa)[2][4],
+                                         uint32_t vaddr) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    // 16 keys = 2048 bytes of v; a new box every 64 dims
+    const uint64_t b = wgmma_desc(vaddr + kk * 2048, kBox, 1024);
+    if constexpr (DKP == 64) wgmma_rs_n64(acc, pa[kk], b, 1);
+    if constexpr (DKP == 128) wgmma_rs_n128(acc, pa[kk], b, 1);
+  }
+  wgmma_commit();
 }
 
-template <int DKP>
-__global__ void __launch_bounds__(kMmaThreads)
-dense_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, bf16* __restrict__ out,
-                           int n, int n_valid, int dk, int row_blocks, float scale,
-                           int vec) {
-  extern __shared__ uint4 smem_raw[];
-  constexpr int kS = DKP + 8;
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + kTile * kS;
-  bf16* vs = ks + kTile * kS;
+// Scores of keys at or past `valid` become -inf; c0 is the first key of
+// the half tile.
+__device__ __forceinline__ void mask_keys(float (&sc)[16], int c0, int valid, int t) {
+  if (c0 + kHalf <= valid) return;
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    if (c0 + 8 * (i >> 2) + 2 * t + (i & 1) >= valid) sc[i] = -INFINITY;
+}
 
-  const int zi = blockIdx.x / row_blocks;
-  const int r0 = (blockIdx.x - zi * row_blocks) * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const size_t base = (size_t)zi * n * dk;
-
-  load_rows_bf16<DKP>(qs, q + base + (size_t)r0 * dk, min(kTile, n - r0), dk, vec);
-  __syncthreads();
-  // The warp's 16 query rows as A fragments, one per 16 dims.
-  uint32_t qf[DKP / 16][4];
+// Online max and sum of 2^(s * scale_log2 - m) over a half tile, for rows
+// g and g + 8 of the warp, reduced over the quad.
+__device__ __forceinline__ void row_stats(const float (&sc)[16], float scale_log2,
+                                          float (&m_run)[2], float (&l_run)[2]) {
+  float cmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int kk = 0; kk < DKP / 16; ++kk)
-    ldsm_x4(qf[kk], qs + (16 * warp + (lane & 15)) * kS + 16 * kk + (lane >> 4) * 8);
-
-  // Pass 1: max and sum of rows g and g + 8, reduced over the quad.
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.0f, 0.0f};
-  for (int c0 = 0; c0 < n; c0 += kTile) {
-    __syncthreads();
-    load_rows_bf16<DKP>(ks, k + base + (size_t)c0 * dk, min(kTile, n - c0), dk, vec);
-    __syncthreads();
-    float sc[8][4];
-    mma_scores<DKP>(sc, qf, ks, lane);
-    float cmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = c0 + 8 * j + 2 * t + (e & 1);
-        const float x =
-            key < n_valid ? sc[j][e] * scale : (key < n ? kNegBig : -INFINITY);
-        sc[j][e] = x;
-        cmax[e >> 1] = fmaxf(cmax[e >> 1], x);
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 1));
-      cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 2));
-    }
-    // Key c0 exists, so the tile max is finite.
-    const float new_m[2] = {fmaxf(m_run[0], cmax[0]), fmaxf(m_run[1], cmax[1])};
-    float csum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) csum[e >> 1] += expf(sc[j][e] - new_m[e >> 1]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      csum[h] += __shfl_xor_sync(0xffffffffu, csum[h], 1);
-      csum[h] += __shfl_xor_sync(0xffffffffu, csum[h], 2);
-      l_run[h] = l_run[h] * expf(m_run[h] - new_m[h]) + csum[h];
-      m_run[h] = new_m[h];
-    }
-  }
-
-  // Pass 2: p rounded to bf16, out += p . v on the tensor cores.
-  float acc[DKP / 8][4];
-#pragma unroll
-  for (int j = 0; j < DKP / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-
-  for (int c0 = 0; c0 < n; c0 += kTile) {
-    const int keys = min(kTile, n - c0);
-    __syncthreads();
-    load_rows_bf16<DKP>(ks, k + base + (size_t)c0 * dk, keys, dk, vec);
-    load_rows_bf16<DKP>(vs, v + base + (size_t)c0 * dk, keys, dk, vec);
-    __syncthreads();
-    float sc[8][4];
-    mma_scores<DKP>(sc, qf, ks, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = c0 + 8 * j + 2 * t + (e & 1);
-        const float x = key < n_valid ? sc[j][e] * scale : kNegBig;
-        sc[j][e] = key < n ? expf(x - m_run[e >> 1]) / l_run[e >> 1] : 0.0f;
-      }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      // The score fragments of keys 16kk..16kk+15 are the A fragment of p.
-      const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-#pragma unroll
-      for (int jj = 0; jj < DKP / 16; ++jj) {
-        // matrices: keys 16kk + {0-7, 8-15, 0-7, 8-15} x dims 16jj + {0-7, 0-7, 8-15, 8-15}
-        uint32_t b[4];
-        ldsm_x4_trans(b, vs + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kS +
-                             16 * jj + (lane >> 4) * 8);
-        mma_bf16(acc[2 * jj], pa, b[0], b[1]);
-        mma_bf16(acc[2 * jj + 1], pa, b[2], b[3]);
-      }
-    }
-  }
-
+  for (int i = 0; i < 16; ++i) cmax[(i >> 1) & 1] = fmaxf(cmax[(i >> 1) & 1], sc[i]);
+  float new_m[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = r0 + 16 * warp + g + 8 * h;
-    if (row >= n) continue;
-    bf16* orow = out + base + (size_t)row * dk;
+    cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 1));
+    cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 2));
+    // key 0 is valid, so the max is finite from the first half tile on
+    new_m[h] = fmaxf(m_run[h], cmax[h] * scale_log2);
+  }
+  float csum[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int j = 0; j < DKP / 8; ++j) {
-      const int d = 8 * j + 2 * t;
-      if (d < dk) orow[d] = __float2bfloat16_rn(acc[j][2 * h]);
-      if (d + 1 < dk) orow[d + 1] = __float2bfloat16_rn(acc[j][2 * h + 1]);
+  for (int i = 0; i < 16; ++i)
+    csum[(i >> 1) & 1] += fast_exp2(fmaf(sc[i], scale_log2, -new_m[(i >> 1) & 1]));
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    csum[h] += __shfl_xor_sync(0xffffffffu, csum[h], 1);
+    csum[h] += __shfl_xor_sync(0xffffffffu, csum[h], 2);
+    l_run[h] = l_run[h] * fast_exp2(m_run[h] - new_m[h]) + csum[h];
+    m_run[h] = new_m[h];
+  }
+}
+
+// p = bf16(2^(s * scale_log2 - m) / l) as the A fragments of the half
+// tile's two 16-key steps.
+__device__ __forceinline__ void probs(uint32_t (&pa)[2][4], const float (&sc)[16],
+                                      float scale_log2, const float (&m)[2],
+                                      const float (&inv_l)[2]) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 8 * kk + 2 * r;
+      const int h = r & 1;
+      pa[kk][r] = pack_bf16(fast_exp2(fmaf(sc[i], scale_log2, -m[h])) * inv_l[h],
+                            fast_exp2(fmaf(sc[i + 1], scale_log2, -m[h])) * inv_l[h]);
+    }
+}
+
+template <int DKP>
+__global__ void __launch_bounds__(kWgThreads, DKP == 64 ? 2 : 1)
+dense_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             bf16* __restrict__ out, int n, int n_valid, int dk,
+                             int row_blocks, float scale_log2) {
+  using L = WgLayout<DKP>;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzle atoms are 1024-byte aligned
+  uint8_t* qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = qs + L::kQTiles * L::kTileBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * L::kStageBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int zi = blockIdx.x / row_blocks;
+  const int row0 = (blockIdx.x - zi * row_blocks) * kConsumers * kWgRows;
+  const bool resident = n <= kResidentN;
+  const int tiles = (n + kKeys - 1) / kKeys;
+  const int qtiles = min(resident ? L::kQTiles : kConsumers,
+                         (n - row0 + kWgRows - 1) / kWgRows);
+  const int consumers = min(kConsumers, qtiles);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  const int uses = resident ? tiles : 2 * tiles;  // of the K/V stages
+  // Use u loads K/V tile u (sweep 1: K only) or u - tiles (sweep 2: K and
+  // V) into stage u % kStages; resident, tile u with K and V.
+  auto issue = [&](int u) {
+    const int st = u % kStages;
+    const bool with_v = resident || u >= tiles;
+    const int j = u < tiles ? u : u - tiles;
+    mbar_expect_tx(&full[st], (with_v ? 2 : 1) * L::kTileBytes);
+    uint8_t* dst = ring + st * L::kStageBytes;
+    for (int c = 0; c < DKP / 64; ++c) {
+      tma_load_3d(dst + c * kBox, &tk, &full[st], 64 * c, kKeys * j, zi);
+      if (with_v)
+        tma_load_3d(dst + L::kTileBytes + c * kBox, &tv, &full[st], 64 * c, kKeys * j, zi);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], consumers * 128);
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // q once, and the first kStages uses of the K/V stages
+    mbar_expect_tx(qbar, qtiles * L::kTileBytes);
+    for (int t = 0; t < qtiles; ++t)
+      for (int c = 0; c < DKP / 64; ++c)
+        tma_load_3d(qs + t * L::kTileBytes + c * kBox, &tq, qbar, 64 * c,
+                    row0 + kWgRows * t, zi);
+    for (int u = 0; u < min(uses, kStages); ++u) issue(u);
+  }
+
+  const int wg = warp >> 2;
+  if (wg >= consumers) return;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // K/V stages in the order of use; resident tiles never move. Thread 0
+  // refills a stage once both warpgroups have released it.
+  int acquired = 0, released = 0;
+  auto acquire = [&](int j) {
+    if (resident) {
+      mbar_wait(&full[j], 0);
+      return j;
+    }
+    const int st = acquired % kStages;
+    mbar_wait(&full[st], (acquired / kStages) & 1);
+    ++acquired;
+    return st;
+  };
+  auto release = [&](int st) {
+    if (resident) return;
+    mbar_arrive(&empty[st]);
+    const int u = released++;
+    if (threadIdx.x == 0 && u + kStages < uses) {
+      mbar_wait(&empty[st], (u / kStages) & 1);
+      issue(u + kStages);
+    }
+  };
+  auto kv = [&](int st) { return smem_addr(ring + st * L::kStageBytes); };
+
+  // Each 64-key tile is two 32-key halves a and b: the scores of one half
+  // are computed on the tensor cores while the other's softmax runs.
+  mbar_wait(qbar, 0);
+  for (int qt = wg; qt < qtiles; qt += kConsumers) {
+    const uint32_t qaddr = smem_addr(qs + qt * L::kTileBytes);
+    float sa[16], sb[16];
+
+    // Sweep 1: the row max m (of s * scale * log2 e) and l = sum 2^(. - m).
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.0f, 0.0f};
+    int st = acquire(0);
+    issue_qk<DKP>(sa, qaddr, kv(st));
+    for (int j = 0; j < tiles; ++j) {
+      issue_qk<DKP>(sb, qaddr, kv(st) + kHalfBytes);
+      wgmma_wait<1>();
+      fence_regs(sa);
+      mask_keys(sa, kKeys * j, n_valid, t);
+      row_stats(sa, scale_log2, m_run, l_run);
+      const int next = j + 1 < tiles ? acquire(j + 1) : st;
+      if (j + 1 < tiles)
+        issue_qk<DKP>(sa, qaddr, kv(next));
+      else
+        wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sb);
+      release(st);
+      mask_keys(sb, kKeys * j + kHalf, n_valid, t);
+      row_stats(sb, scale_log2, m_run, l_run);
+      st = next;
+    }
+    const float inv_l[2] = {1.0f / l_run[0], 1.0f / l_run[1]};
+
+    // Sweep 2: p = bf16(2^(s * scale * log2 e - m) / l), out += p . v.
+    float acc[DKP / 2];
+#pragma unroll
+    for (int i = 0; i < DKP / 2; ++i) acc[i] = 0.0f;
+    uint32_t pa[2][2][4];
+    st = acquire(0);
+    int prev = -1;
+    issue_qk<DKP>(sa, qaddr, kv(st));
+    for (int j = 0; j < tiles; ++j) {
+      const uint32_t vaddr = kv(st) + L::kTileBytes;
+      issue_qk<DKP>(sb, qaddr, kv(st) + kHalfBytes);
+      wgmma_wait<1>();  // half a's scores, and the previous tile's p . v
+      fence_regs(sa);
+      if (prev >= 0) release(prev);
+      mask_keys(sa, kKeys * j, n_valid, t);
+      probs(pa[0], sa, scale_log2, m_run, inv_l);
+      issue_pv<DKP>(acc, pa[0], vaddr);
+      const int next = j + 1 < tiles ? acquire(j + 1) : st;
+      if (j + 1 < tiles)
+        issue_qk<DKP>(sa, qaddr, kv(next));
+      else
+        wgmma_commit();
+      wgmma_wait<2>();  // half b's scores
+      fence_regs(sb);
+      mask_keys(sb, kKeys * j + kHalf, n_valid, t);
+      probs(pa[1], sb, scale_log2, m_run, inv_l);
+      issue_pv<DKP>(acc, pa[1], vaddr + kHalfBytes);
+      prev = st;
+      st = next;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(prev);
+
+    const int rbase = row0 + kWgRows * qt + 16 * (warp & 3) + g;
+#pragma unroll
+    for (int i = 0; i < DKP / 2; i += 2) {
+      const int row = rbase + 8 * ((i >> 1) & 1);
+      const int col = 8 * (i >> 2) + 2 * t;
+      if (row < n && col < dk)
+        *reinterpret_cast<uint32_t*>(out + ((size_t)zi * n + row) * dk + col) =
+            pack_bf16(acc[i], acc[i + 1]);
     }
   }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (nothing
+// more to link).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                : nullptr;
+  }();
+  return fn;
+}
+
+// (z, n, dk) bf16 as a 3-D map of 64 x 64 boxes, 128-byte swizzle; reads
+// past n or dk give zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int z, int n, int dk) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)dk, (cuuint64_t)n, (cuuint64_t)z};
+  const cuuint64_t strides[2] = {(cuuint64_t)dk * 2, (cuuint64_t)n * dk * 2};
+  const cuuint32_t box[3] = {64, kKeys, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ---- Launch. ----
-
-// Raises a kernel's dynamic shared-memory limit to `bytes`, once per
-// device and kernel instance (one `ready` per template instance).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, std::atomic<uint64_t>& ready) {
-  constexpr int kMaxDevices = 64;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = device < kMaxDevices ? uint64_t{1} << device : 0;
-  if (ready.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err != cudaSuccess) return err;
-  ready.fetch_or(bit, std::memory_order_release);
-  return cudaSuccess;
-}
 
 template <typename T, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int z,
@@ -508,21 +608,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int z
 }
 
 template <int DKP>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int z,
-                       int n, int n_valid, int dk, float scale, cudaStream_t stream) {
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int z,
+                         int n, int n_valid, int dk, float scale, cudaStream_t stream) {
   static std::atomic<uint64_t> ready{0};
-  const int row_blocks = (n + kTile - 1) / kTile;
-  const int vec = dk % 8 == 0 &&
-                  (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                   reinterpret_cast<uintptr_t>(v)) % 16 == 0;
-  cudaError_t err =
-      allow_smem(dense_attention_mma_kernel<DKP>, mma_smem_bytes<DKP>(), ready);
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, z, n, dk) || !tensor_map(&tk, k, z, n, dk) ||
+      !tensor_map(&tv, v, z, n, dk))
+    return cudaErrorInvalidValue;
+  const size_t smem = WgLayout<DKP>::kSmem;
+  cudaError_t err = allow_smem(dense_attention_wgmma_kernel<DKP>, smem, ready);
   if (err != cudaSuccess) return err;
-  dense_attention_mma_kernel<DKP>
-      <<<z * row_blocks, kMmaThreads, mma_smem_bytes<DKP>(), stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<bf16*>(out), n, n_valid, dk,
-          row_blocks, scale, vec);
+  const int rows = kConsumers * kWgRows;
+  const int row_blocks = n <= kResidentN ? 1 : (n + rows - 1) / rows;
+  dense_attention_wgmma_kernel<DKP><<<z * row_blocks, kWgThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(out), n, n_valid, dk, row_blocks, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -530,10 +629,14 @@ template <typename T>
 cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* out,
                          int z, int n, int n_valid, int dk, float scale,
                          cudaStream_t stream) {
-  if (sizeof(T) == 2 && dk <= 128) {
-    if (dk <= 32) return launch_mma<32>(q, k, v, out, z, n, n_valid, dk, scale, stream);
-    if (dk <= 64) return launch_mma<64>(q, k, v, out, z, n, n_valid, dk, scale, stream);
-    return launch_mma<128>(q, k, v, out, z, n, n_valid, dk, scale, stream);
+  // TMA wants 16-byte aligned rows and bases
+  const bool tma = dk % 8 == 0 &&
+                   (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
+                           16 == 0;
+  if (sizeof(T) == 2 && dk <= 128 && tma) {
+    if (dk <= 64) return launch_wgmma<64>(q, k, v, out, z, n, n_valid, dk, scale, stream);
+    return launch_wgmma<128>(q, k, v, out, z, n, n_valid, dk, scale, stream);
   }
   switch ((dk + 63) / 64) {
     case 1:

@@ -13,36 +13,87 @@
 // q, v are (heads, segments * N, dk); k, out are (heads, segments * S, dk),
 // all contiguous and of one type (f32 or bf16); masks are bool bytes.
 //
-// What bounds it on the H100: the TPU kernel holds a whole (tile_n, S) f32
-// score block in 16 MB of VMEM and carries the (S, dk) accumulator across
-// its sequential N grid. An SM has at most 227 KB of shared memory and
-// blocks run in no order, so the work is split into two passes that keep
-// the (N, S) probabilities out of device memory and use no atomics:
-//   pass 1 (row_stats_kernel): one block per (64-row tile, hh) streams the
-//     S slots in chunks of 64 and keeps an online max and sum per row; it
-//     writes the row max and q_valid / sum, 8 bytes per row.
-//   pass 2 (slot_accumulate_kernel): one block per (64-slot chunk, hh)
-//     keeps its k chunk in shared memory, loops over the N rows in tiles
-//     of 64, recomputes the scores, forms p from the row stats and the hash,
-//     and accumulates p^T v in registers; the result is written once.
-// Both passes compute q.k^T, so the FLOPs are 1.5x the TPU kernel's; the
-// bytes read are q twice, k once per row tile in pass 1, v once. At one
-// bag (h=4, S=512) pass 2 has only 4 * 512 / 64 = 32 blocks for 132 SMs:
-// this first version is bound by pass 2's occupancy and its CUDA-core FMA
-// rate, not by memory. dk is handled as it is (96 at the operating point):
-// the ragged edges of N, S and dk are masked here, nothing is padded.
+// What bounds it on the H100: at one bag (h=4, N=10240, S=512, dk=96,
+// bf16) the operations, 4 * h * dk * live pairs ≈ 7.2 GFLOP over the
+// 989.4 TFLOP/s bf16 tensor-core peak ≈ 7 us, about the bytes' time. The
+// TPU kernel holds a whole (tile_n, S) f32 score block in 16 MB of VMEM
+// and carries the (S, dk) accumulator across its sequential N grid. An SM
+// has at most 227 KB of shared memory and blocks run in no order, so the
+// work is split into passes that keep the (N, S) probabilities out of
+// device memory and use no atomics:
+//   pass 1 (row stats): one block per (64-row tile, hh) streams the S slots
+//     in chunks of 64 and keeps an online max and sum per row; it writes
+//     the row max and q_valid / sum, 8 bytes per row (the backward kernel
+//     reads them).
+//   pass 2 (slot accumulate): one block per (64-slot chunk, hh, split of
+//     N) keeps its k chunk, loops over its rows in tiles of 64,
+//     recomputes the scores, forms p from the row stats, the slot codes,
+//     the row mask and the hash, and accumulates p^T v in registers. N is
+//     split until the grid has 256 blocks (8 splits at one bag, 1 at 8
+//     bags); each split writes an f32 partial,
+//   split reduce: sums the partials in split order and casts (several
+//     splits only).
+// Both passes compute q.k^T (and the bf16 body p^T v twice, below), so
+// the FLOPs are 1.5x (2x) the TPU kernel's. Two bodies:
+//   bf16, dk <= 128, dk % 8 == 0: 4 warps, 16 rows (pass 1) or 16 slots
+//     (pass 2) each, every product on the tensor cores (mma.sync m16n8k16,
+//     bf16 in, f32 sums), tiles double-buffered by 16-byte cp.async and
+//     read by ldmatrix. Pass 2 is transposed: s^T = k q^T with the warp's
+//     slots of k as A fragments for the whole row loop, and the C fragment
+//     of p^T becomes the A fragment of p^T v (v by ldmatrix.trans). That
+//     product takes p as hi = bf16(p) plus lo = bf16(p - hi), two bf16
+//     products, so p enters it within 2^-16 of its f32 value as in the
+//     plain version: p rounded once to bf16 (as the TPU's MXU takes it at
+//     JAX's default precision) moved out by ~2^-9 of max |out| before its
+//     rounding to bf16, enough for two-ulp flips near the 2^-7 tolerance.
+//   f32, or other dk: 256 threads, every product on CUDA cores in f32;
+//     pass 1 loads its tiles 16 bytes at a time where dk allows (in pass
+//     2 that pushed ptxas past 128 registers into spills).
+// The ragged edges of N, S and dk are masked here, nothing is padded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
+#include <algorithm>
 
+#include "mma_common.cuh"
 #include "sparse_attention_common.cuh"
 
 namespace {
 
 using namespace snuffy;
+
+// load_tile, with 16-byte global loads when `vec`: dk a multiple of
+// 16 / sizeof(T) and 16-byte aligned bases (the launch checks).
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, int stride, const T* __restrict__ src,
+                                          int avail, int dk, bool vec) {
+  if (!vec) {
+    load_tile(dst, stride, src, avail, dk);
+    return;
+  }
+  constexpr int kVec = 16 / sizeof(T);
+  const int chunks = dk / kVec;
+#pragma unroll 1
+  for (int idx = threadIdx.x; idx < kRows * chunks; idx += kThreads) {
+    const int r = idx / chunks;
+    const int d = (idx - r * chunks) * kVec;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (r < avail) raw = *reinterpret_cast<const uint4*>(src + (size_t)r * dk + d);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    float* out = dst + r * stride + d;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (sizeof(T) == 4) {
+        out[e] = __uint_as_float(w[e]);
+      } else {  // two bf16, the first in the low half
+        out[2 * e] = __uint_as_float(w[e] << 16);
+        out[2 * e + 1] = __uint_as_float(w[e] & 0xFFFF0000u);
+      }
+    }
+  }
+}
 
 // Pass 1. Grid (ceil(N / 64), heads * segments).
 template <typename T>
@@ -51,7 +102,7 @@ row_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const uint8_t* __restrict__ slot_valid,
                  const uint8_t* __restrict__ q_valid,
                  float* __restrict__ row_max, float* __restrict__ row_scale,
-                 int segments, int n, int s, int dk, int stride, float scale) {
+                 int segments, int n, int s, int dk, int stride, float scale, int vec) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + kRows * stride;
@@ -63,7 +114,7 @@ row_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  load_tile(qs, stride, q + ((size_t)hh * n + r0) * dk, min(kRows, n - r0), dk);
+  load_rows(qs, stride, q + ((size_t)hh * n + r0) * dk, min(kRows, n - r0), dk, vec);
 
   float m_run[4], l_run[4];
 #pragma unroll
@@ -73,7 +124,7 @@ row_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   for (int c0 = 0; c0 < s; c0 += kSlots) {
     __syncthreads();
-    load_tile(ks, stride, k + ((size_t)hh * s + c0) * dk, min(kSlots, s - c0), dk);
+    load_rows(ks, stride, k + ((size_t)hh * s + c0) * dk, min(kSlots, s - c0), dk, vec);
     load_slot_codes(code, slot_valid + (size_t)seg * s, c0, s);
     __syncthreads();
 
@@ -111,7 +162,9 @@ row_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Pass 2. Grid (ceil(S / 64), heads * segments). DM = dims of dk per thread.
+// Pass 2. Grid (ceil(S / 64), heads * segments, splits): rows
+// [split * rows_per_split, ...) of N. DM = dims of dk per thread. One split
+// writes the output; several write f32 partials for split_reduce_kernel.
 template <typename T, int DM>
 __global__ void __launch_bounds__(kThreads)
 slot_accumulate_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -119,8 +172,9 @@ slot_accumulate_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const uint8_t* __restrict__ slot_valid,
                        const float* __restrict__ row_max,
                        const float* __restrict__ row_scale, T* __restrict__ out,
-                       int segments, int n, int s, int dk, int stride,
-                       float scale, uint32_t seed, float rate, float inv_keep) {
+                       float* __restrict__ partial, int segments, int n, int s, int dk,
+                       int stride, int rows_per_split, float scale, uint32_t seed,
+                       float rate, float inv_keep) {
   extern __shared__ float smem[];
   float* ks = smem;
   float* qs = ks + kSlots * stride;
@@ -146,8 +200,9 @@ slot_accumulate_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int m = 0; m < DM; ++m) acc[b][m] = 0.0f;
 
-  for (int r0 = 0; r0 < n; r0 += kRows) {
-    const int rows = min(kRows, n - r0);
+  const int row_end = min(n, (int)blockIdx.z * rows_per_split + rows_per_split);
+  for (int r0 = blockIdx.z * rows_per_split; r0 < row_end; r0 += kRows) {
+    const int rows = min(kRows, row_end - r0);
     __syncthreads();
     load_tile(qs, stride, q + ((size_t)hh * n + r0) * dk, rows, dk);
     load_tile(vs, stride, v + ((size_t)hh * n + r0) * dk, rows, dk);
@@ -207,9 +262,346 @@ slot_accumulate_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int m = 0; m < DM; ++m) {
         const int d = ty + 16 * m;
-        if (d < dk) store(out + ((size_t)hh * s + j) * dk + d, acc[b][m]);
+        if (d >= dk) continue;
+        const size_t idx = ((size_t)hh * s + j) * dk + d;
+        if (partial != nullptr)
+          partial[(size_t)blockIdx.z * gridDim.y * s * dk + idx] = acc[b][m];
+        else
+          store(out + idx, acc[b][m]);
       }
     }
+  }
+}
+
+// ---- The tensor-core body: bf16, dk <= 128, dk % 8 == 0. ----
+//
+// 4 warps a block, mma.sync m16n8k16 (bf16 in, f32 sums). Tiles are
+// 64 rows of DKP bf16 (dk padded with zeros to a multiple of 32) at a row
+// stride of DKP + 8, so the 8 rows of an ldmatrix hit 8 different bank
+// groups, filled by 16-byte cp.async (zero-filled past n, S or dk).
+
+constexpr int kTcThreads = 128;
+
+template <int DKP>
+__host__ __device__ constexpr int tc_stride() {
+  return DKP + 8;
+}
+template <int DKP>
+__host__ __device__ constexpr int tc_tile_bytes() {
+  return kRows * tc_stride<DKP>() * 2;
+}
+
+// Starts the copy of rows [r0, r0 + 64) of a (rows, dk) bf16 matrix into a
+// tile: zeros past `rows` and past dk.
+template <int DKP>
+__device__ __forceinline__ void tile_async(bf16* dst, const bf16* __restrict__ src, int r0,
+                                           int rows, int dk) {
+  constexpr int kChunks = DKP / 8;
+  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kTcThreads) {
+    const int r = idx / kChunks;
+    const int d = (idx - r * kChunks) * 8;
+    const bool live = r0 + r < rows && d < dk;
+    cp_async16(dst + r * tc_stride<DKP>() + d, live ? src + (size_t)(r0 + r) * dk + d : src,
+               live ? 16 : 0);
+  }
+}
+
+// The warp's (16 rows, 64 columns) products a . b^T, a from registers (A
+// fragments of 16 rows), b the 64 rows of a tile: sc[j][e] is row
+// g + 8 (e >> 1), column 8j + 2t + (e & 1) (g = lane / 4, t = lane % 4).
+template <int DKP>
+__device__ __forceinline__ void mma_tile(float (&sc)[8][4], const uint32_t (&af)[DKP / 16][4],
+                                         const bf16* bs, int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < DKP / 16; ++kk) {
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      // matrices: rows 16jp + {0-7, 0-7, 8-15, 8-15} x dims 16kk + {0-7, 8-15, 0-7, 8-15}
+      uint32_t b[4];
+      ldsm_x4(b, bs + (16 * jp + (lane >> 4) * 8 + (lane & 7)) * tc_stride<DKP>() +
+                     16 * kk + ((lane >> 3) & 1) * 8);
+      mma_bf16(sc[2 * jp], af[kk], b[0], b[1]);
+      mma_bf16(sc[2 * jp + 1], af[kk], b[2], b[3]);
+    }
+  }
+}
+
+// A fragments of the warp's 16 rows of a tile.
+template <int DKP>
+__device__ __forceinline__ void load_frags(uint32_t (&af)[DKP / 16][4], const bf16* tile,
+                                           int warp, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < DKP / 16; ++kk)
+    ldsm_x4(af[kk], tile + (16 * warp + (lane & 15)) * tc_stride<DKP>() + 16 * kk +
+                        (lane >> 4) * 8);
+}
+
+// Pass 1. Grid (ceil(N / 64), heads * segments). Each warp keeps its 16
+// query rows as A fragments and streams the S slots in chunks of 64 (two
+// cp.async buffers) for an online max and sum.
+template <int DKP>
+__global__ void __launch_bounds__(kTcThreads)
+row_stats_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const uint8_t* __restrict__ slot_valid,
+                    const uint8_t* __restrict__ q_valid, float* __restrict__ row_max,
+                    float* __restrict__ row_scale, int segments, int n, int s, int dk,
+                    float scale) {
+  extern __shared__ uint4 smem_tc[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);
+  bf16* ks = qs + kRows * tc_stride<DKP>();  // two chunk buffers
+  float* code = reinterpret_cast<float*>(ks + 2 * kSlots * tc_stride<DKP>());  // 2 x 64
+
+  const int hh = blockIdx.y;
+  const int seg = hh % segments;
+  const int r0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const bf16* kh = k + (size_t)hh * s * dk;
+  const uint8_t* sv = slot_valid + (size_t)seg * s;
+  const int chunks = (s + kSlots - 1) / kSlots;
+
+  tile_async<DKP>(qs, q + (size_t)hh * n * dk, r0, n, dk);
+  tile_async<DKP>(ks, kh, 0, s, dk);
+  cp_async_commit();
+  if (threadIdx.x < kSlots) {
+    const int j = threadIdx.x;
+    code[j] = j < s ? (sv[j] ? 1.0f : 0.0f) : -1.0f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[DKP / 16][4];
+  load_frags<DKP>(qf, qs, warp, lane);
+
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.0f, 0.0f};
+  for (int c = 0; c < chunks; ++c) {
+    const int buf = c & 1;
+    if (c + 1 < chunks) {  // the next chunk loads while this one is used
+      tile_async<DKP>(ks + (buf ^ 1) * kSlots * tc_stride<DKP>(), kh, (c + 1) * kSlots, s, dk);
+      cp_async_commit();
+      if (threadIdx.x < kSlots) {
+        const int j = (c + 1) * kSlots + threadIdx.x;
+        code[(buf ^ 1) * kSlots + threadIdx.x] = j < s ? (sv[j] ? 1.0f : 0.0f) : -1.0f;
+      }
+    }
+    float sc[8][4];
+    mma_tile<DKP>(sc, qf, ks + buf * kSlots * tc_stride<DKP>(), lane);
+    const float* cb = code + buf * kSlots;
+    float cmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float cd = cb[8 * j + 2 * t + (e & 1)];
+        const float x = cd > 0.0f ? sc[j][e] * scale : (cd == 0.0f ? kNegBig : -INFINITY);
+        sc[j][e] = x;
+        cmax[e >> 1] = fmaxf(cmax[e >> 1], x);
+      }
+    float new_m[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 1));
+      cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 2));
+      // slot 64c exists, so the chunk max is finite
+      new_m[h] = fmaxf(m_run[h], cmax[h]);
+    }
+    float csum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) csum[e >> 1] += __expf(sc[j][e] - new_m[e >> 1]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      csum[h] += __shfl_xor_sync(0xffffffffu, csum[h], 1);
+      csum[h] += __shfl_xor_sync(0xffffffffu, csum[h], 2);
+      l_run[h] = l_run[h] * __expf(m_run[h] - new_m[h]) + csum[h];
+      m_run[h] = new_m[h];
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 16 * warp + (lane >> 2) + 8 * h;
+      if (row < n) {
+        const size_t idx = (size_t)hh * n + row;
+        row_max[idx] = m_run[h];
+        row_scale[idx] = q_valid[(size_t)seg * n + row] ? 1.0f / l_run[h] : 0.0f;
+      }
+    }
+  }
+}
+
+// Pass 2. Grid (ceil(S / 64), heads * segments, splits): rows
+// [split * rows_per_split, ...) of N. Each warp keeps its 16 slots of k as
+// A fragments; per 64-row tile (q, v and the row stats in two cp.async
+// buffers) it computes s^T = k q^T, forms p^T in the fragments, splits it
+// into two bf16 parts and accumulates p^T v (16 slots x DKP, f32) in
+// registers. One split writes the output; several write f32 partials for
+// split_reduce_kernel.
+template <int DKP>
+__global__ void __launch_bounds__(kTcThreads)
+slot_accumulate_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const uint8_t* __restrict__ slot_valid,
+                          const float* __restrict__ row_max,
+                          const float* __restrict__ row_scale, bf16* __restrict__ out,
+                          float* __restrict__ partial, int segments, int n, int s, int dk,
+                          int rows_per_split, float scale, uint32_t seed, float rate,
+                          float inv_keep) {
+  extern __shared__ uint4 smem_tc[];
+  constexpr int kS = tc_stride<DKP>();
+  constexpr int kTile = kRows * kS;  // bf16 elements of a tile
+  bf16* ks = reinterpret_cast<bf16*>(smem_tc);
+  bf16* qs = ks + kTile;          // two buffers
+  bf16* vs = qs + 2 * kTile;      // two buffers
+  float* stats = reinterpret_cast<float*>(vs + 2 * kTile);  // 2 x (max, scale) x 64
+
+  const int hh = blockIdx.y;
+  const int seg = hh % segments;
+  const int c0 = blockIdx.x * kSlots;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row_begin = blockIdx.z * rows_per_split;
+  const int row_end = min(n, row_begin + rows_per_split);
+  const int tiles = (row_end - row_begin + kRows - 1) / kRows;
+  const bf16* qh = q + (size_t)hh * n * dk;
+  const bf16* vh = v + (size_t)hh * n * dk;
+  const float* rmh = row_max + (size_t)hh * n;
+  const float* rsh = row_scale + (size_t)hh * n;
+
+  // Rows [r0, r0 + 64) of q, v and the row stats into buffer b; rows at or
+  // past row_end are zeros (so their p is e^0 * 0 = 0).
+  auto prefetch = [&](int r0, int b) {
+    tile_async<DKP>(qs + b * kTile, qh, r0, row_end, dk);
+    tile_async<DKP>(vs + b * kTile, vh, r0, row_end, dk);
+    const int i = threadIdx.x & (kRows - 1);
+    const bool live = r0 + i < row_end;
+    const float* src = threadIdx.x < kRows ? rmh : rsh;
+    cp_async4(stats + b * 2 * kRows + threadIdx.x, live ? src + r0 + i : src, live ? 4 : 0);
+    cp_async_commit();
+  };
+
+  tile_async<DKP>(ks, k + (size_t)hh * s * dk, c0, s, dk);
+  if (tiles > 0) prefetch(row_begin, 0);
+  else cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t kf[DKP / 16][4];
+  load_frags<DKP>(kf, ks, warp, lane);
+
+  // slots c0 + 16 warp + g + 8h: live (scored), dead (-1e30) or past S (p = 0)
+  bool live[2], exists[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = c0 + 16 * warp + g + 8 * h;
+    exists[h] = j < s;
+    live[h] = exists[h] && slot_valid[(size_t)seg * s + j];
+  }
+
+  float acc[DKP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DKP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int b = it & 1;
+    const int r0 = row_begin + it * kRows;
+    if (it + 1 < tiles) prefetch(r0 + kRows, b ^ 1);
+    const bf16* qb = qs + b * kTile;
+    const bf16* vb = vs + b * kTile;
+    const float* rm = stats + b * 2 * kRows;
+    const float* rs = rm + kRows;
+
+    // s^T (16 slots, 64 rows): sc[j][e] is slot g + 8 (e >> 1), row 8j + 2t + (e & 1)
+    float sc[8][4];
+    mma_tile<DKP>(sc, kf, qb, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int i = 8 * j + 2 * t + (e & 1);
+        const float x = live[h] ? sc[j][e] * scale : kNegBig;
+        float p = exists[h] ? __expf(x - rm[i]) * rs[i] : 0.0f;
+        if (rate > 0.0f)
+          p *= keep_factor(seed, (uint32_t)hh, (uint32_t)(r0 + i),
+                           (uint32_t)(c0 + 16 * warp + g + 8 * h), rate, inv_keep);
+        sc[j][e] = p;
+      }
+    // p^T . v: the C fragments of rows 16kk..16kk+15 are the A fragment,
+    // p = hi + lo in two bf16 products
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pack_bf16_split(sc[2 * kk + (r >> 1)][2 * (r & 1)], sc[2 * kk + (r >> 1)][2 * (r & 1) + 1],
+                        hi[r], lo[r]);
+#pragma unroll
+      for (int jj = 0; jj < DKP / 16; ++jj) {
+        // matrices: rows 16kk + {0-7, 8-15, 0-7, 8-15} x dims 16jj + {0-7, 0-7, 8-15, 8-15}
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, vb + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kS + 16 * jj +
+                              (lane >> 4) * 8);
+        mma_bf16(acc[2 * jj], hi, bv[0], bv[1]);
+        mma_bf16(acc[2 * jj + 1], hi, bv[2], bv[3]);
+        mma_bf16(acc[2 * jj], lo, bv[0], bv[1]);
+        mma_bf16(acc[2 * jj + 1], lo, bv[2], bv[3]);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = c0 + 16 * warp + g + 8 * h;
+    if (!exists[h]) continue;
+    const size_t row = (size_t)hh * s + j;
+#pragma unroll
+    for (int jn = 0; jn < DKP / 8; ++jn) {
+      const int d = 8 * jn + 2 * t;
+      if (d >= dk) continue;
+      if (partial != nullptr) {
+        float2* dst = reinterpret_cast<float2*>(
+            partial + ((size_t)blockIdx.z * gridDim.y * s + row) * dk + d);
+        *dst = make_float2(acc[jn][2 * h], acc[jn][2 * h + 1]);
+      } else {
+        *reinterpret_cast<uint32_t*>(out + row * dk + d) =
+            pack_bf16(acc[jn][2 * h], acc[jn][2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <int DKP>
+constexpr size_t smem_tc_pass1() {
+  return (size_t)3 * tc_tile_bytes<DKP>() + 2 * kSlots * sizeof(float);
+}
+template <int DKP>
+constexpr size_t smem_tc_pass2() {
+  return (size_t)5 * tc_tile_bytes<DKP>() + 4 * kRows * sizeof(float);
+}
+
+// out = T(sum over the splits of the f32 partials), in split order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+split_reduce_kernel(const float* __restrict__ partial, T* __restrict__ out, size_t total,
+              int splits) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float sum = 0.0f;
+    for (int sp = 0; sp < splits; ++sp) sum += partial[(size_t)sp * total + i];
+    store(out + i, sum);
   }
 }
 
@@ -222,103 +614,133 @@ constexpr size_t smem_pass2(int stride) {
                           (size_t)kRows * (kSlots + 1) + kSlots + 2 * kRows);
 }
 
-// Raises both passes' dynamic shared-memory limit to what the largest dk
-// of the instance (16 * DM) needs, once per device and template instance.
-template <typename T, int DM>
-cudaError_t allow_smem() {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<uint64_t> ready{0};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = device < kMaxDevices ? uint64_t{1} << device : 0;
-  if (ready.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  constexpr int max_stride = 16 * DM + 1;
-  err = cudaFuncSetAttribute(row_stats_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_pass1(max_stride));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(slot_accumulate_kernel<T, DM>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_pass2(max_stride));
-  if (err != cudaSuccess) return err;
-  ready.fetch_or(bit, std::memory_order_release);
-  return cudaSuccess;
-}
+struct Args {
+  const void *q, *k, *v, *slot_valid, *q_valid;
+  void *out, *row_max, *row_scale, *partial;
+  int heads, segments, n, s, dk, splits;
+  float scale;
+  uint32_t seed;
+  float rate, inv_keep;
+  cudaStream_t stream;
 
-template <typename T, int DM>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* slot_valid, const void* q_valid, void* out,
-                   void* row_max, void* row_scale, int heads, int segments,
-                   int n, int s, int dk, float scale, uint32_t seed, float rate,
-                   float inv_keep, cudaStream_t stream) {
-  const int hh = heads * segments;
-  const int stride = dk | 1;  // odd row stride: conflict-free column reads
-  const size_t smem1 = smem_pass1(stride);
-  const size_t smem2 = smem_pass2(stride);
-  const dim3 block(kThreads);
-  const dim3 grid1((n + kRows - 1) / kRows, hh);
-  const dim3 grid2((s + kSlots - 1) / kSlots, hh);
+  int rows_per_split() const { return (n + kRows * splits - 1) / (kRows * splits) * kRows; }
+  dim3 grid1() const { return dim3((n + kRows - 1) / kRows, heads * segments); }
+  dim3 grid2() const { return dim3((s + kSlots - 1) / kSlots, heads * segments, splits); }
+  float* part() const { return splits > 1 ? static_cast<float*>(partial) : nullptr; }
+  // 16 bytes a load: whole 16-byte chunks a row and 16-byte aligned bases
+  template <typename T>
+  bool vec() const {
+    return dk % (16 / sizeof(T)) == 0 &&
+           (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+            reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  }
+};
 
-  cudaError_t err = allow_smem<T, DM>();
-  if (err != cudaSuccess) return err;
-  row_stats_kernel<T><<<grid1, block, smem1, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const uint8_t*>(slot_valid), static_cast<const uint8_t*>(q_valid),
-      static_cast<float*>(row_max), static_cast<float*>(row_scale), segments, n, s,
-      dk, stride, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  slot_accumulate_kernel<T, DM><<<grid2, block, smem2, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(slot_valid), static_cast<const float*>(row_max),
-      static_cast<const float*>(row_scale), static_cast<T*>(out), segments, n, s, dk,
-      stride, scale, seed, rate, inv_keep);
+// The splits' sum, when there are several.
+template <typename T>
+cudaError_t launch_reduce(const Args& a) {
+  if (a.splits == 1) return cudaSuccess;
+  const size_t total = (size_t)a.heads * a.segments * a.s * a.dk;
+  const int blocks = (int)std::min<size_t>((total + 255) / 256, 4 * 132);
+  split_reduce_kernel<T><<<blocks, 256, 0, a.stream>>>(static_cast<const float*>(a.partial),
+                                                 static_cast<T*>(a.out), total, a.splits);
   return cudaGetLastError();
 }
 
+// The CUDA-core body, DM = dims of dk per thread: the limits are raised to
+// what the largest dk of the kernel needs (pass 1 serves every DM).
+template <typename T, int DM>
+cudaError_t launch(const Args& a) {
+  static std::atomic<uint64_t> ready1{0}, ready2{0};
+  const int stride = a.dk | 1;  // odd row stride: conflict-free column reads
+  const size_t smem1 = smem_pass1(stride);
+  const size_t smem2 = smem_pass2(stride);
+  cudaError_t err = allow_smem(row_stats_kernel<T>, smem_pass1(256 + 1), ready1);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(slot_accumulate_kernel<T, DM>, smem_pass2(16 * DM + 1), ready2);
+  if (err != cudaSuccess) return err;
+  row_stats_kernel<T><<<a.grid1(), kThreads, smem1, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const uint8_t*>(a.slot_valid), static_cast<const uint8_t*>(a.q_valid),
+      static_cast<float*>(a.row_max), static_cast<float*>(a.row_scale), a.segments, a.n,
+      a.s, a.dk, stride, a.scale, a.vec<T>());
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  slot_accumulate_kernel<T, DM><<<a.grid2(), kThreads, smem2, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const uint8_t*>(a.slot_valid), static_cast<const float*>(a.row_max),
+      static_cast<const float*>(a.row_scale), static_cast<T*>(a.out), a.part(), a.segments,
+      a.n, a.s, a.dk, stride, a.rows_per_split(), a.scale, a.seed, a.rate, a.inv_keep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce<T>(a);
+}
+
+// The tensor-core body, dk <= DKP.
+template <int DKP>
+cudaError_t launch_tc(const Args& a) {
+  static std::atomic<uint64_t> ready1{0}, ready2{0};
+  cudaError_t err = allow_smem(row_stats_tc_kernel<DKP>, smem_tc_pass1<DKP>(), ready1);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(slot_accumulate_tc_kernel<DKP>, smem_tc_pass2<DKP>(), ready2);
+  if (err != cudaSuccess) return err;
+  row_stats_tc_kernel<DKP><<<a.grid1(), kTcThreads, smem_tc_pass1<DKP>(), a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const uint8_t*>(a.slot_valid), static_cast<const uint8_t*>(a.q_valid),
+      static_cast<float*>(a.row_max), static_cast<float*>(a.row_scale), a.segments, a.n,
+      a.s, a.dk, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  slot_accumulate_tc_kernel<DKP><<<a.grid2(), kTcThreads, smem_tc_pass2<DKP>(), a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const uint8_t*>(a.slot_valid),
+      static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_scale),
+      static_cast<bf16*>(a.out), a.part(), a.segments, a.n, a.s, a.dk, a.rows_per_split(),
+      a.scale, a.seed, a.rate, a.inv_keep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce<bf16>(a);
+}
+
 template <typename T>
-cudaError_t launch_dtype(const void* q, const void* k, const void* v,
-                         const void* slot_valid, const void* q_valid, void* out,
-                         void* row_max, void* row_scale, int heads, int segments,
-                         int n, int s, int dk, float scale, uint32_t seed,
-                         float rate, float inv_keep, cudaStream_t stream) {
-  if (dk <= 64)
-    return launch<T, 4>(q, k, v, slot_valid, q_valid, out, row_max, row_scale, heads,
-                        segments, n, s, dk, scale, seed, rate, inv_keep, stream);
-  if (dk <= 128)
-    return launch<T, 8>(q, k, v, slot_valid, q_valid, out, row_max, row_scale, heads,
-                        segments, n, s, dk, scale, seed, rate, inv_keep, stream);
-  return launch<T, 16>(q, k, v, slot_valid, q_valid, out, row_max, row_scale, heads,
-                       segments, n, s, dk, scale, seed, rate, inv_keep, stream);
+cudaError_t launch_dtype(const Args& a) {
+  // cp.async moves 16 bytes: dk % 8 == 0 and 16-byte aligned bases
+  if (sizeof(T) == 2 && a.dk <= 128 && a.vec<T>()) {
+    if (a.dk <= 32) return launch_tc<32>(a);
+    if (a.dk <= 64) return launch_tc<64>(a);
+    if (a.dk <= 96) return launch_tc<96>(a);
+    return launch_tc<128>(a);
+  }
+  if (a.dk <= 64) return launch<T, 4>(a);
+  if (a.dk <= 128) return launch<T, 8>(a);
+  return launch<T, 16>(a);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16; scale is 1 / sqrt(dk). row_max and
-// row_scale are f32 scratch of heads * segments * n values each. Launches
-// on `stream` and returns the cudaError_t of the launches (0 on success);
-// it does not synchronise.
+// row_scale are f32 scratch of heads * segments * n values each; with
+// splits > 1, partial is f32 scratch of splits * heads * segments * s * dk
+// values (unused with one split). Launches on `stream` and returns the
+// cudaError_t of the launches (0 on success); it does not synchronise.
 extern "C" int snuffy_sparse_attention_fwd(
     const void* q, const void* k, const void* v, const void* slot_valid,
-    const void* q_valid, void* out, void* row_max, void* row_scale, int heads,
-    int segments, int n, int s, int dk, int dtype, float scale, int seed,
-    float rate, float inv_keep, void* stream) {
+    const void* q_valid, void* out, void* row_max, void* row_scale, void* partial,
+    int heads, int segments, int n, int s, int dk, int dtype, int splits, float scale,
+    int seed, float rate, float inv_keep, void* stream) {
   if (heads < 1 || segments < 1 || n < 1 || s < 1 || dk < 1 || dk > 256 ||
-      heads * segments > 65535) {
+      heads * segments > 65535 || splits < 1 || splits > 65535 ||
+      (splits > 1 && partial == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint32_t useed = static_cast<uint32_t>(seed);
+  const Args a{q, k, v, slot_valid, q_valid, out, row_max, row_scale, partial,
+               heads, segments, n, s, dk, splits, scale, static_cast<uint32_t>(seed),
+               rate, inv_keep, static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (dtype == 0) {
-    err = launch_dtype<float>(q, k, v, slot_valid, q_valid, out, row_max, row_scale,
-                              heads, segments, n, s, dk, scale, useed, rate, inv_keep, st);
+    err = launch_dtype<float>(a);
   } else if (dtype == 1) {
-    err = launch_dtype<__nv_bfloat16>(q, k, v, slot_valid, q_valid, out, row_max,
-                                      row_scale, heads, segments, n, s, dk, scale,
-                                      useed, rate, inv_keep, st);
+    err = launch_dtype<__nv_bfloat16>(a);
   } else {
     err = cudaErrorInvalidValue;
   }

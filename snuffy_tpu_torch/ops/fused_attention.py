@@ -81,17 +81,36 @@ def _scalar_args(q, rate, seed):
             _int32(0 if seed is None else seed), rate, 1.0 / (1.0 - rate))
 
 
+# The forward kernel's slot-accumulate grid is (⌈S/64⌉, h·segments,
+# splits): N is split until the grid has at least this many blocks, about
+# two waves of 132 SMs (8 splits at one bag of S=512, h=4; 1 at 8 bags).
+FWD_MIN_BLOCKS = 256
+
+
+def fwd_splits(n: int, s: int, folded_heads: int) -> int:
+    """Splits of the N rows for the forward kernel: the fewest that give
+    FWD_MIN_BLOCKS blocks, and no more than N's 64-row tiles."""
+    blocks = math.ceil(s / 64) * folded_heads
+    return max(1, min(math.ceil(n / 64), math.ceil(FWD_MIN_BLOCKS / blocks)))
+
+
 def _fwd_cuda(q, k, v, slot_valid, q_valid, segments, rate, seed):
-    """Forward kernel → (out, row_max, row_scale)."""
+    """Forward kernel → (out, row_max, row_scale). With several splits the
+    kernel sums f32 partials (scratch here) in a fixed order: no atomics,
+    the same bits every run."""
     h, kn, dk = q.shape
     n, s = kn // segments, k.shape[1] // segments
+    splits = fwd_splits(n, s, h * segments)
     out = torch.empty((h, k.shape[1], dk), dtype=q.dtype, device=q.device)
     row_max = torch.empty((h * kn,), dtype=torch.float32, device=q.device)
     row_scale = torch.empty_like(row_max)
+    partial = torch.empty((splits if splits > 1 else 0, h, k.shape[1], dk),
+                          dtype=torch.float32, device=q.device)
+    dtype, scale, seed32, rate, inv_keep = _scalar_args(q, rate, seed)
     launch(FWD, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            slot_valid.data_ptr(), q_valid.data_ptr(), out.data_ptr(),
-            row_max.data_ptr(), row_scale.data_ptr(), h, segments, n, s, dk,
-            *_scalar_args(q, rate, seed))
+           slot_valid.data_ptr(), q_valid.data_ptr(), out.data_ptr(),
+           row_max.data_ptr(), row_scale.data_ptr(), partial.data_ptr(), h,
+           segments, n, s, dk, dtype, splits, scale, seed32, rate, inv_keep)
     return out, row_max, row_scale
 
 

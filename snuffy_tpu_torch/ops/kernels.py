@@ -37,7 +37,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FWD = Kernel(
     "sparse_attention_fwd", "snuffy_tpu_torch/csrc/sparse_attention_fwd.cu",
     "snuffy_tpu/ops/pallas_attention.py:94",
-    (_P,) * 8 + (_I,) * 6 + (_F, _I, _F, _F, _P),
+    (_P,) * 9 + (_I,) * 7 + (_F, _I, _F, _F, _P),
 )
 BWD = Kernel(
     "sparse_attention_bwd", "snuffy_tpu_torch/csrc/sparse_attention_bwd.cu",

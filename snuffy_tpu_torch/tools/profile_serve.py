@@ -13,7 +13,8 @@ request of 10000 uint8 224² tiles through `predict_tiles`, then prints:
     torch.profiler trace, per iteration), the idle share 1 − busy/wall,
     the FLOP rate from counted FLOPs, and the ops with the most self
     device time;
-  * the sparse-attention kernel's two passes (row_stats, slot_accumulate).
+  * the sparse-attention kernel's passes (row_stats, slot_accumulate and
+    split_reduce, the sum of its N splits).
 
 `--out` also writes the full per-op tables to FILE. Needs one CUDA GPU.
 """
@@ -177,7 +178,7 @@ def main(argv=None) -> int:
     lines += report(f"classify, bag of {n_pad} rows", wall, busy, ops)
     tables += table("classify", ops, kernels)
     kernel_ms = 0.0
-    for pass_name in ("row_stats_kernel", "slot_accumulate_kernel"):
+    for pass_name in ("row_stats", "slot_accumulate", "split_reduce"):
         ms = sum(m for name, m in kernels if pass_name in name) / cfg.depth
         kernel_ms += ms
         lines.append(f"{fa.FWD.name} {pass_name}: {ms:.4f} ms per call, "

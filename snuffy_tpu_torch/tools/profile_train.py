@@ -36,8 +36,9 @@ ROWS, VALID, PACKED = 10240, 10000, 8
 
 # Kernel-name fragments of each group, first match wins.
 GROUPS = (
-    ("K1 pass 1 row_stats", ("row_stats_kernel",)),
-    ("K1 pass 2 slot_accumulate", ("slot_accumulate_kernel",)),
+    ("K1 pass 1 row_stats", ("row_stats",)),
+    ("K1 pass 2 slot_accumulate", ("slot_accumulate",)),
+    ("K1 split_reduce", ("split_reduce",)),
     ("K2 pass A row_grad", ("row_grad_kernel",)),
     ("K2 pass B slot_grad", ("slot_grad_kernel",)),
     ("GEMMs (cuBLAS)", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),

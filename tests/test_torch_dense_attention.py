@@ -217,6 +217,34 @@ def test_kernel_matches_plain_on_the_card(cuda_device, dtype, z, n, n_valid,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dk", [32, 64, 96, 128])
+@pytest.mark.parametrize("n, n_valid", [
+    (1, 1), (16, 16), (65, 60), (197, 197), (256, 200), (257, 257),
+    (785, 700),
+])
+def test_tensor_core_body_edges_on_the_card(cuda_device, n, n_valid, dk):
+    """bf16 with dk <= 128 takes the wgmma body: a last key tile of 16,
+    32, 48 or 64 keys, warpgroups with no row, K/V held whole (n <= 256)
+    or streamed (n > 256), dk padded to 64 or 128 by the loads."""
+    gen = torch.Generator().manual_seed(n + dk)
+    z = 3
+    q, k, v = (torch.randn((z, n, dk), generator=gen).to(cuda_device,
+                                                          torch.bfloat16)
+               for _ in range(3))
+    with torch.inference_mode():
+        before = DENSE.launches
+        got = da.fused_self_attention(q, k, v, n_valid)
+        assert DENSE.launches == before + 1
+        want = da.dense_attention_reference(q, k, v, n_valid)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= CARD_TOL[torch.bfloat16] * max(
+        1.0, float(want.float().abs().max()))
+
+
+@pytest.mark.cuda
 def test_gradient_on_the_card_is_the_plain_gradient(cuda_device):
     gen = torch.Generator().manual_seed(7)
     q, k, v = (torch.randn((4, 97, 48), generator=gen).to(cuda_device)

@@ -100,6 +100,9 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
     dict(h=1, n=65, s=65, dk=100),               # one past every tile edge
     dict(h=2, n=64, s=130, dk=256),              # the largest dk
     dict(h=3, n=1, s=1, dk=1),
+    dict(h=2, n=1, s=40, dk=96),                 # one row
+    dict(h=1, n=1000, s=64, dk=96),              # 16 N splits, the last short
+    dict(h=4, n=777, s=512, dk=32),              # 8 N splits, the last empty
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_kernel_matches_plain_on_the_card(cuda_device, dtype, shape, rate):
@@ -197,3 +200,82 @@ def test_backward_kernel_all_dead_segments(cuda_device):
     assert torch.count_nonzero(dk[:, 20:]) == 0
     assert torch.count_nonzero(dv[:, 140:]) == 0
     assert torch.count_nonzero(dv[:, 70:140]) > 0  # uniform σ still reads v
+
+
+def test_forward_splits_fill_the_card_and_cover_n():
+    """The forward kernel splits N until its slot grid has 256 blocks (8
+    splits at one bag of the operating widths, 1 at 8 packed bags), never
+    into more splits than N has 64-row tiles."""
+    assert fa.fwd_splits(10240, 512, 4) == 8
+    assert fa.fwd_splits(10240, 512, 4 * 8) == 1
+    assert fa.fwd_splits(1, 1, 3) == 1
+    assert fa.fwd_splits(130, 24, 1) == 3
+    for n, s, hh in [(10240, 512, 4), (1000, 64, 2), (65, 130, 1)]:
+        splits = fa.fwd_splits(n, s, hh)
+        assert 1 <= splits <= -(-n // 64)
+        blocks = -(-s // 64) * hh
+        assert splits == 1 or blocks * (splits - 1) < fa.FWD_MIN_BLOCKS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_eight_segments_dummy_bag_dead_segment(cuda_device, dtype):
+    """segments=8 at rate 0.1: segment 6 a dummy bag (no live row or
+    slot), segment 7 live rows and no live slot (a uniform σ)."""
+    n, s = 300, 64
+    q, k, v, sv, qv = make(h=4, n=n, s=s, dk=96, segments=8, dtype=dtype,
+                           device=cuda_device)
+    qv[6 * n:7 * n] = False
+    sv[6 * s:8 * s] = False
+    kw = dict(dropout_rate=0.1, dropout_seed=-5)
+    with torch.inference_mode():
+        got = fa.fused_packed_inverted_sparse_attention(q, k, v, sv, qv, 8,
+                                                        **kw)
+        want = packed_inverted_sparse_attention(q, k, v, sv, qv, 8, **kw)
+    torch.cuda.synchronize()
+    assert_close_to_plain(got, want, TOL[dtype])
+    assert torch.count_nonzero(got[:, 6 * s:7 * s]) == 0
+    assert torch.count_nonzero(got[:, 7 * s:]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [1, 8])
+def test_kernel_is_bitwise_repeatable(cuda_device, segments):
+    """The splits are summed in a fixed order, without atomics: two
+    launches on the same inputs give the same bits."""
+    args = make(h=4, n=2000, s=512 // segments, dk=96, segments=segments,
+                dtype=torch.bfloat16, device=cuda_device)
+    kw = dict(dropout_rate=0.1, dropout_seed=3)
+    with torch.inference_mode():
+        a = fa.fused_packed_inverted_sparse_attention(*args, segments, **kw)
+        b = fa.fused_packed_inverted_sparse_attention(*args, segments, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [1, 8])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_bf16_kernel_is_one_ulp_from_plain_at_operating_widths(
+        cuda_device, segments, rate, seed):
+    """The bf16 body feeds p to σᵀv as hi + lo, so its f32 sums stay within
+    f32 noise of the plain version's: after both round to bf16, no output
+    is more than one ulp from the plain one (h=4, N=10240, S=512, dk=96).
+    Outputs below 2^-8 of max |out|, where the sums cancel and f32 noise
+    is more than their own ulp, are held to the ulp of 2^-8 max |out|."""
+    args = make(h=4, n=10240, s=512, dk=96, segments=segments,
+                dtype=torch.bfloat16, seed=seed, device=cuda_device)
+    kw = dict(dropout_rate=rate, dropout_seed=seed)
+    with torch.inference_mode():
+        got = fa.fused_packed_inverted_sparse_attention(*args, segments, **kw)
+        want = packed_inverted_sparse_attention(*args, segments, **kw)
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    floor = 2.0 ** -8 * float(want.abs().max())
+    big = torch.maximum(got.abs(), want.abs()).clamp_min(floor)
+    ulps = (got - want).abs() / torch.exp2(torch.floor(torch.log2(big)) - 7)
+    worst = int(ulps.argmax())
+    assert float(ulps.max()) <= 1.0, (
+        f"{float(ulps.max())} ulps at {worst}: kernel "
+        f"{float(got.flatten()[worst])}, plain {float(want.flatten()[worst])}")

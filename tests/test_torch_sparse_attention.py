@@ -25,6 +25,7 @@ from snuffy_tpu.ops.sparse_attention import (
     packed_inverted_sparse_attention as jax_plain_packed,
 )
 from snuffy_tpu_torch.ops.sparse_attention import (
+    _softmax_and_factor,
     inverted_sparse_attention,
     keep_factor,
     packed_inverted_sparse_attention,
@@ -268,3 +269,83 @@ def test_dead_slot_segment_backward_follows_the_oracle_not_the_tpu_kernel():
             part = slice(i * seg, (i + 1) * seg)
             np.testing.assert_allclose(a[:, part].numpy(), b[:, part],
                                        rtol=1e-5, atol=ATOL)
+
+
+def operating_inputs(segments, seed):
+    """Seeded bf16 inputs at the operating widths: h=4, N=10240 rows a bag
+    (10000 valid), S=512 slots (~10 % dead), dk=96."""
+    h, n, s, dk = 4, 10240, 512, 96
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((h, segments * m, dk))
+                                .astype(np.float32)).bfloat16()
+               for m in (n, s, n))
+    slot_valid = torch.from_numpy(rng.random(segments * s) > 0.1)
+    q_valid = (torch.arange(n) < 10000).repeat(segments)
+    return q, k, v, slot_valid, q_valid
+
+
+def emulate_forward_kernel_bf16(q, k, v, slot_valid, q_valid, segments,
+                                rate, seed=12345):
+    """The forward kernel's bf16 tensor-core body, a segment at a time:
+    p = σ · factor in f32 (the plain version's), then p as the kernel's
+    product σᵀv takes it, hi = bf16(p) plus lo = bf16(p − hi), and as one
+    bf16 rounding would. → (plain, kernel, one rounding), the f32 results
+    before their cast, each (h, segments·S, dk)."""
+    h = q.shape[0]
+    n, s = q.shape[1] // segments, k.shape[1] // segments
+    outs = ([], [], [])
+    for seg in range(segments):
+        rows = slice(seg * n, (seg + 1) * n)
+        slots = slice(seg * s, (seg + 1) * s)
+        sigma, factor = _softmax_and_factor(q[:, rows], k[:, slots],
+                                            slot_valid[slots], q_valid[rows],
+                                            1, 0.0, None)
+        if rate > 0.0:  # the hash of folded head head·segments + seg
+            hh = torch.arange(h) * segments + seg
+            factor = factor * keep_factor(seed, hh[:, None, None, None],
+                                          torch.arange(n)[:, None],
+                                          torch.arange(s), rate)
+        p = sigma * factor
+        hi = p.bfloat16().float()
+        for out, pk in zip(outs, (p, hi + (p - hi).bfloat16().float(), hi)):
+            out.append(torch.einsum("hkns,hknd->hksd", pk,
+                                    v[:, rows].float()[:, None])[:, 0])
+    return tuple(torch.cat(out, dim=1) for out in outs)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_p_of_the_forward_kernel_stays_within_tolerance(rate):
+    """The forward kernel's tensor-core body feeds p = σ · factor to its
+    bf16 product σᵀv as hi + lo, two bf16 parts; the plain version keeps p
+    in f32. Emulated at the operating widths, one bag, the kernel stays
+    within its bf16 tolerance of the plain version, 2^-7 of max |out|; the
+    emulation with p kept whole is the plain version, bit for bit."""
+    inputs = operating_inputs(1, 11)
+    plain, kernel, _ = emulate_forward_kernel_bf16(*inputs, 1, rate)
+    want = packed_inverted_sparse_attention(*inputs, 1, dropout_rate=rate,
+                                            dropout_seed=12345)
+    assert torch.equal(plain.bfloat16(), want)
+    assert _rel(kernel.bfloat16().float(), want.float()) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("segments, seed", [(1, 12), (1, 13), (8, 11)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_split_p_keeps_the_forward_kernel_off_two_ulp_flips(segments, rate,
+                                                             seed):
+    """Both sides round their f32 result to bf16 once: a one-ulp flip
+    costs at most 2^-7 of max |out|, a two-ulp flip needs the f32 results
+    to differ by 2^-8 of it. p rounded once to bf16 moves them by ~2^-9
+    (1.6e-3-2.0e-3 of max |out| at these widths, up to 7.2e-3 after the
+    rounding at 8 segments, seed 11); hi + lo keeps them (2.2e-6-2.8e-6)
+    256x inside 2^-8, at one bag and at 8 segments, with and without
+    dropout."""
+    plain, kernel, once = emulate_forward_kernel_bf16(
+        *operating_inputs(segments, seed), segments, rate)
+    assert _rel(kernel, plain) <= 2.0 ** -16
+    assert _rel(once, plain) > 2.0 ** -10  # what the split avoids
+    assert _rel(kernel.bfloat16().float(), plain.bfloat16().float()) <= (
+        2.0 ** -7)
