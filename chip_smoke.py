@@ -16,10 +16,13 @@ per kernel, all at once), then:
      stated tolerance, two launches bitwise equal, median times of one
      call by CUDA events, and the device time of a call and of each pass
      (row stats, slot accumulate, reduce of the N splits) by
-     torch.profiler;
+     torch.profiler, which must find every pass the call launches;
   3. backward kernel vs plain: the same inputs and cases with a seeded
-     output gradient; dq, dk and dv errors, median times of the kernel,
-     of each of its passes (torch.profiler) and of the plain version;
+     output gradient; dq, dk and dv errors, no gradient into the dummy bag
+     or dead slots, two launches bitwise equal, median times of one call
+     of the kernel and of the plain version, and the device time of a
+     call and of each pass (row grad, slot grad, reduce of the N splits)
+     by torch.profiler;
   4. dense-attention kernel vs plain: f32 and bf16 at the shapes of the
      TPU probes P1-P3 (z=1536, n=197, dk=64: a ViT-S/16 batch of 256) and
      P4 (z=384, n=785, dk=64), at the extraction batch (z=768, n=785), and
@@ -77,6 +80,10 @@ import time
 # precision) moves the f32 result by 1.6e-3-2.0e-3 of max|out| at these
 # widths, which gave two-ulp flips up to 7.2e-3 (emulated on the CPU,
 # tests/test_torch_sparse_attention.py); hi + lo keeps p within 2^-16.
+# The backward kernel's tensor-core body feeds p~ and ds to its products
+# as hi + lo for the same reason: one rounding of either moves dv, dq and
+# dk by 1.5e-3-2.8e-3 of their max and flips small elements by tens of
+# ulps (emulated there too).
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 # Dense attention (max |kernel − plain| relative to max |plain|): f32, both
 # sum in f32 in other orders over ≤ 785 keys; bf16, both round p and the
@@ -176,6 +183,19 @@ def check_kernel(label, got, ref, tol) -> float:
     return err
 
 
+def pass_split(fa, kernel, kernel_times, segments) -> str:
+    """The device ms per call of each of `kernel`'s passes, from
+    torch.profiler's kernel times; raises if a pass the call launches
+    recorded none, so that a renamed kernel cannot report 0 ms."""
+    times = {p: sum(t for key, t in kernel_times if p in key)
+             for p in kernel.passes}
+    for p in fa.launched_passes(kernel, N, S, H * segments):
+        if times[p] <= 0:
+            raise AssertionError(f"the profiler found no device time for "
+                                 f"{kernel.name}'s {p} pass")
+    return "  ".join(f"{p} {t:.4f}" for p, t in times.items())
+
+
 def phase_kernel(fa, plain, dev):
     import torch
 
@@ -211,9 +231,7 @@ def phase_kernel(fa, plain, dev):
                     plain_ms = time_ms(lambda: plain(*args, segments, **kw))
                     # device ms per call, and of each pass (torch.profiler)
                     device, _, passes = device_profile(kernel)
-                split = "  ".join(
-                    f"{p} {sum(t for key, t in passes if p in key):.4f}"
-                    for p in ("row_stats", "slot_accumulate", "split_reduce"))
+                split = pass_split(fa, fa.FWD, passes, segments)
                 log(f"    kernel {ms:.4f} ms (device {device:.4f}: {split})  "
                     f"plain {plain_ms:.4f} ms  (bitwise equal over two "
                     "launches)")
@@ -267,14 +285,17 @@ def phase_backward(fa, plain_bwd, dev):
                                 or got[1][:, 6 * S:].abs().sum() != 0):
                             raise AssertionError(
                                 "gradient reached a dummy bag or dead slots")
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(kernel(), got)):
+                        raise AssertionError("two launches on the same inputs "
+                                             "differ")
                     ms, plain_ms = time_ms(kernel), time_ms(plain)
-                    # device ms per call of each pass, from torch.profiler
-                    _, _, kernels = device_profile(kernel)
-                split = "  ".join(
-                    f"{p} {sum(t for key, t in kernels if p in key):.4f} ms"
-                    for p in ("row_grad", "slot_grad"))
-                log(f"    kernel {ms:.4f} ms ({split})  plain "
-                    f"{plain_ms:.4f} ms")
+                    # device ms per call, and of each pass (torch.profiler)
+                    device, _, passes = device_profile(kernel)
+                split = pass_split(fa, fa.BWD, passes, segments)
+                log(f"    kernel {ms:.4f} ms (device {device:.4f}: {split})  "
+                    f"plain {plain_ms:.4f} ms  (bitwise equal over two "
+                    "launches)")
                 if (name, segments, rate) == ("bfloat16", 1, 0.0):
                     nbytes = (sum(t.numel() * t.element_size()
                                   for t in (q, k, v, g, sv, row_max,

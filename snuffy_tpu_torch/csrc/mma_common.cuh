@@ -1,6 +1,6 @@
 // Tensor-core and asynchronous-copy helpers shared by the hand-written
-// kernels (dense_attention.cu, sparse_attention_fwd.cu), as thin wrappers
-// over PTX for sm_90a:
+// kernels (dense_attention.cu, sparse_attention_fwd.cu,
+// sparse_attention_bwd.cu), as thin wrappers over PTX for sm_90a:
 //   bf16 packing, also of a float split into two bf16 (hi + lo);
 //   mma.sync m16n8k16 bf16 with ldmatrix (and .trans) operand loads;
 //   cp.async 16- and 4-byte copies with commit/wait groups;

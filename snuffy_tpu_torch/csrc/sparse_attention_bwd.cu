@@ -18,36 +18,63 @@
 // leaves it out, which only matters in a segment with live rows and no
 // live slot, where sigma is uniform.
 //
-// What bounds it on the H100: the TPU kernel accumulates dk across its
-// sequential N grid in VMEM. Blocks here run in no order, so the work is
-// split into two passes that keep every (N, S) matrix out of device memory
-// and use no atomics (the result is deterministic):
-//   pass A (row_grad_kernel): one block per (64-row tile, hh). A first
-//     sweep over the slots in chunks of 64 forms p~ and accumulates dv in
-//     registers; then D = v . dv. A second sweep forms ds and accumulates
-//     dq. Writes dv, dq and D (4 bytes a row).
-//   pass B (slot_grad_kernel): one block per (64-slot chunk, hh) keeps its
-//     k and g chunks in shared memory, loops over the rows in tiles of 64,
-//     recomputes the scores, sigma, f and v . g, takes D, and accumulates
-//     dk in registers; written once.
-// Both passes run every product on CUDA cores in f32: 8 multiply-adds per
-// (row, slot, dim) against the TPU kernel's 5, so this first version is
-// bound by its CUDA-core FMA rate, and at one bag (h=4, S=512) pass B has
-// only 4 * 512 / 64 = 32 blocks for 132 SMs. The ragged edges of N, S and
-// dk are masked, nothing is padded; shared memory holds three tiles, so
-// dk <= 256 fits.
+// What bounds it on the H100: at one bag (h=4, N=10240 with 10000 valid,
+// S=512 with ~10 % dead, dk=96, bf16) the TPU kernel's five products,
+// 10 * h * dk * live pairs ~ 17.7 GFLOP, take 18.09 us at the 989.4 TFLOP/s
+// bf16 tensor-core peak; the bytes (q, k, v, g, the row stats, dq, dk, dv,
+// each once), ~ 33 MB over 3.35 TB/s, take ~ 10 us. The TPU kernel carries
+// dk across its sequential N grid in VMEM. Blocks here run in no order, so
+// the work is split into passes that keep every (N, S) matrix out of
+// device memory and use no atomics (two launches give the same bits):
+//   pass A (row_grad): one block per (64-row tile, hh). Sweep 1 over the
+//     slots in chunks of 64 forms p~ and accumulates dv = p~ g; then D =
+//     v . dv from the f32 sums, before any rounding, and dv is written.
+//     Sweep 2 forms the scores and v . g^T again, then ds, and accumulates
+//     dq = ds k. Writes dv, dq and D (4 bytes a row, for pass B).
+//   pass B (slot_grad): one block per (64-slot chunk, hh, split of N) keeps
+//     its k and g slots, loops over its rows in tiles of 64, recomputes the
+//     scores and v . g^T, forms ds from the row stats and D, and
+//     accumulates dk = ds^T q. N is split as the forward splits it, until
+//     the grid has 256 blocks (8 splits at one bag, 1 at 8 bags); each
+//     split writes an f32 partial, and
+//   dk_reduce sums the partials in split order and casts (several splits
+//     only).
+// Per (row, slot, dim) pass A runs q.k^T and p~ g, then q.k^T, v.g^T and
+// ds k; pass B k.q^T, g.v^T and ds^T q: 8 products against the TPU
+// kernel's 5. Two bodies:
+//   bf16, dk <= 128, dk % 8 == 0: 4 warps of 16 rows (pass A) or 16 slots
+//     (pass B), every product on the tensor cores (mma.sync m16n8k16, bf16
+//     in, f32 sums), tiles double-buffered by 16-byte cp.async and read by
+//     ldmatrix. The score-shaped C fragments (p~, ds) become the A
+//     fragments of the next product; pass B is transposed as the forward's
+//     pass 2: with the warp's slots of k and g as A fragments for the whole
+//     row loop, s^T = k q^T and g v^T give ds^T, then ds^T q takes q by
+//     ldmatrix.trans. p~ and ds are f32 and enter p~ g, ds k and ds^T q as
+//     hi = bf16(x) plus lo = bf16(x - hi): two bf16 products each, so 11
+//     products' worth of tensor-core work. Emulated at the operating widths
+//     (tests/test_torch_sparse_attention.py), one rounding of p~ or ds
+//     moves dv, dq and dk by 1.5e-3-2.8e-3 of their largest value and
+//     flips outputs near 2^-8 of it by up to 73 bf16 ulps; hi + lo keeps
+//     them within 4.4e-6, one ulp after the cast.
+//   f32, or other dk: 256 threads, every product on CUDA cores in f32 (8
+//     multiply-adds per (row, slot, dim)); pass B split over N as above.
+// The ragged edges of N, S and dk are masked here, nothing is padded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <atomic>
 
+#include "mma_common.cuh"
 #include "sparse_attention_common.cuh"
 
 namespace {
 
 using namespace snuffy;
+
+// ---- The CUDA-core body: f32, or other dk. ----
 
 // Loads the row stats of a 64-row tile; rows past n read as dead (scale 0).
 __device__ __forceinline__ void load_row_stats(float* rm, float* rs,
@@ -235,7 +262,9 @@ row_grad_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Pass B. Grid (ceil(S / 64), heads * segments).
+// Pass B. Grid (ceil(S / 64), heads * segments, splits): rows
+// [split * rows_per_split, ...) of N. One split writes dk; several write
+// f32 partials for dk_reduce_kernel.
 template <typename T, int DM>
 __global__ void __launch_bounds__(kThreads)
 slot_grad_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -244,8 +273,9 @@ slot_grad_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const float* __restrict__ row_max,
                  const float* __restrict__ row_scale,
                  const float* __restrict__ delta, T* __restrict__ dk_out,
-                 int segments, int n, int s, int dk, int stride, float scale,
-                 uint32_t seed, float rate, float inv_keep) {
+                 float* __restrict__ partial, int segments, int n, int s, int dk,
+                 int stride, int rows_per_split, float scale, uint32_t seed,
+                 float rate, float inv_keep) {
   extern __shared__ float smem[];
   float* ks = smem;                  // the block's k slots, all along
   float* gs = ks + kSlots * stride;  // the block's g slots, all along
@@ -275,8 +305,9 @@ slot_grad_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int m = 0; m < DM; ++m) acc[b][m] = 0.0f;
 
-  for (int r0 = 0; r0 < n; r0 += kRows) {
-    const int rows = min(kRows, n - r0);
+  const int row_end = min(n, (int)blockIdx.z * rows_per_split + rows_per_split);
+  for (int r0 = blockIdx.z * rows_per_split; r0 < row_end; r0 += kRows) {
+    const int rows = min(kRows, row_end - r0);
     const size_t rbase = (size_t)hh * n + r0;
     __syncthreads();
     load_tile(xs, stride, v + rbase * dk, rows, dk);
@@ -330,7 +361,12 @@ slot_grad_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int m = 0; m < DM; ++m) {
         const int d = ty + 16 * m;
-        if (d < dk) store(dk_out + (sbase + j) * dk + d, scale * acc[b][m]);
+        if (d >= dk) continue;
+        const size_t idx = (sbase + j) * dk + d;
+        if (partial != nullptr)
+          partial[(size_t)blockIdx.z * gridDim.y * s * dk + idx] = scale * acc[b][m];
+        else
+          store(dk_out + idx, scale * acc[b][m]);
       }
     }
   }
@@ -343,54 +379,406 @@ constexpr size_t smem_bytes(int stride) {
                           (size_t)kRows * (kSlots + 1) + kSlots + 3 * kRows);
 }
 
-// Raises both passes' dynamic shared-memory limit to what the largest dk
-// of the instance (16 * DM) needs, once per device and template instance.
-template <typename T, int DM>
-cudaError_t allow_smem() {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<uint64_t> ready{0};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = device < kMaxDevices ? uint64_t{1} << device : 0;
-  if (ready.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  const int bytes = (int)smem_bytes(16 * DM + 1);
-  err = cudaFuncSetAttribute(row_grad_kernel<T, DM>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(slot_grad_kernel<T, DM>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  ready.fetch_or(bit, std::memory_order_release);
-  return cudaSuccess;
+// ---- The tensor-core body: bf16, dk <= 128, dk % 8 == 0. ----
+//
+// 4 warps a block on the tiles of sparse_attention_common.cuh. p~ and ds
+// are formed in C fragments of 16 x 16 and enter their next product as
+// hi + lo A fragments (split_frag, mma_split_rows). Both passes ask for
+// two blocks an SM (at most 255 registers a thread; 80 KB of shared
+// memory a block at dk = 96): without it ptxas spilled at dk <= 32.
+
+// Pass A. Grid (ceil(N / 64), heads * segments). Each warp keeps its 16
+// rows of q (both sweeps) and of v (sweep 2) as A fragments; the slots
+// stream in chunks of 64 (k, g and the slot codes in two cp.async
+// buffers), 16 slots a step.
+template <int DKP>
+__global__ void __launch_bounds__(kTcThreads, 2)
+row_grad_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ g,
+                   const uint8_t* __restrict__ slot_valid,
+                   const float* __restrict__ row_max, const float* __restrict__ row_scale,
+                   bf16* __restrict__ dq, bf16* __restrict__ dv, float* __restrict__ delta,
+                   int segments, int n, int s, int dk, float scale, uint32_t seed,
+                   float rate, float inv_keep) {
+  extern __shared__ uint4 smem_tc[];
+  constexpr int kS = tc_stride<DKP>();
+  constexpr int kTile = kRows * kS;  // bf16 elements of a tile
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);
+  bf16* vs = qs + kTile;
+  bf16* ks = vs + kTile;      // two buffers
+  bf16* gs = ks + 2 * kTile;  // two buffers
+  float* code = reinterpret_cast<float*>(gs + 2 * kTile);  // 2 x 64
+
+  const int hh = blockIdx.y;
+  const int seg = hh % segments;
+  const int r0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const size_t rbase = (size_t)hh * n;
+  const bf16* kh = k + (size_t)hh * s * dk;
+  const bf16* gh = g + (size_t)hh * s * dk;
+  const uint8_t* sv = slot_valid + (size_t)seg * s;
+  const int chunks = (s + kSlots - 1) / kSlots;
+
+  // Chunk c of k and g into buffer b (one commit group), and its slot
+  // codes: 1 live, 0 dead (scored -1e30), -1 past S.
+  auto prefetch = [&](int c, int b) {
+    tile_async<DKP>(ks + b * kTile, kh, c * kSlots, s, dk);
+    tile_async<DKP>(gs + b * kTile, gh, c * kSlots, s, dk);
+    cp_async_commit();
+    if (threadIdx.x < kSlots) {
+      const int j = c * kSlots + threadIdx.x;
+      code[b * kSlots + threadIdx.x] = j < s ? (sv[j] ? 1.0f : 0.0f) : -1.0f;
+    }
+  };
+
+  // the thread's rows r0 + 16 warp + g + 8h; past n they are dead (scale 0)
+  int row[2];
+  float rm[2], rs[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = r0 + 16 * warp + (lane >> 2) + 8 * h;
+    rm[h] = row[h] < n ? row_max[rbase + row[h]] : 0.0f;
+    rs[h] = row[h] < n ? row_scale[rbase + row[h]] : 0.0f;
+  }
+
+  tile_async<DKP>(qs, q + rbase * dk, r0, n, dk);
+  tile_async<DKP>(vs, v + rbase * dk, r0, n, dk);
+  prefetch(0, 0);
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[DKP / 16][4];
+  load_frags<DKP>(qf, qs, warp, lane);
+
+  float acc[DKP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DKP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  // Sweep 1: dv = p~ g, 16 slots a step.
+  for (int c = 0; c < chunks; ++c) {
+    const int b = c & 1;
+    if (c + 1 < chunks) prefetch(c + 1, b ^ 1);
+    const bf16* kb = ks + b * kTile;
+    const bf16* gb = gs + b * kTile;
+    const float* cb = code + b * kSlots;
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      float sc[2][4];
+      mma_cols16<DKP>(sc, qf, kb, jp, lane);
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int j = 16 * jp + 8 * jn + 2 * t + (e & 1);
+          const float cd = cb[j];
+          float p = 0.0f;
+          if (cd >= 0.0f) {
+            p = __expf((cd > 0.0f ? sc[jn][e] * scale : kNegBig) - rm[h]) * rs[h];
+            if (rate > 0.0f)
+              p *= keep_factor(seed, (uint32_t)hh, (uint32_t)row[h],
+                               (uint32_t)(c * kSlots + j), rate, inv_keep);
+          }
+          sc[jn][e] = p;
+        }
+      uint32_t hi[4], lo[4];
+      split_frag(sc, hi, lo);
+      mma_split_rows<DKP>(acc, hi, lo, gb + 16 * jp * kS, lane);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // Sweep 2 loads its first chunk while D = v . dv is formed from the f32
+  // sums (vf[kk][r] holds the row and columns of acc[2kk + (r >> 1)][2 (r
+  // & 1) + {0, 1}]) and dv is written.
+  prefetch(0, 0);
+  uint32_t vf[DKP / 16][4];
+  load_frags<DKP>(vf, vs, warp, lane);
+  float dl[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int kk = 0; kk < DKP / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float2 vv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vf[kk][r]));
+      const float* a = acc[2 * kk + (r >> 1)] + 2 * (r & 1);
+      dl[r & 1] = fmaf(vv.x, a[0], fmaf(vv.y, a[1], dl[r & 1]));
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    dl[h] += __shfl_xor_sync(0xffffffffu, dl[h], 1);
+    dl[h] += __shfl_xor_sync(0xffffffffu, dl[h], 2);
+    if (row[h] < n) {
+      const size_t base = (rbase + row[h]) * dk;
+#pragma unroll
+      for (int jn = 0; jn < DKP / 8; ++jn) {
+        const int d = 8 * jn + 2 * t;
+        if (d < dk)
+          *reinterpret_cast<uint32_t*>(dv + base + d) = pack_bf16(acc[jn][2 * h], acc[jn][2 * h + 1]);
+      }
+      if (t == 0) delta[rbase + row[h]] = dl[h];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < DKP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Sweep 2: ds, then dq = scale * ds k.
+  for (int c = 0; c < chunks; ++c) {
+    const int b = c & 1;
+    if (c + 1 < chunks) prefetch(c + 1, b ^ 1);
+    const bf16* kb = ks + b * kTile;
+    const bf16* gb = gs + b * kTile;
+    const float* cb = code + b * kSlots;
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      float sc[2][4], vg[2][4];
+      mma_cols16<DKP>(sc, qf, kb, jp, lane);
+      mma_cols16<DKP>(vg, vf, gb, jp, lane);
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int j = 16 * jp + 8 * jn + 2 * t + (e & 1);
+          float ds = 0.0f;
+          if (cb[j] > 0.0f) {  // ds is 0 at dead slots and past S
+            const float sigma = __expf(sc[jn][e] * scale - rm[h]) * rs[h];
+            const float f = rate > 0.0f ? keep_factor(seed, (uint32_t)hh, (uint32_t)row[h],
+                                                      (uint32_t)(c * kSlots + j), rate, inv_keep)
+                                        : 1.0f;
+            ds = sigma * (vg[jn][e] * f - dl[h]);
+          }
+          sc[jn][e] = ds;
+        }
+      uint32_t hi[4], lo[4];
+      split_frag(sc, hi, lo);
+      mma_split_rows<DKP>(acc, hi, lo, kb + 16 * jp * kS, lane);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= n) continue;
+    const size_t base = (rbase + row[h]) * dk;
+#pragma unroll
+    for (int jn = 0; jn < DKP / 8; ++jn) {
+      const int d = 8 * jn + 2 * t;
+      if (d < dk)
+        *reinterpret_cast<uint32_t*>(dq + base + d) =
+            pack_bf16(scale * acc[jn][2 * h], scale * acc[jn][2 * h + 1]);
+    }
+  }
+}
+
+// Pass B. Grid (ceil(S / 64), heads * segments, splits): rows
+// [split * rows_per_split, ...) of N. Each warp keeps its 16 slots of k
+// and of g as A fragments; per 64-row tile (q, v, the row stats and D in
+// two cp.async buffers), 16 rows a step, it computes s^T = k q^T and
+// (v g^T)^T = g v^T, forms ds^T in the fragments and accumulates ds^T q
+// (16 slots x DKP, f32) in registers. One split writes dk; several write
+// f32 partials for dk_reduce_kernel.
+template <int DKP>
+__global__ void __launch_bounds__(kTcThreads, 2)
+slot_grad_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ g,
+                    const uint8_t* __restrict__ slot_valid,
+                    const float* __restrict__ row_max, const float* __restrict__ row_scale,
+                    const float* __restrict__ delta, bf16* __restrict__ dk_out,
+                    float* __restrict__ partial, int segments, int n, int s, int dk,
+                    int rows_per_split, float scale, uint32_t seed, float rate,
+                    float inv_keep) {
+  extern __shared__ uint4 smem_tc[];
+  constexpr int kS = tc_stride<DKP>();
+  constexpr int kTile = kRows * kS;  // bf16 elements of a tile
+  bf16* ks = reinterpret_cast<bf16*>(smem_tc);
+  bf16* gs = ks + kTile;
+  bf16* qs = gs + kTile;      // two buffers
+  bf16* vs = qs + 2 * kTile;  // two buffers
+  float* stats = reinterpret_cast<float*>(vs + 2 * kTile);  // 2 x (max, scale, D) x 64
+
+  const int hh = blockIdx.y;
+  const int seg = hh % segments;
+  const int c0 = blockIdx.x * kSlots;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int row_begin = blockIdx.z * rows_per_split;
+  const int row_end = min(n, row_begin + rows_per_split);
+  const int tiles = (row_end - row_begin + kRows - 1) / kRows;
+  const bf16* qh = q + (size_t)hh * n * dk;
+  const bf16* vh = v + (size_t)hh * n * dk;
+  const float* rmh = row_max + (size_t)hh * n;
+  const float* rsh = row_scale + (size_t)hh * n;
+  const float* dlh = delta + (size_t)hh * n;
+
+  // Rows [r0, r0 + 64) of q, v, the row stats and D into buffer b; rows at
+  // or past row_end are zeros (scale 0, so their ds is 0).
+  auto prefetch = [&](int r0, int b) {
+    tile_async<DKP>(qs + b * kTile, qh, r0, row_end, dk);
+    tile_async<DKP>(vs + b * kTile, vh, r0, row_end, dk);
+    for (int idx = threadIdx.x; idx < 3 * kRows; idx += kTcThreads) {
+      const int i = idx % kRows;
+      const bool live = r0 + i < row_end;
+      const float* src = idx < kRows ? rmh : (idx < 2 * kRows ? rsh : dlh);
+      cp_async4(stats + b * 3 * kRows + idx, live ? src + r0 + i : src, live ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+
+  tile_async<DKP>(ks, k + (size_t)hh * s * dk, c0, s, dk);
+  tile_async<DKP>(gs, g + (size_t)hh * s * dk, c0, s, dk);
+  if (tiles > 0) prefetch(row_begin, 0);
+  else cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t kf[DKP / 16][4], gf[DKP / 16][4];
+  load_frags<DKP>(kf, ks, warp, lane);
+  load_frags<DKP>(gf, gs, warp, lane);
+
+  // slots c0 + 16 warp + g + 8h: ds is 0 unless live
+  int slot[2];
+  bool live[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    slot[h] = c0 + 16 * warp + (lane >> 2) + 8 * h;
+    live[h] = slot[h] < s && slot_valid[(size_t)seg * s + slot[h]];
+  }
+
+  float acc[DKP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DKP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int b = it & 1;
+    const int r0 = row_begin + it * kRows;
+    if (it + 1 < tiles) prefetch(r0 + kRows, b ^ 1);
+    const bf16* qb = qs + b * kTile;
+    const bf16* vb = vs + b * kTile;
+    const float* rm = stats + b * 3 * kRows;
+    const float* rs = rm + kRows;
+    const float* dl = rs + kRows;
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      // sc[jn][e], vg[jn][e]: slot g + 8 (e >> 1), row 16jp + 8jn + 2t + (e & 1)
+      float sc[2][4], vg[2][4];
+      mma_cols16<DKP>(sc, kf, qb, jp, lane);
+      mma_cols16<DKP>(vg, gf, vb, jp, lane);
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int i = 16 * jp + 8 * jn + 2 * t + (e & 1);
+          float ds = 0.0f;
+          if (live[h]) {
+            const float sigma = __expf(sc[jn][e] * scale - rm[i]) * rs[i];
+            const float f = rate > 0.0f ? keep_factor(seed, (uint32_t)hh, (uint32_t)(r0 + i),
+                                                      (uint32_t)slot[h], rate, inv_keep)
+                                        : 1.0f;
+            ds = sigma * (vg[jn][e] * f - dl[i]);
+          }
+          sc[jn][e] = ds;
+        }
+      uint32_t hi[4], lo[4];
+      split_frag(sc, hi, lo);
+      mma_split_rows<DKP>(acc, hi, lo, qb + 16 * jp * kS, lane);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (slot[h] >= s) continue;
+    const size_t row = (size_t)hh * s + slot[h];
+#pragma unroll
+    for (int jn = 0; jn < DKP / 8; ++jn) {
+      const int d = 8 * jn + 2 * t;
+      if (d >= dk) continue;
+      const float x0 = scale * acc[jn][2 * h], x1 = scale * acc[jn][2 * h + 1];
+      if (partial != nullptr)
+        *reinterpret_cast<float2*>(partial + ((size_t)blockIdx.z * gridDim.y * s + row) * dk + d) =
+            make_float2(x0, x1);
+      else
+        *reinterpret_cast<uint32_t*>(dk_out + row * dk + d) = pack_bf16(x0, x1);
+    }
+  }
+}
+
+template <int DKP>
+constexpr size_t smem_tc_rows() {
+  return (size_t)6 * tc_tile_bytes<DKP>() + 2 * kSlots * sizeof(float);
+}
+template <int DKP>
+constexpr size_t smem_tc_slots() {
+  return (size_t)6 * tc_tile_bytes<DKP>() + 2 * 3 * kRows * sizeof(float);
+}
+
+// dk = T(sum over the splits of the f32 partials), in split order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+dk_reduce_kernel(const float* __restrict__ partial, T* __restrict__ out, size_t total,
+                 int splits) {
+  sum_splits(partial, out, total, splits);
 }
 
 struct BwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* g;
-  const void* slot_valid;
-  const void* row_max;
-  const void* row_scale;
-  void* dq;
-  void* dk;
-  void* dv;
-  void* delta;
-  int heads, segments, n, s, dk_dim;
+  const void *q, *k, *v, *g, *slot_valid, *row_max, *row_scale;
+  void *dq, *dk, *dv, *delta, *partial;
+  int heads, segments, n, s, dk_dim, splits;
   float scale;
   uint32_t seed;
   float rate, inv_keep;
+  cudaStream_t stream;
+
+  int rows_per_split() const { return (n + kRows * splits - 1) / (kRows * splits) * kRows; }
+  dim3 grid_rows() const { return dim3((n + kRows - 1) / kRows, heads * segments); }
+  dim3 grid_slots() const { return dim3((s + kSlots - 1) / kSlots, heads * segments, splits); }
+  float* part() const { return splits > 1 ? static_cast<float*>(partial) : nullptr; }
+  // the tensor-core body's 16-byte copies: whole 16-byte chunks a row and
+  // 16-byte aligned bases
+  bool aligned16() const {
+    return dk_dim % 8 == 0 &&
+           (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+            reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g) |
+            reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+            reinterpret_cast<uintptr_t>(dv)) % 16 == 0;
+  }
 };
 
+// The splits' sum, when there are several.
+template <typename T>
+cudaError_t launch_reduce(const BwdArgs& a) {
+  if (a.splits == 1) return cudaSuccess;
+  const size_t total = (size_t)a.heads * a.segments * a.s * a.dk_dim;
+  const int blocks = (int)std::min<size_t>((total + 255) / 256, 4 * 132);
+  dk_reduce_kernel<T><<<blocks, 256, 0, a.stream>>>(static_cast<const float*>(a.partial),
+                                                   static_cast<T*>(a.dk), total, a.splits);
+  return cudaGetLastError();
+}
+
+// The CUDA-core body, DM = dims of dk per thread: the limits are raised to
+// what the largest dk of the instance (16 * DM) needs.
 template <typename T, int DM>
-cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
-  const int hh = a.heads * a.segments;
+cudaError_t launch(const BwdArgs& a) {
+  static std::atomic<uint64_t> ready_rows{0}, ready_slots{0};
   const int stride = a.dk_dim | 1;  // odd row stride: conflict-free column reads
   const size_t smem = smem_bytes(stride);
-  const dim3 block(kThreads);
-  const dim3 grid_a((a.n + kRows - 1) / kRows, hh);
-  const dim3 grid_b((a.s + kSlots - 1) / kSlots, hh);
+  cudaError_t err = allow_smem(row_grad_kernel<T, DM>, smem_bytes(16 * DM + 1), ready_rows);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(slot_grad_kernel<T, DM>, smem_bytes(16 * DM + 1), ready_slots);
+  if (err != cudaSuccess) return err;
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
@@ -399,25 +787,59 @@ cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
   const float* rm = static_cast<const float*>(a.row_max);
   const float* rs = static_cast<const float*>(a.row_scale);
   float* delta = static_cast<float*>(a.delta);
-
-  cudaError_t err = allow_smem<T, DM>();
-  if (err != cudaSuccess) return err;
-  row_grad_kernel<T, DM><<<grid_a, block, smem, stream>>>(
+  row_grad_kernel<T, DM><<<a.grid_rows(), kThreads, smem, a.stream>>>(
       q, k, v, g, sv, rm, rs, static_cast<T*>(a.dq), static_cast<T*>(a.dv), delta,
       a.segments, a.n, a.s, a.dk_dim, stride, a.scale, a.seed, a.rate, a.inv_keep);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  slot_grad_kernel<T, DM><<<grid_b, block, smem, stream>>>(
-      q, k, v, g, sv, rm, rs, delta, static_cast<T*>(a.dk), a.segments, a.n, a.s,
-      a.dk_dim, stride, a.scale, a.seed, a.rate, a.inv_keep);
-  return cudaGetLastError();
+  slot_grad_kernel<T, DM><<<a.grid_slots(), kThreads, smem, a.stream>>>(
+      q, k, v, g, sv, rm, rs, delta, static_cast<T*>(a.dk), a.part(), a.segments, a.n, a.s,
+      a.dk_dim, stride, a.rows_per_split(), a.scale, a.seed, a.rate, a.inv_keep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce<T>(a);
+}
+
+// The tensor-core body, dk <= DKP.
+template <int DKP>
+cudaError_t launch_tc(const BwdArgs& a) {
+  static std::atomic<uint64_t> ready_rows{0}, ready_slots{0};
+  cudaError_t err = allow_smem(row_grad_tc_kernel<DKP>, smem_tc_rows<DKP>(), ready_rows);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(slot_grad_tc_kernel<DKP>, smem_tc_slots<DKP>(), ready_slots);
+  if (err != cudaSuccess) return err;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* g = static_cast<const bf16*>(a.g);
+  const uint8_t* sv = static_cast<const uint8_t*>(a.slot_valid);
+  const float* rm = static_cast<const float*>(a.row_max);
+  const float* rs = static_cast<const float*>(a.row_scale);
+  float* delta = static_cast<float*>(a.delta);
+  row_grad_tc_kernel<DKP><<<a.grid_rows(), kTcThreads, smem_tc_rows<DKP>(), a.stream>>>(
+      q, k, v, g, sv, rm, rs, static_cast<bf16*>(a.dq), static_cast<bf16*>(a.dv), delta,
+      a.segments, a.n, a.s, a.dk_dim, a.scale, a.seed, a.rate, a.inv_keep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  slot_grad_tc_kernel<DKP><<<a.grid_slots(), kTcThreads, smem_tc_slots<DKP>(), a.stream>>>(
+      q, k, v, g, sv, rm, rs, delta, static_cast<bf16*>(a.dk), a.part(), a.segments, a.n,
+      a.s, a.dk_dim, a.rows_per_split(), a.scale, a.seed, a.rate, a.inv_keep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce<bf16>(a);
 }
 
 template <typename T>
-cudaError_t launch_dtype(const BwdArgs& a, cudaStream_t stream) {
-  if (a.dk_dim <= 64) return launch<T, 4>(a, stream);
-  if (a.dk_dim <= 128) return launch<T, 8>(a, stream);
-  return launch<T, 16>(a, stream);
+cudaError_t launch_dtype(const BwdArgs& a) {
+  if (sizeof(T) == 2 && a.dk_dim <= 128 && a.aligned16()) {
+    if (a.dk_dim <= 32) return launch_tc<32>(a);
+    if (a.dk_dim <= 64) return launch_tc<64>(a);
+    if (a.dk_dim <= 96) return launch_tc<96>(a);
+    return launch_tc<128>(a);
+  }
+  if (a.dk_dim <= 64) return launch<T, 4>(a);
+  if (a.dk_dim <= 128) return launch<T, 8>(a);
+  return launch<T, 16>(a);
 }
 
 }  // namespace
@@ -425,27 +847,27 @@ cudaError_t launch_dtype(const BwdArgs& a, cudaStream_t stream) {
 // dtype: 0 float32, 1 bfloat16; scale is 1 / sqrt(dk). q, v, dq, dv are
 // (heads, segments * n, dk), k, g, dk (heads, segments * s, dk), all
 // contiguous and of one type; masks are bool bytes. row_max and row_scale
-// are the forward's f32 row stats; delta is f32 scratch; each holds
-// heads * segments * n values. Launches both passes on `stream` and
-// returns the cudaError_t of the launches (0 on success); it does not
-// synchronise.
+// are the forward's f32 row stats; delta is f32 scratch of heads *
+// segments * n values; with splits > 1, partial is f32 scratch of splits *
+// heads * segments * s * dk values (unused with one split). Launches on
+// `stream` and returns the cudaError_t of the launches (0 on success); it
+// does not synchronise.
 extern "C" int snuffy_sparse_attention_bwd(
     const void* q, const void* k, const void* v, const void* g,
     const void* slot_valid, const void* row_max, const void* row_scale, void* dq,
-    void* dk, void* dv, void* delta, int heads, int segments, int n, int s,
-    int dk_dim, int dtype, float scale, int seed, float rate, float inv_keep,
+    void* dk, void* dv, void* delta, void* partial, int heads, int segments, int n, int s,
+    int dk_dim, int dtype, int splits, float scale, int seed, float rate, float inv_keep,
     void* stream) {
   if (heads < 1 || segments < 1 || n < 1 || s < 1 || dk_dim < 1 || dk_dim > 256 ||
-      heads * segments > 65535) {
+      heads * segments > 65535 || splits < 1 || splits > 65535 ||
+      (splits > 1 && partial == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const BwdArgs a{q,  k,  v,  g,     slot_valid, row_max, row_scale,
-                  dq, dk, dv, delta, heads,      segments, n,
-                  s,  dk_dim, scale, static_cast<uint32_t>(seed),
-                  rate, inv_keep};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch_dtype<float>(a, st));
-  if (dtype == 1) return static_cast<int>(launch_dtype<__nv_bfloat16>(a, st));
+  const BwdArgs a{q, k, v, g, slot_valid, row_max, row_scale, dq, dk, dv, delta, partial,
+                  heads, segments, n, s, dk_dim, splits, scale, static_cast<uint32_t>(seed),
+                  rate, inv_keep, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return static_cast<int>(launch_dtype<float>(a));
+  if (dtype == 1) return static_cast<int>(launch_dtype<__nv_bfloat16>(a));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

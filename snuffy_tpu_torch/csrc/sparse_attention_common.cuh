@@ -1,14 +1,17 @@
 // Device helpers shared by the sparse-attention kernels
 // (sparse_attention_fwd.cu, sparse_attention_bwd.cu): the tile shape, the
-// dropout hash of the TPU kernel, tile loads and the 64 x 64 score tile.
-// dense_attention.cu takes the block size, the type conversions and the
-// 16-lane reductions from here.
+// dropout hash of the TPU kernel, tile loads, the 64 x 64 score tile, the
+// sum of N splits, and the tensor-core tiles and products of their bf16
+// bodies. dense_attention.cu takes the block size, the type conversions
+// and the 16-lane reductions from here.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_common.cuh"
 
 namespace snuffy {
 
@@ -96,6 +99,115 @@ __device__ __forceinline__ void score_tile(float (&sc)[4][4], const float* qs,
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int b = 0; b < 4; ++b) sc[a][b] = fmaf(qa[a], kb[b], sc[a][b]);
+  }
+}
+
+// out[i] = T(sum over the splits of partial[split * total + i]), in split
+// order (a grid-stride loop).
+template <typename T>
+__device__ __forceinline__ void sum_splits(const float* __restrict__ partial,
+                                           T* __restrict__ out, size_t total,
+                                           int splits) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float sum = 0.0f;
+    for (int sp = 0; sp < splits; ++sp) sum += partial[(size_t)sp * total + i];
+    store(out + i, sum);
+  }
+}
+
+// ---- Tensor-core tiles: bf16, dk <= 128, dk % 8 == 0. ----
+//
+// 4 warps a block, mma.sync m16n8k16 (bf16 in, f32 sums). A tile is 64
+// rows of DKP bf16 (dk padded with zeros to a multiple of 32) at a row
+// stride of DKP + 8, so the 8 rows of an ldmatrix hit 8 different bank
+// groups, filled by 16-byte cp.async (zero-filled past the rows or dk).
+// Fragments (g = lane / 4, t = lane % 4): C element c[e] of a 16 x 8 tile
+// is row g + 8 (e >> 1), column 2t + (e & 1).
+
+constexpr int kTcThreads = 128;
+
+template <int DKP>
+__host__ __device__ constexpr int tc_stride() {
+  return DKP + 8;
+}
+template <int DKP>
+__host__ __device__ constexpr int tc_tile_bytes() {
+  return kRows * tc_stride<DKP>() * 2;
+}
+
+// Starts the copy of rows [r0, r0 + 64) of a (rows, dk) bf16 matrix into a
+// tile: zeros past `rows` and past dk.
+template <int DKP>
+__device__ __forceinline__ void tile_async(bf16* dst, const bf16* __restrict__ src, int r0,
+                                           int rows, int dk) {
+  constexpr int kChunks = DKP / 8;
+  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kTcThreads) {
+    const int r = idx / kChunks;
+    const int d = (idx - r * kChunks) * 8;
+    const bool live = r0 + r < rows && d < dk;
+    cp_async16(dst + r * tc_stride<DKP>() + d, live ? src + (size_t)(r0 + r) * dk + d : src,
+               live ? 16 : 0);
+  }
+}
+
+// A fragments of the warp's 16 rows of a tile.
+template <int DKP>
+__device__ __forceinline__ void load_frags(uint32_t (&af)[DKP / 16][4], const bf16* tile,
+                                           int warp, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < DKP / 16; ++kk)
+    ldsm_x4(af[kk], tile + (16 * warp + (lane & 15)) * tc_stride<DKP>() + 16 * kk +
+                        (lane >> 4) * 8);
+}
+
+// c = a . b^T over DKP for the warp's 16 rows of a (A fragments) and rows
+// 16jp .. 16jp + 15 of the tile b: c[jn][e] pairs row g + 8 (e >> 1) of a
+// with row 16jp + 8jn + 2t + (e & 1) of b.
+template <int DKP>
+__device__ __forceinline__ void mma_cols16(float (&c)[2][4], const uint32_t (&af)[DKP / 16][4],
+                                           const bf16* bs, int jp, int lane) {
+#pragma unroll
+  for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[jn][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < DKP / 16; ++kk) {
+    // matrices: rows 16jp + {0-7, 0-7, 8-15, 8-15} x dims 16kk + {0-7, 8-15, 0-7, 8-15}
+    uint32_t b[4];
+    ldsm_x4(b, bs + (16 * jp + (lane >> 4) * 8 + (lane & 7)) * tc_stride<DKP>() + 16 * kk +
+                   ((lane >> 3) & 1) * 8);
+    mma_bf16(c[0], af[kk], b[0], b[1]);
+    mma_bf16(c[1], af[kk], b[2], b[3]);
+  }
+}
+
+// The C fragments of a 16 x 16 tile (c[0] columns 0-7, c[1] columns 8-15)
+// as the A fragment of one 16-deep step, split into two bf16 parts.
+__device__ __forceinline__ void split_frag(const float (&c)[2][4], uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    pack_bf16_split(c[r >> 1][2 * (r & 1)], c[r >> 1][2 * (r & 1) + 1], hi[r], lo[r]);
+}
+
+// acc (the warp's 16 rows x DKP, C fragments) += (hi + lo) . x: the A
+// fragments hi and lo are 16 x 16, x the 16 rows of a tile it points at
+// (by ldmatrix.trans), two bf16 products.
+template <int DKP>
+__device__ __forceinline__ void mma_split_rows(float (&acc)[DKP / 8][4], const uint32_t (&hi)[4],
+                                               const uint32_t (&lo)[4], const bf16* x,
+                                               int lane) {
+#pragma unroll
+  for (int jj = 0; jj < DKP / 16; ++jj) {
+    // matrices: rows {0-7, 8-15, 0-7, 8-15} x dims 16jj + {0-7, 0-7, 8-15, 8-15}
+    uint32_t bx[4];
+    ldsm_x4_trans(bx, x + ((lane & 7) + ((lane >> 3) & 1) * 8) * tc_stride<DKP>() + 16 * jj +
+                          (lane >> 4) * 8);
+    mma_bf16(acc[2 * jj], hi, bx[0], bx[1]);
+    mma_bf16(acc[2 * jj + 1], hi, bx[2], bx[3]);
+    mma_bf16(acc[2 * jj], lo, bx[0], bx[1]);
+    mma_bf16(acc[2 * jj + 1], lo, bx[2], bx[3]);
   }
 }
 

@@ -275,36 +275,7 @@ slot_accumulate_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---- The tensor-core body: bf16, dk <= 128, dk % 8 == 0. ----
 //
-// 4 warps a block, mma.sync m16n8k16 (bf16 in, f32 sums). Tiles are
-// 64 rows of DKP bf16 (dk padded with zeros to a multiple of 32) at a row
-// stride of DKP + 8, so the 8 rows of an ldmatrix hit 8 different bank
-// groups, filled by 16-byte cp.async (zero-filled past n, S or dk).
-
-constexpr int kTcThreads = 128;
-
-template <int DKP>
-__host__ __device__ constexpr int tc_stride() {
-  return DKP + 8;
-}
-template <int DKP>
-__host__ __device__ constexpr int tc_tile_bytes() {
-  return kRows * tc_stride<DKP>() * 2;
-}
-
-// Starts the copy of rows [r0, r0 + 64) of a (rows, dk) bf16 matrix into a
-// tile: zeros past `rows` and past dk.
-template <int DKP>
-__device__ __forceinline__ void tile_async(bf16* dst, const bf16* __restrict__ src, int r0,
-                                           int rows, int dk) {
-  constexpr int kChunks = DKP / 8;
-  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kTcThreads) {
-    const int r = idx / kChunks;
-    const int d = (idx - r * kChunks) * 8;
-    const bool live = r0 + r < rows && d < dk;
-    cp_async16(dst + r * tc_stride<DKP>() + d, live ? src + (size_t)(r0 + r) * dk + d : src,
-               live ? 16 : 0);
-  }
-}
+// 4 warps a block on the tiles of sparse_attention_common.cuh.
 
 // The warp's (16 rows, 64 columns) products a . b^T, a from registers (A
 // fragments of 16 rows), b the 64 rows of a tile: sc[j][e] is row
@@ -328,16 +299,6 @@ __device__ __forceinline__ void mma_tile(float (&sc)[8][4], const uint32_t (&af)
       mma_bf16(sc[2 * jp + 1], af[kk], b[2], b[3]);
     }
   }
-}
-
-// A fragments of the warp's 16 rows of a tile.
-template <int DKP>
-__device__ __forceinline__ void load_frags(uint32_t (&af)[DKP / 16][4], const bf16* tile,
-                                           int warp, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < DKP / 16; ++kk)
-    ldsm_x4(af[kk], tile + (16 * warp + (lane & 15)) * tc_stride<DKP>() + 16 * kk +
-                        (lane >> 4) * 8);
 }
 
 // Pass 1. Grid (ceil(N / 64), heads * segments). Each warp keeps its 16
@@ -546,17 +507,7 @@ slot_accumulate_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       for (int r = 0; r < 4; ++r)
         pack_bf16_split(sc[2 * kk + (r >> 1)][2 * (r & 1)], sc[2 * kk + (r >> 1)][2 * (r & 1) + 1],
                         hi[r], lo[r]);
-#pragma unroll
-      for (int jj = 0; jj < DKP / 16; ++jj) {
-        // matrices: rows 16kk + {0-7, 8-15, 0-7, 8-15} x dims 16jj + {0-7, 0-7, 8-15, 8-15}
-        uint32_t bv[4];
-        ldsm_x4_trans(bv, vb + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kS + 16 * jj +
-                              (lane >> 4) * 8);
-        mma_bf16(acc[2 * jj], hi, bv[0], bv[1]);
-        mma_bf16(acc[2 * jj + 1], hi, bv[2], bv[3]);
-        mma_bf16(acc[2 * jj], lo, bv[0], bv[1]);
-        mma_bf16(acc[2 * jj + 1], lo, bv[2], bv[3]);
-      }
+      mma_split_rows<DKP>(acc, hi, lo, vb + 16 * kk * kS, lane);
     }
     cp_async_wait<0>();
     __syncthreads();
@@ -596,13 +547,8 @@ constexpr size_t smem_tc_pass2() {
 template <typename T>
 __global__ void __launch_bounds__(256)
 split_reduce_kernel(const float* __restrict__ partial, T* __restrict__ out, size_t total,
-              int splits) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float sum = 0.0f;
-    for (int sp = 0; sp < splits; ++sp) sum += partial[(size_t)sp * total + i];
-    store(out + i, sum);
-  }
+                    int splits) {
+  sum_splits(partial, out, total, splits);
 }
 
 // Dynamic shared memory of each pass for a row stride of `stride` floats.

@@ -81,17 +81,26 @@ def _scalar_args(q, rate, seed):
             _int32(0 if seed is None else seed), rate, 1.0 / (1.0 - rate))
 
 
-# The forward kernel's slot-accumulate grid is (⌈S/64⌉, h·segments,
-# splits): N is split until the grid has at least this many blocks, about
-# two waves of 132 SMs (8 splits at one bag of S=512, h=4; 1 at 8 bags).
-FWD_MIN_BLOCKS = 256
+# The slot passes of both kernels (the forward's slot accumulate, the
+# backward's slot grad) have the grid (⌈S/64⌉, h·segments, splits): N is
+# split until the grid has at least this many blocks, about two waves of
+# 132 SMs (8 splits at one bag of S=512, h=4; 1 at 8 bags).
+SLOT_MIN_BLOCKS = 256
 
 
-def fwd_splits(n: int, s: int, folded_heads: int) -> int:
-    """Splits of the N rows for the forward kernel: the fewest that give
-    FWD_MIN_BLOCKS blocks, and no more than N's 64-row tiles."""
+def slot_splits(n: int, s: int, folded_heads: int) -> int:
+    """Splits of the N rows for the kernels' slot passes: the fewest that
+    give SLOT_MIN_BLOCKS blocks, and no more than N's 64-row tiles."""
     blocks = math.ceil(s / 64) * folded_heads
-    return max(1, min(math.ceil(n / 64), math.ceil(FWD_MIN_BLOCKS / blocks)))
+    return max(1, min(math.ceil(n / 64), math.ceil(SLOT_MIN_BLOCKS / blocks)))
+
+
+def launched_passes(kernel, n: int, s: int, folded_heads: int) -> tuple:
+    """The device kernels (`kernel.passes`) that one launch of the forward
+    or backward kernel runs: both passes, and the split reduce when N is
+    split."""
+    split = slot_splits(n, s, folded_heads) > 1
+    return kernel.passes if split else kernel.passes[:2]
 
 
 def _fwd_cuda(q, k, v, slot_valid, q_valid, segments, rate, seed):
@@ -100,7 +109,7 @@ def _fwd_cuda(q, k, v, slot_valid, q_valid, segments, rate, seed):
     the same bits every run."""
     h, kn, dk = q.shape
     n, s = kn // segments, k.shape[1] // segments
-    splits = fwd_splits(n, s, h * segments)
+    splits = slot_splits(n, s, h * segments)
     out = torch.empty((h, k.shape[1], dk), dtype=q.dtype, device=q.device)
     row_max = torch.empty((h * kn,), dtype=torch.float32, device=q.device)
     row_scale = torch.empty_like(row_max)
@@ -116,16 +125,22 @@ def _fwd_cuda(q, k, v, slot_valid, q_valid, segments, rate, seed):
 
 def _bwd_cuda(q, k, v, slot_valid, row_max, row_scale, g, segments, rate,
               seed):
-    """Backward kernel → (dq, dk, dv)."""
+    """Backward kernel → (dq, dk, dv). Its slot pass splits N as the
+    forward's does and sums the f32 partials (scratch here) in a fixed
+    order: no atomics, the same bits every run."""
     h, kn, dk = q.shape
     n, s = kn // segments, k.shape[1] // segments
+    splits = slot_splits(n, s, h * segments)
     dq, dkey, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(row_max)
+    partial = torch.empty((splits if splits > 1 else 0, h, k.shape[1], dk),
+                          dtype=torch.float32, device=q.device)
+    dtype, scale, seed32, rate, inv_keep = _scalar_args(q, rate, seed)
     launch(BWD, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            g.data_ptr(), slot_valid.data_ptr(), row_max.data_ptr(),
-            row_scale.data_ptr(), dq.data_ptr(), dkey.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), h, segments, n, s, dk,
-            *_scalar_args(q, rate, seed))
+           g.data_ptr(), slot_valid.data_ptr(), row_max.data_ptr(),
+           row_scale.data_ptr(), dq.data_ptr(), dkey.data_ptr(),
+           dv.data_ptr(), delta.data_ptr(), partial.data_ptr(), h, segments,
+           n, s, dk, dtype, splits, scale, seed32, rate, inv_keep)
     return dq, dkey, dv
 
 

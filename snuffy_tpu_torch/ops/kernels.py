@@ -30,6 +30,10 @@ class Kernel:
     source: str
     replaces: str    # file:line of the TPU kernel
     argtypes: tuple
+    # the device kernels of one launch, as fragments of their names in a
+    # profiler trace: the passes, then the reduce of N splits (where N is
+    # split)
+    passes: tuple = ()
     launches: int = 0
 
 
@@ -38,11 +42,13 @@ FWD = Kernel(
     "sparse_attention_fwd", "snuffy_tpu_torch/csrc/sparse_attention_fwd.cu",
     "snuffy_tpu/ops/pallas_attention.py:94",
     (_P,) * 9 + (_I,) * 7 + (_F, _I, _F, _F, _P),
+    passes=("row_stats", "slot_accumulate", "split_reduce"),
 )
 BWD = Kernel(
     "sparse_attention_bwd", "snuffy_tpu_torch/csrc/sparse_attention_bwd.cu",
     "snuffy_tpu/ops/pallas_attention.py:194",
-    (_P,) * 11 + (_I,) * 6 + (_F, _I, _F, _F, _P),
+    (_P,) * 12 + (_I,) * 7 + (_F, _I, _F, _F, _P),
+    passes=("row_grad", "slot_grad", "dk_reduce"),
 )
 DENSE = Kernel(
     "dense_attention", "snuffy_tpu_torch/csrc/dense_attention.cu",

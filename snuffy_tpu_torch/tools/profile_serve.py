@@ -69,7 +69,7 @@ def _self_device_us(e) -> float:
 def device_profile(fn):
     """(busy ms per call, [(op, self device ms per call, calls)] for host
     ops, [(kernel, ms per call)]) from a torch.profiler trace of ITERS
-    calls."""
+    calls; busy is the sum of the kernels' and copies' times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -83,6 +83,11 @@ def device_profile(fn):
     ops, kernels = [], []
     for e in prof.key_averages():
         ms = _self_device_us(e) / 1e3 / ITERS
+        if getattr(e, "is_user_annotation", False):
+            # a record_function range drawn on the device timeline (the
+            # optimizer's step): it spans kernels counted on their own,
+            # and the gaps between them
+            continue
         if e.device_type == DeviceType.CUDA:
             kernels.append((e.key, ms))
         elif ms > 0:
@@ -178,7 +183,7 @@ def main(argv=None) -> int:
     lines += report(f"classify, bag of {n_pad} rows", wall, busy, ops)
     tables += table("classify", ops, kernels)
     kernel_ms = 0.0
-    for pass_name in ("row_stats", "slot_accumulate", "split_reduce"):
+    for pass_name in fa.FWD.passes:
         ms = sum(m for name, m in kernels if pass_name in name) / cfg.depth
         kernel_ms += ms
         lines.append(f"{fa.FWD.name} {pass_name}: {ms:.4f} ms per call, "

@@ -12,8 +12,9 @@ it on bags of 10240 rows (10000 valid), then prints for one serial step
     (sum of kernel and copy durations in a torch.profiler trace, per
     step), with the idle share 1 − busy/wall;
   * device time by group: the sparse-attention forward (K1) and backward
-    (K2) kernels by pass, cuBLAS GEMMs, the optimizer's kernels, the sort
-    of the selection, and the rest.
+    (K2) kernels by pass (split reduces included), cuBLAS GEMMs, the
+    optimizer's kernels, the sort of the selection, and the rest; it
+    raises if a pass the step launches recorded no device time.
 
 `--out` also writes the full per-op tables to FILE. Needs one CUDA GPU.
 """
@@ -25,6 +26,8 @@ import sys
 
 import torch
 
+from snuffy_tpu_torch.ops.fused_attention import launched_passes
+from snuffy_tpu_torch.ops.kernels import BWD, FWD
 from snuffy_tpu_torch.tools.profile_serve import (
     device_profile,
     report,
@@ -34,13 +37,12 @@ from snuffy_tpu_torch.tools.profile_serve import (
 
 ROWS, VALID, PACKED = 10240, 10000, 8
 
-# Kernel-name fragments of each group, first match wins.
-GROUPS = (
-    ("K1 pass 1 row_stats", ("row_stats",)),
-    ("K1 pass 2 slot_accumulate", ("slot_accumulate",)),
-    ("K1 split_reduce", ("split_reduce",)),
-    ("K2 pass A row_grad", ("row_grad_kernel",)),
-    ("K2 pass B slot_grad", ("slot_grad_kernel",)),
+# Kernel-name fragments of each group, first match wins: the passes of
+# the sparse-attention forward (K1) and backward (K2) kernels, then the
+# rest of the step.
+GROUPS = tuple((f"{label} {name}", (name,))
+               for label, kernel in (("K1", FWD), ("K2", BWD))
+               for name in kernel.passes) + (
     ("GEMMs (cuBLAS)", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("optimizer", ("multi_tensor_apply", "adam")),
     ("selection sort", ("sort", "radix")),
@@ -61,6 +63,19 @@ def grouped(kernels):
             rest += ms
     return list(sums.items()) + [("the rest (elementwise, norms, copies)",
                                   rest)]
+
+
+def check_passes(groups, segments, cfg):
+    """Raise unless every pass that a step of `segments` bags launches
+    (split reduces only where N is split) recorded device time, so that a
+    renamed kernel cannot report 0 ms."""
+    times = dict(groups)
+    folded = cfg.num_heads * segments
+    for label, kernel in (("K1", FWD), ("K2", BWD)):
+        for name in launched_passes(kernel, ROWS, cfg.big_lambda, folded):
+            if times[f"{label} {name}"] <= 0:
+                raise RuntimeError(f"the profiler found no device time for "
+                                   f"{label}'s {name} kernels")
 
 
 def main(argv=None) -> int:
@@ -105,19 +120,24 @@ def main(argv=None) -> int:
     def packed():
         trainer.packed_train_step(feats, masks, labels, bag_w, gen, seeds)
 
-    lines, tables = [], []
-    for label, fn in (("serial step, 1 bag", serial),
-                      (f"packed step, {PACKED} bags", packed)):
+    lines, tables, steps = [], [], []
+    for label, fn, segments in (("serial step, 1 bag", serial, 1),
+                                (f"packed step, {PACKED} bags", packed,
+                                 PACKED)):
         wall = wall_ms(fn)
         busy, ops, kernels = device_profile(fn)
         lines += report(label, wall, busy, ops)
-        for name, ms in grouped(kernels):
+        groups = grouped(kernels)
+        for name, ms in groups:
             lines.append(f"  {100 * ms / busy:6.2f} %  {ms:9.4f} ms  {name}")
         tables += table(label, ops, kernels)
+        steps.append((groups, segments))
     print("\n".join(lines), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines + tables) + "\n")
+    for groups, segments in steps:
+        check_passes(groups, segments, cfg)
     return 0
 
 

@@ -164,6 +164,12 @@ def assert_close_to_plain(got, want, tol):
     dict(h=1, n=65, s=65, dk=100),               # one past every tile edge
     dict(h=2, n=64, s=130, dk=256),              # the largest dk
     dict(h=3, n=1, s=1, dk=1),
+    # bf16 on the tensor cores: the smallest and largest dk, one past a tile
+    dict(h=2, n=65, s=129, dk=8),
+    dict(h=1, n=129, s=65, dk=128),
+    dict(h=2, n=1, s=40, dk=96),                 # one row
+    dict(h=1, n=1000, s=64, dk=96),              # 16 N splits, the last short
+    dict(h=4, n=777, s=512, dk=32),              # 8 N splits, the last empty
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_backward_kernel_matches_plain_on_the_card(cuda_device, dtype, shape,
@@ -180,22 +186,27 @@ def test_backward_kernel_matches_plain_on_the_card(cuda_device, dtype, shape,
 
 
 @pytest.mark.cuda
-def test_backward_kernel_all_dead_segments(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_all_dead_segments(cuda_device, dtype):
     """A segment with live rows and no live slot (σ uniform) gets no
     gradient into its dead slots, as in the plain version; a dummy bag
-    gets none at all."""
-    q, k, v, sv, qv = make(h=2, n=70, s=20, dk=32, segments=3,
+    gets none at all. f32 runs the CUDA-core body, bf16 the tensor-core
+    one."""
+    q, k, v, sv, qv = make(h=2, n=70, s=20, dk=32, segments=3, dtype=dtype,
                            device=cuda_device)
     sv[20:60] = False      # segments 1 and 2: no live slot
     qv[140:] = False       # segment 2: no live row either
-    g = torch.randn((2, 60, 32), device=cuda_device)
+    g = torch.randn((2, 60, 32), device=cuda_device).to(dtype)
     # the gradient arrives transposed, as it does from wo's matmul
     g_t = g.transpose(1, 2).contiguous().transpose(1, 2)
     _, (dq, dk, dv) = grads_on_the_card([q, k, v, sv, qv], 3, g_t)
     want = packed_inverted_sparse_attention_bwd(q, k, v, sv, qv, g, 3)
     for a, b in zip((dq, dk, dv), want):
-        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
-                                   rtol=1e-5, atol=1e-5)
+        if dtype == torch.float32:
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-5)
+        else:
+            assert_close_to_plain(a, b, TOL[dtype])
     assert torch.count_nonzero(dq[:, 70:]) == 0
     assert torch.count_nonzero(dk[:, 20:]) == 0
     assert torch.count_nonzero(dv[:, 140:]) == 0
@@ -203,18 +214,18 @@ def test_backward_kernel_all_dead_segments(cuda_device):
 
 
 def test_forward_splits_fill_the_card_and_cover_n():
-    """The forward kernel splits N until its slot grid has 256 blocks (8
-    splits at one bag of the operating widths, 1 at 8 packed bags), never
-    into more splits than N has 64-row tiles."""
-    assert fa.fwd_splits(10240, 512, 4) == 8
-    assert fa.fwd_splits(10240, 512, 4 * 8) == 1
-    assert fa.fwd_splits(1, 1, 3) == 1
-    assert fa.fwd_splits(130, 24, 1) == 3
+    """The kernels split N until their slot grid has 256 blocks (8 splits
+    at one bag of the operating widths, 1 at 8 packed bags), never into
+    more splits than N has 64-row tiles."""
+    assert fa.slot_splits(10240, 512, 4) == 8
+    assert fa.slot_splits(10240, 512, 4 * 8) == 1
+    assert fa.slot_splits(1, 1, 3) == 1
+    assert fa.slot_splits(130, 24, 1) == 3
     for n, s, hh in [(10240, 512, 4), (1000, 64, 2), (65, 130, 1)]:
-        splits = fa.fwd_splits(n, s, hh)
+        splits = fa.slot_splits(n, s, hh)
         assert 1 <= splits <= -(-n // 64)
         blocks = -(-s // 64) * hh
-        assert splits == 1 or blocks * (splits - 1) < fa.FWD_MIN_BLOCKS
+        assert splits == 1 or blocks * (splits - 1) < fa.SLOT_MIN_BLOCKS
 
 
 @pytest.mark.cuda
@@ -253,6 +264,62 @@ def test_kernel_is_bitwise_repeatable(cuda_device, segments):
     assert torch.equal(a, b)
 
 
+def max_ulps(got, want):
+    """The largest difference of two bf16 tensors in ulps of the larger
+    magnitude; values below 2^-8 of max |want|, where the f32 sums cancel
+    and f32 noise is more than their own ulp, count in the ulp of 2^-8 max
+    |want|. → (ulps, flat index of the worst element)."""
+    got, want = got.float(), want.float()
+    floor = 2.0 ** -8 * float(want.abs().max())
+    big = torch.maximum(got.abs(), want.abs()).clamp_min(floor)
+    ulps = (got - want).abs() / torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return float(ulps.max()), int(ulps.argmax())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [1, 8])
+def test_backward_kernel_is_bitwise_repeatable(cuda_device, segments):
+    """The backward's N splits are summed in a fixed order, without
+    atomics: two launches on the same inputs give the same bits."""
+    q, k, v, sv, qv = make(h=4, n=2000, s=512 // segments, dk=96,
+                           segments=segments, dtype=torch.bfloat16,
+                           device=cuda_device)
+    g = torch.randn(k.shape, generator=torch.Generator().manual_seed(6)
+                    ).to(cuda_device, torch.bfloat16)
+    with torch.inference_mode():
+        _, row_max, row_scale = fa._fwd_cuda(q, k, v, sv, qv, segments, 0.1, 3)
+        a = fa._bwd_cuda(q, k, v, sv, row_max, row_scale, g, segments, 0.1, 3)
+        b = fa._bwd_cuda(q, k, v, sv, row_max, row_scale, g, segments, 0.1, 3)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [1, 8])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_backward_is_one_ulp_from_plain_at_operating_widths(
+        cuda_device, segments, rate):
+    """The backward's bf16 body feeds p̃ and ds to their products as hi +
+    lo, so its f32 sums stay within f32 noise of the plain version's:
+    after both round to bf16, no element of dq, dk or dv is more than one
+    ulp from the plain one (h=4, N=10240, S=512, dk=96; the floor as in
+    `max_ulps`)."""
+    q, k, v, sv, qv = make(h=4, n=10240, s=512, dk=96, segments=segments,
+                           dtype=torch.bfloat16, seed=3, device=cuda_device)
+    g = torch.randn(k.shape, generator=torch.Generator().manual_seed(5)
+                    ).to(cuda_device, torch.bfloat16)
+    kw = dict(dropout_rate=rate, dropout_seed=9)
+    _, got = grads_on_the_card([q, k, v, sv, qv], segments, g, **kw)
+    want = packed_inverted_sparse_attention_bwd(q, k, v, sv, qv, g, segments,
+                                                **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        ulps, worst = max_ulps(a, b)
+        assert ulps <= 1.0, (
+            f"{name}: {ulps} ulps at {worst}: kernel "
+            f"{float(a.flatten()[worst])}, plain {float(b.flatten()[worst])}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("segments", [1, 8])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -271,11 +338,7 @@ def test_bf16_kernel_is_one_ulp_from_plain_at_operating_widths(
         got = fa.fused_packed_inverted_sparse_attention(*args, segments, **kw)
         want = packed_inverted_sparse_attention(*args, segments, **kw)
     torch.cuda.synchronize()
-    got, want = got.float(), want.float()
-    floor = 2.0 ** -8 * float(want.abs().max())
-    big = torch.maximum(got.abs(), want.abs()).clamp_min(floor)
-    ulps = (got - want).abs() / torch.exp2(torch.floor(torch.log2(big)) - 7)
-    worst = int(ulps.argmax())
-    assert float(ulps.max()) <= 1.0, (
-        f"{float(ulps.max())} ulps at {worst}: kernel "
-        f"{float(got.flatten()[worst])}, plain {float(want.flatten()[worst])}")
+    ulps, worst = max_ulps(got, want)
+    assert ulps <= 1.0, (
+        f"{ulps} ulps at {worst}: kernel {float(got.flatten()[worst])}, "
+        f"plain {float(want.flatten()[worst])}")

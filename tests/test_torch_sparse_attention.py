@@ -8,6 +8,7 @@ the hash is held bit for bit.
 """
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,7 @@ from snuffy_tpu_torch.ops.sparse_attention import (
     packed_inverted_sparse_attention,
     packed_inverted_sparse_attention_bwd,
 )
+from tests.test_torch_fused_attention import max_ulps
 
 # f32 on both sides; the sums run in other orders.
 RTOL, ATOL = 1e-5, 1e-6
@@ -284,6 +286,37 @@ def operating_inputs(segments, seed):
     return q, k, v, slot_valid, q_valid
 
 
+def segment_sigma_factor(q, k, slot_valid, q_valid, segments, seg, rate,
+                         seed):
+    """σ and the factor q_valid · keep/(1 − rate) of segment `seg`, f32,
+    each (h, 1, N, S): the plain version's, with the hash of folded head
+    head·segments + seg. → (rows, slots, σ, factor)."""
+    h = q.shape[0]
+    n, s = q.shape[1] // segments, k.shape[1] // segments
+    rows = slice(seg * n, (seg + 1) * n)
+    slots = slice(seg * s, (seg + 1) * s)
+    sigma, factor = _softmax_and_factor(q[:, rows], k[:, slots],
+                                        slot_valid[slots], q_valid[rows],
+                                        1, 0.0, None)
+    if rate > 0.0:
+        hh = torch.arange(h) * segments + seg
+        factor = factor * keep_factor(seed, hh[:, None, None, None],
+                                      torch.arange(n)[:, None],
+                                      torch.arange(s), rate)
+    return rows, slots, sigma, factor
+
+
+def split_bf16(x):
+    """x as a bf16 product takes it in two parts: hi = bf16(x) plus lo =
+    bf16(x − hi), as f32."""
+    hi = x.bfloat16().float()
+    return hi + (x - hi).bfloat16().float()
+
+
+def once_bf16(x):
+    return x.bfloat16().float()
+
+
 def emulate_forward_kernel_bf16(q, k, v, slot_valid, q_valid, segments,
                                 rate, seed=12345):
     """The forward kernel's bf16 tensor-core body, a segment at a time:
@@ -291,26 +324,58 @@ def emulate_forward_kernel_bf16(q, k, v, slot_valid, q_valid, segments,
     product σᵀv takes it, hi = bf16(p) plus lo = bf16(p − hi), and as one
     bf16 rounding would. → (plain, kernel, one rounding), the f32 results
     before their cast, each (h, segments·S, dk)."""
-    h = q.shape[0]
-    n, s = q.shape[1] // segments, k.shape[1] // segments
     outs = ([], [], [])
     for seg in range(segments):
-        rows = slice(seg * n, (seg + 1) * n)
-        slots = slice(seg * s, (seg + 1) * s)
-        sigma, factor = _softmax_and_factor(q[:, rows], k[:, slots],
-                                            slot_valid[slots], q_valid[rows],
-                                            1, 0.0, None)
-        if rate > 0.0:  # the hash of folded head head·segments + seg
-            hh = torch.arange(h) * segments + seg
-            factor = factor * keep_factor(seed, hh[:, None, None, None],
-                                          torch.arange(n)[:, None],
-                                          torch.arange(s), rate)
+        rows, _, sigma, factor = segment_sigma_factor(
+            q, k, slot_valid, q_valid, segments, seg, rate, seed)
         p = sigma * factor
-        hi = p.bfloat16().float()
-        for out, pk in zip(outs, (p, hi + (p - hi).bfloat16().float(), hi)):
+        for out, pk in zip(outs, (p, split_bf16(p), once_bf16(p))):
             out.append(torch.einsum("hkns,hknd->hksd", pk,
                                     v[:, rows].float()[:, None])[:, 0])
     return tuple(torch.cat(out, dim=1) for out in outs)
+
+
+def emulate_backward_kernel_bf16(q, k, v, slot_valid, q_valid, g, segments,
+                                 rate, seed=12345):
+    """The backward kernel's bf16 tensor-core body, a segment at a time.
+    p̃ = σ · factor and ds are f32 (the plain version's formulas) and enter
+    the products dv = p̃ g, dq = ds k and dk = dsᵀq
+      kept whole: the plain version, step for step;
+      as the kernel takes them, hi = bf16(x) plus lo = bf16(x − hi), with D
+        = v · dv from those f32 sums, and the scale applied after the
+        product;
+      rounded once: as the kernel, but the operand of each output's
+        product (p̃ for dv, ds for dq and dk) one bf16 rounding.
+    → (plain, kernel, one rounding), each (dq, dk, dv) in f32 before the
+    cast, shaped as q, k and v."""
+    scale = 1.0 / math.sqrt(q.shape[2])
+    outs = tuple(([], [], []) for _ in range(3))
+    for seg in range(segments):
+        rows, slots, sigma, factor = segment_sigma_factor(
+            q, k, slot_valid, q_valid, segments, seg, rate, seed)
+        qb, kb, vb, gb = (x.float()[:, None] for x in (
+            q[:, rows], k[:, slots], v[:, rows], g[:, slots]))
+        live = slot_valid[slots].float()[None, None, None, :]
+        p = sigma * factor
+        dsig = torch.einsum("hknd,hksd->hkns", vb, gb) * factor
+        # the plain version
+        ds = sigma * (dsig - (sigma * dsig).sum(dim=-1, keepdim=True))
+        ds = ds * live * scale
+        plain = (torch.einsum("hkns,hksd->hknd", ds, kb),
+                 torch.einsum("hkns,hknd->hksd", ds, qb),
+                 torch.einsum("hkns,hksd->hknd", p, gb))
+        # the kernel: D from dv's f32 sums
+        dv = torch.einsum("hkns,hksd->hknd", split_bf16(p), gb)
+        ds = sigma * (dsig - (vb * dv).sum(dim=-1, keepdim=True)) * live
+        kernel, once = ((torch.einsum("hkns,hksd->hknd", form(ds), kb) * scale,
+                         torch.einsum("hkns,hknd->hksd", form(ds), qb) * scale)
+                        for form in (split_bf16, once_bf16))
+        kernel += (dv,)
+        once += (torch.einsum("hkns,hksd->hknd", once_bf16(p), gb),)
+        for out, grads in zip(outs, (plain, kernel, once)):
+            for o, x in zip(out, grads):
+                o.append(x[:, 0])
+    return tuple(tuple(torch.cat(o, dim=1) for o in out) for out in outs)
 
 
 def _rel(got, want):
@@ -349,3 +414,45 @@ def test_split_p_keeps_the_forward_kernel_off_two_ulp_flips(segments, rate,
     assert _rel(once, plain) > 2.0 ** -10  # what the split avoids
     assert _rel(kernel.bfloat16().float(), plain.bfloat16().float()) <= (
         2.0 ** -7)
+
+
+def operating_gradient(segments, seed):
+    """A seeded bf16 output gradient g (h=4, segments·512, 96)."""
+    rng = np.random.default_rng(seed + 1000)
+    return torch.from_numpy(rng.standard_normal((4, segments * 512, 96))
+                            .astype(np.float32)).bfloat16()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_backward_emulation_kept_whole_is_the_plain_version(rate):
+    """At the operating widths, one bag: the emulation with p̃ and ds kept
+    whole is `packed_inverted_sparse_attention_bwd`, bit for bit after the
+    cast."""
+    inputs = operating_inputs(1, 11)
+    g = operating_gradient(1, 11)
+    plain, _, _ = emulate_backward_kernel_bf16(*inputs, g, 1, rate)
+    want = packed_inverted_sparse_attention_bwd(
+        *inputs, g, 1, dropout_rate=rate, dropout_seed=12345)
+    for a, b in zip(plain, want):
+        assert torch.equal(a.bfloat16(), b)
+
+
+@pytest.mark.parametrize("segments, seed", [(1, 12), (1, 13), (8, 11)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_split_p_and_ds_keep_the_backward_kernel_off_two_ulp_flips(
+        segments, rate, seed):
+    """The backward kernel's tensor-core body feeds p̃ to dv = p̃ g and ds
+    to dq = ds k and dk = dsᵀq as hi + lo. Emulated at the operating
+    widths, hi + lo keeps each f32 result within 2^-16 of its largest
+    value (2.4e-6-4.4e-6) and every element within one bf16 ulp of the
+    plain one after the cast; p̃ or ds rounded once moves them by more
+    than 2^-10 (1.5e-3-2.8e-3) and flips elements near 2^-8 of the
+    largest by 25-73 ulps, so both keep the split."""
+    inputs = operating_inputs(segments, seed)
+    plain, kernel, once = emulate_backward_kernel_bf16(
+        *inputs, operating_gradient(segments, seed), segments, rate)
+    for name, p, kern, one in zip(("dq", "dk", "dv"), plain, kernel, once):
+        assert _rel(kern, p) <= 2.0 ** -16, name
+        assert max_ulps(kern.bfloat16(), p.bfloat16())[0] <= 1.0, name
+        assert _rel(one, p) > 2.0 ** -10, name  # what the split avoids
+        assert max_ulps(one.bfloat16(), p.bfloat16())[0] > 2.0, name
