@@ -35,6 +35,16 @@ per kernel, all at once), then:
      uint8 224² tiles, 12 dense-attention launches a 256-tile batch; a
      small request is checked against the same models in f32 on the CPU
      (plain attention path);
+  5b. whole slide: the port's streaming `predict_slide` on a q75 JPEG-
+     tiled pyramid written with the port's writer (SLIDE_GRID² tiles of
+     256², a 2× level, a quarter of the tiles flat background) at the
+     serve operating point: one warm-up, then (a) the scaled decode
+     (256→224 by the 7/8 IDCT), (b) `scaled_decode=False` (decode at 256,
+     resize on the card), (c) (b) without the prefetch thread; kept
+     positions equal across them and to the fixture's tissue, (b) and (c)
+     bitwise equal, (a) within the JAX test's 0.05/0.02 of (b), every
+     timing key, tiles/s through the reader, the dense and sparse kernels'
+     launches; a small slide in f32 on the card against the CPU;
   6. packed eval: 30 bags of seeded (10240, 384) embeddings through
      run_eval_epoch (chunks of 8, the tail padded with dummy bags), and
      each bag's score against a one-bag (segments=1) run;
@@ -43,7 +53,10 @@ per kernel, all at once), then:
      128, embeds two bags of 700 and 300 seeded uint8 224² tiles (tails
      padded), writes the per-bag and dataset CSVs to a temporary directory
      and reads them back; tiles/s, 12 dense-attention launches a batch; a
-     GPU (kernel) vs CPU (plain) f32 check on two tiles;
+     GPU (kernel) vs CPU (plain) f32 check on two tiles; then one bag
+     written as a tree of JPEG tiles and run through `extract_dataset`,
+     which decodes them with the port's libjpeg decoder (held to PIL
+     where PIL is installed) and gives the features of its decoded tiles;
   8. train: the same MILNet with attention dropout 0.1, AdamW (lr 2e-2,
      weight decay 5e-2, soft_average), 8 bags of 10240 rows (10000 valid)
      in serial steps, then 16 bags in packed steps of 8;
@@ -51,11 +64,11 @@ per kernel, all at once), then:
      3 serial steps through the kernels on the card and through the plain
      versions on the CPU.
 
-Each path of the main path (serve, eval, extraction, train) runs with the
-launch counts set to 0 just before it and read just after. Every phase asserts;
-any failure exits non-zero. The line before the last is the kernels' JSON
-record, the last line the device record. It exits non-zero at once
-without a CUDA device.
+Each path of the main path (serve, whole slide, eval, extraction, train)
+runs with the launch counts set to 0 just before it and read just after.
+Every phase asserts; any failure exits non-zero. The line before the last
+is the kernels' JSON record, the last line the device record. It exits
+non-zero at once without a CUDA device.
 """
 
 from __future__ import annotations
@@ -97,6 +110,12 @@ DENSE_CASES = (("P1-P3", 1536, 197, 197, 64), ("P4", 384, 785, 785, 64),
 # ViT embeddings, f32: GPU (kernel) vs CPU (plain), absolute.
 EMBED_TOL = 1e-3
 EXTRACT_BAGS, EXTRACT_BATCH = (700, 300), 128
+# The whole-slide fixture: SLIDE_GRID² JPEG tiles of 256² at level 0.
+SLIDE_GRID, SLIDE_QUALITY, SLIDE_BACKGROUND = 100, 75, 0.25
+# Scaled (7/8 IDCT) against decode at 256 + resize, as
+# tests/test_slide_inference.py holds the JAX pipeline: the two decodes
+# differ in the top frequency band.
+SCALED_TOL = {"instances": 0.05, "bag": 0.02}
 # Bag/instance scores, f32 model: GPU (kernel) vs CPU (plain), and packed
 # (segments=8) vs one bag (segments=1), both f32 GEMMs in other orders.
 SCORE_TOL = 1e-4
@@ -443,6 +462,146 @@ def phase_serve(cfg, dev, kernels):
     return milnet, serve_launches
 
 
+def write_slide(path, grid, seed, background=SLIDE_BACKGROUND):
+    """A JPEG-tiled pyramid from the port's writer: textured tissue tiles
+    (smooth stain-like waves plus noise, 16 patterns, each tile one of
+    them) and flat background tiles, `background` of them, at random;
+    level 1 is level 0 taken every second pixel. Returns the tissue
+    (col, row) positions in row-scan order."""
+    import numpy as np
+
+    from snuffy_tpu_torch import native
+
+    rng = np.random.default_rng(seed)
+    tile = 256
+    yy, xx = np.mgrid[0:tile, 0:tile] / tile
+    patterns = []
+    for p in range(16):
+        wave = (120 + 60 * np.sin(4 * np.pi * (xx + 0.3 * p))
+                + 40 * np.cos(3 * np.pi * (yy + 0.2 * p)))[..., None]
+        rgb = wave * np.array([1.0, 0.75, 1.1]) + rng.normal(
+            0, 12, (tile, tile, 3))
+        patterns.append(np.clip(rgb, 0, 255).astype(np.uint8))
+    level0 = np.full((grid * tile, grid * tile, 3), 245, np.uint8)
+    is_tissue = rng.random((grid, grid)) >= background
+    pick = rng.integers(0, len(patterns), (grid, grid))
+    for r in range(grid):
+        for c in range(grid):
+            if is_tissue[r, c]:
+                level0[r * tile:(r + 1) * tile, c * tile:(c + 1) * tile] = (
+                    patterns[pick[r, c]])
+    native.write_tiled_tiff(path, [level0, level0[::2, ::2]], tile=tile,
+                            jpeg_quality=SLIDE_QUALITY)
+    return [(c, r) for r in range(grid) for c in range(grid)
+            if is_tissue[r, c]]
+
+
+def phase_slide(cfg, milnet, dev, kernels):
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from snuffy_tpu_torch import native
+    from snuffy_tpu_torch.embed.registry import build_embedder
+    from snuffy_tpu_torch.models.snuffy import build_milnet
+    from snuffy_tpu_torch.pipeline.slide_inference import predict_slide
+    from snuffy_tpu_torch.tiling.deepzoom import TilerConfig
+
+    log(f"== phase 5b: whole slide (streaming predict_slide, ViT-S/16 + "
+        f"MILNet bf16, a {SLIDE_GRID}x{SLIDE_GRID} grid of q{SLIDE_QUALITY} "
+        "JPEG tiles of 256², 2x level, embed batch 256 at 224²)")
+    t0 = time.perf_counter()
+    native.get_lib()
+    log(f"  slide reader built in {time.perf_counter() - t0:.2f} s, linked "
+        f"with {' '.join(native.find_codec_libraries())}")
+    embedder = build_embedder("DINO", "vit_small", patch_size=16,
+                              compute_dtype="bfloat16", device=dev)
+    tiler = TilerConfig(tile_size=256, objective_power=20.0, base_mag=20.0)
+    keys = ("read_filter_s", "read_decode_s", "embed_s", "classify_s",
+            "total_s")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "slide.tif")
+        t0 = time.perf_counter()
+        tissue = write_slide(path, SLIDE_GRID, seed=11)
+        log(f"  fixture: {len(tissue)} tissue tiles of {SLIDE_GRID ** 2}, "
+            f"{os.path.getsize(path) / 2 ** 20:.1f} MiB, written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        predict_slide(path, embedder, milnet, tiler)          # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        runs = {}
+        for label, kw, decode_path in (
+                ("a scaled", {}, "grid_jpeg_scaled"),
+                ("b unscaled", dict(scaled_decode=False), "grid"),
+                ("c unscaled, no prefetch",
+                 dict(scaled_decode=False, prefetch=False), "grid")):
+            before = kernels.launch_counts()
+            pred = predict_slide(path, embedder, milnet, tiler, **kw)
+            t = pred.timings
+            dense, sparse = (kernels.launch_counts()[k.name] - before[k.name]
+                             for k in (kernels.DENSE, kernels.FWD))
+            log(f"  ({label}) decode_path={t['decode_path']} "
+                f"n_patches={t['n_patches']} "
+                + " ".join(f"{k}={t[k]:.4f}" for k in keys)
+                + f" reader {SLIDE_GRID ** 2 / t['read_decode_s']:.1f} "
+                f"tiles/s, end to end {SLIDE_GRID ** 2 / t['total_s']:.1f} "
+                f"grid tiles/s; bag_score={pred.bag_score:.6f} "
+                f"dense_attention_launches={dense} "
+                f"sparse_attention_launches={sparse}")
+            if t["decode_path"] != decode_path:
+                raise AssertionError(f"{label}: decode path "
+                                     f"{t['decode_path']}")
+            if pred.positions != tissue or t["n_patches"] != len(tissue):
+                raise AssertionError(f"{label}: kept tiles are not the "
+                                     "fixture's tissue")
+            scores = np.append(pred.instance_scores, pred.bag_score)
+            if not (np.isfinite(scores).all() and (scores >= 0).all()
+                    and (scores <= 1).all()):
+                raise AssertionError(f"{label}: scores not finite in [0, 1]")
+            if dense != 12 * math.ceil(len(tissue) / 256):
+                raise AssertionError(f"dense attention launched {dense} "
+                                     "times, not 12 a 256-tile batch")
+            if sparse < cfg.depth:
+                raise AssertionError(f"sparse attention launched {sparse} < "
+                                     "depth times")
+            runs[label[0]] = pred
+        slide_launches = kernels.launch_counts()
+    a, b, c = runs["a"], runs["b"], runs["c"]
+    if not (np.array_equal(b.instance_scores, c.instance_scores)
+            and b.bag_score == c.bag_score):
+        raise AssertionError("prefetch on and off give different scores")
+    log("  (b) and (c), prefetch on and off: bitwise equal")
+    check_scores("scaled (a) vs unscaled (b) instance scores",
+                 a.instance_scores, b.instance_scores,
+                 SCALED_TOL["instances"])
+    check_scores("scaled (a) vs unscaled (b) bag score", [a.bag_score],
+                 [b.bag_score], SCALED_TOL["bag"])
+
+    # The path on the card (kernels) against the CPU (plain), f32, ρ=0,
+    # on a small slide.
+    ref_cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                                  random_patch_share=0.0)
+    emb32 = copy.deepcopy(embedder)
+    emb32.backbone.compute_dtype = "float32"
+    m_gpu = build_milnet(ref_cfg, device=dev)
+    m_gpu.load_state_dict(milnet.state_dict())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "small.tif")
+        write_slide(path, 4, seed=12)
+        gpu = predict_slide(path, emb32, m_gpu, tiler, embed_batch=8)
+        cpu = predict_slide(path, copy.deepcopy(emb32).cpu(),
+                            copy.deepcopy(m_gpu).cpu(), tiler, embed_batch=8)
+    if gpu.positions != cpu.positions or not gpu.positions:
+        raise AssertionError("GPU and CPU keep different tiles")
+    check_scores("small slide f32 instance scores, GPU vs CPU",
+                 gpu.instance_scores, cpu.instance_scores, SCORE_TOL)
+    check_scores("small slide f32 bag score, GPU vs CPU", [gpu.bag_score],
+                 [cpu.bag_score], SCORE_TOL)
+    return slide_launches
+
+
 def phase_eval(cfg, milnet, dev, kernels):
     import torch
 
@@ -580,7 +739,68 @@ def phase_extract(dev, kernels):
         f_cpu, _ = emb32.cpu()(small)
     check_scores("ViT-S/8 + adapter f32 embeddings, GPU vs CPU",
                  f_gpu.cpu().numpy(), f_cpu.numpy(), EMBED_TOL)
-    return extract_launches
+
+    # One bag as a tree of JPEG tiles (q90) through extract_dataset, which
+    # decodes them with the port's libjpeg decoder: the CSV holds the
+    # features of the decoded tiles.
+    import glob
+    import os
+
+    from snuffy_tpu_torch import native
+    from snuffy_tpu_torch.embed.pipeline import extract_dataset
+
+    bag = bags[1]
+    with tempfile.TemporaryDirectory() as root:
+        bag_dir = os.path.join(root, "single", "fold1", "train", "1_tumor",
+                               "slide_jpeg")
+        os.makedirs(bag_dir)
+        for j, tile in enumerate(bag):
+            native.write_jpeg(os.path.join(bag_dir, f"{j % 20}_{j // 20}.jpeg"),
+                              tile, quality=90)
+        paths = sorted(glob.glob(os.path.join(bag_dir, "*.jpeg")))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rows = extract_dataset(embedder, root, "fold1",
+                               os.path.join(root, "out"),
+                               class_labels={"1_tumor": 1},
+                               batch_size=EXTRACT_BATCH)
+        elapsed = time.perf_counter() - t0
+        jpeg_launches = kernels.launch_counts()
+        t0 = time.perf_counter()
+        decoded = np.stack([native.decode_jpeg(p, 224) for p in paths])
+        decode_s = time.perf_counter() - t0
+        with open(rows[0][0], newline="") as fh:
+            _, *body = list(csv.reader(fh))
+        got = np.array([r[:384] for r in body], np.float32)
+        want = embed_tiles(embedder, decoded, EXTRACT_BATCH)
+        try:
+            from PIL import Image
+        except ImportError:
+            pil = "PIL absent: not compared"
+        else:
+            same = all(np.array_equal(
+                np.asarray(Image.open(p).convert("RGB")), d)
+                for p, d in zip(paths, decoded))
+            if not same:
+                raise AssertionError("decode_jpeg differs from PIL's")
+            pil = "every tile bitwise equal to PIL's decode"
+    dense = jpeg_launches[kernels.DENSE.name]
+    log(f"  JPEG bag: {len(bag)} tiles through extract_dataset in "
+        f"{elapsed:.4f} s = {len(bag) / elapsed:.3f} tiles/s with decode and "
+        f"CSV; decode alone {decode_s:.4f} s = {len(bag) / decode_s:.1f} "
+        f"tiles/s ({pil}); dense_attention_launches={dense}")
+    if rows[0][1] != 1 or got.shape != (len(bag), 384):
+        raise AssertionError(f"JPEG bag CSV malformed: {got.shape}")
+    if not np.array_equal(got, want):
+        raise AssertionError("extract_dataset's features are not those of "
+                             "its decoded tiles")
+    if dense != 12 * math.ceil(len(bag) / EXTRACT_BATCH):
+        raise AssertionError(f"dense attention launched {dense} times on the "
+                             "JPEG bag")
+    log("  JPEG bag CSV equals the embeddings of the decoded tiles")
+    return {k: extract_launches[k] + jpeg_launches[k]
+            for k in extract_launches}
 
 
 def train_bags(count, d, gen, dev):
@@ -820,15 +1040,17 @@ def main() -> int:
         compute_dtype="bfloat16",
     )
     milnet, serve_launches = phase_serve(cfg, dev, kernels)
+    slide_launches = phase_slide(cfg, milnet, dev, kernels)
     eval_launches, bags_per_s = phase_eval(cfg, milnet, dev, kernels)
     extract_launches = phase_extract(dev, kernels)
     train_launches = phase_train(cfg, dev, kernels)
     phase_train_gpu_vs_cpu(cfg, dev)
 
-    log(f"  main-path kernel launches: serve {serve_launches}, eval "
-        f"{eval_launches}, extraction {extract_launches}, train "
-        f"{train_launches}")
-    paths = (serve_launches, eval_launches, extract_launches, train_launches)
+    log(f"  main-path kernel launches: serve {serve_launches}, whole slide "
+        f"{slide_launches}, eval {eval_launches}, extraction "
+        f"{extract_launches}, train {train_launches}")
+    paths = (serve_launches, slide_launches, eval_launches, extract_launches,
+             train_launches)
     no_library = None  # no one PyTorch call computes the slot sums σᵀv
     records = []
     for kernel, err, (ms, plain_ms, bound, bound_by, library_ms) in (

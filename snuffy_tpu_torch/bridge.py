@@ -20,6 +20,7 @@ that converts with `np.asarray`. Nothing here imports JAX.
 
 from __future__ import annotations
 
+import argparse
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -117,8 +118,11 @@ def vit_from_jax(params: dict) -> Dict[str, np.ndarray]:
 def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
     """Load a state dict on the CPU, unwrapping a 'state_dict', 'model' or
     'teacher' container as the reference loaders do, and strip `module.`
-    and `backbone.` prefixes."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    and `backbone.` prefixes. The load stays `weights_only`, with
+    `argparse.Namespace` allowed: a DINO training checkpoint stores its
+    arguments as one beside `teacher` and `student`."""
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
     for container in ("state_dict", "model", "teacher"):
         if isinstance(ckpt, dict) and isinstance(ckpt.get(container), dict):
             ckpt = ckpt[container]

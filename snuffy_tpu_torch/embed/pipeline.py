@@ -2,7 +2,8 @@
 
 The port's copy of `snuffy_tpu/embed/pipeline.py` (the reference extraction
 loop, reference compute_feats.py:66-266), with the standard library's `csv`
-in place of pandas and PIL imported only inside the decode workers:
+in place of pandas, and the port's libjpeg decoder (`native.decode_jpeg`)
+and a numpy copy of PIL's bilinear resample in place of PIL:
 
   * bag = one directory of patch JPEGs named `{col}_{row}[-{level}].jpeg`;
   * patch labels looked up in the dataset-level tile_label.csv dict;
@@ -22,6 +23,7 @@ Queue 1, slice 7).
 from __future__ import annotations
 
 import csv
+import functools
 import glob
 import multiprocessing as mp
 import os
@@ -57,14 +59,79 @@ def load_patch_labels(tile_label_csv: str) -> Dict[str, int]:
     return labels
 
 
-def _decode_one(args):
-    path, size = args
-    from PIL import Image
+# PIL's fixed point for 8-bit resampling (Pillow's Resample.c).
+_PRECISION_BITS = 32 - 8 - 2
 
-    img = Image.open(path).convert("RGB")
-    if img.size != (size, size):
-        img = img.resize((size, size), Image.BILINEAR)
-    return np.asarray(img, np.uint8)
+
+@functools.lru_cache(maxsize=None)
+def _bilinear_taps(in_size: int, out_size: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """(out, taps) source indices and integer weights of PIL's BILINEAR
+    resample along one axis (precompute_coeffs and normalize_coeffs_8bpc):
+    the triangle filter's support scales with the downscale factor, the
+    weights are normalised in doubles, summed in order, and rounded to
+    22-bit fixed point."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    index = np.zeros((out_size, ksize), np.int64)
+    weight = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        ws = [max(0.0, 1.0 - abs((x + xmin - center + 0.5) / filterscale))
+              for x in range(xmax)]
+        total = 0.0
+        for w in ws:
+            total += w
+        for x, w in enumerate(ws):
+            w = w / total if total != 0.0 else w
+            weight[xx, x] = int(0.5 + w * (1 << _PRECISION_BITS))
+            index[xx, x] = x + xmin
+        index[xx, xmax:] = xmin
+    return index, weight
+
+
+def _resample_axis(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """One pass of PIL's 8-bit resample along `axis` (0 rows, 1 columns)
+    of an (h, w, c) uint8 image: start at half a unit, add pixel × weight,
+    keep the integer part and clip to [0, 255]."""
+    index, weight = _bilinear_taps(img.shape[axis], out_size)
+    acc = np.full(img.shape[:axis] + (out_size,) + img.shape[axis + 1:],
+                  1 << (_PRECISION_BITS - 1), np.int64)
+    shape = (-1, 1, 1) if axis == 0 else (1, -1, 1)
+    for t in range(index.shape[1]):
+        taps = np.take(img, index[:, t], axis=axis).astype(np.int64)
+        acc += taps * weight[:, t].reshape(shape)
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def pil_bilinear_resize(img: np.ndarray, size: Tuple[int, int]
+                        ) -> np.ndarray:
+    """(h, w, 3) uint8 → (size[1], size[0], 3), the bytes of PIL's
+    `Image.fromarray(img).resize(size, Image.BILINEAR)`: a horizontal pass
+    to 8 bits, then a vertical one, each only where the size changes."""
+    out_w, out_h = size
+    if img.shape[1] != out_w:
+        img = _resample_axis(img, 1, out_w)
+    if img.shape[0] != out_h:
+        img = _resample_axis(img, 0, out_h)
+    return img
+
+
+def _decode_one(args):
+    """One patch JPEG → (size, size, 3) uint8, as PIL's
+    `Image.open(path).convert("RGB")`, then `.resize((size, size),
+    BILINEAR)` when its size differs."""
+    from snuffy_tpu_torch import native
+
+    path, size = args
+    img = native.decode_jpeg(path, size_hint=size)
+    if img.shape[:2] != (size, size):
+        img = pil_bilinear_resize(img, (size, size))
+    return img
 
 
 def decode_batch(paths: Sequence[str], size: int, pool=None) -> np.ndarray:

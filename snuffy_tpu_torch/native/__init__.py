@@ -1,83 +1,171 @@
-"""ctypes binding of the pyramidal TIFF slide reader (`slide_reader.cpp`).
+"""ctypes binding of the slide reader and JPEG codec (`slide_reader.cpp`).
 
-The port's copy of the reader in `snuffy_tpu/native`. It is host code (no
-kernel): g++ builds it with libtiff at first use into
-`build/snuffy_tpu_torch/libslide_reader-<hash>.so` at the repository root,
-never beside the source. Callers check `available()`, which is false when
-the compiler or libtiff is missing.
+The port's copy of the slide half of `snuffy_tpu/native`, with the same
+names and return shapes: `NativeSlide` (levels, `read_region`, the grid
+block reads `read_grid` and `read_grid_scaled`, `scaled_grid_ok`),
+`write_tiled_tiff`, plus `write_jpeg`, `decode_jpeg` and `edge_energy`.
+It is host code (no kernel): g++ builds it at first use into
+`build/snuffy_tpu_torch/libslide_reader-<hash>.so` at the repository
+root, never beside the source; the hash covers the source, its header,
+the flags and the libraries it links.
+
+It links libtiff (`.so.6`) and libjpeg (ABI 62, `.so.62`) and includes
+neither header: `codec_abi.h` declares what it calls. The libraries are
+the system's when the dynamic loader finds them by soname, else the
+copies a Pillow wheel bundles in `pillow.libs/` on `sys.path` (linked by
+path, with that directory as the run path; Pillow itself is never
+imported). A build or a library that fails raises RuntimeError with the
+reason; `available()` says whether the build works.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import subprocess
+import sys
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "slide_reader.cpp"
+HEADER = SOURCE.with_name("codec_abi.h")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "snuffy_tpu_torch"
-GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17",
-             "-I/usr/include/x86_64-linux-gnu")
+GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+SONAMES = ("libtiff.so.6", "libjpeg.so.62")
+
+
+def bundled_codec_libraries() -> Optional[List[str]]:
+    """g++ arguments that link the libtiff.so.6 and libjpeg.so.62 of the
+    first `pillow.libs` on sys.path that holds both, or None. The run path
+    goes in as DT_RPATH, which the loader also applies to those libraries'
+    own bundled dependencies (libzstd, liblzma, ...)."""
+    for entry in sys.path:
+        libs = os.path.join(entry or ".", "pillow.libs")
+        found = [sorted(glob.glob(os.path.join(libs, pattern)))
+                 for pattern in ("libtiff-*.so.6*", "libjpeg-*.so.62*")]
+        if all(found):
+            return [f"-L{libs}", f"-Wl,-rpath,{libs}",
+                    "-Wl,--disable-new-dtags",
+                    *(f"-l:{os.path.basename(f[0])}" for f in found)]
+    return None
+
+
+def find_codec_libraries() -> List[str]:
+    """g++ arguments that link libtiff.so.6 and libjpeg.so.62: by soname
+    when the loader finds both, else Pillow's bundled copies. Raises
+    RuntimeError when neither has them."""
+    try:
+        for soname in SONAMES:
+            ctypes.CDLL(soname)
+        return [f"-l:{soname}" for soname in SONAMES]
+    except OSError:
+        pass
+    bundled = bundled_codec_libraries()
+    if bundled is None:
+        raise RuntimeError(
+            f"no {' and '.join(SONAMES)}: the dynamic loader does not find "
+            "them and no pillow.libs on sys.path holds them")
+    return bundled
 
 
 @functools.lru_cache(maxsize=None)
-def get_lib() -> Optional[ctypes.CDLL]:
-    """Build (first use) and bind the reader; None when it cannot build."""
+def build(libs: Optional[Tuple[str, ...]] = None
+          ) -> Tuple[Optional[ctypes.CDLL], str]:
+    """(library, "") or (None, why it failed), linked with `libs` (g++
+    arguments; default `find_codec_libraries()`); once a process."""
+    if libs is None:
+        try:
+            libs = tuple(find_codec_libraries())
+        except RuntimeError as e:
+            return None, str(e)
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(GXX_FLAGS).encode()
+        SOURCE.read_bytes() + HEADER.read_bytes()
+        + " ".join(GXX_FLAGS + tuple(libs)).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"libslide_reader-{digest}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = ["g++", *GXX_FLAGS, str(SOURCE), "-o", str(tmp), "-ltiff"]
+        cmd = ["g++", *GXX_FLAGS, str(SOURCE), "-o", str(tmp), *libs]
         try:
-            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        except (OSError, subprocess.SubprocessError):
+            subprocess.run(cmd, check=True, capture_output=True, text=True,
+                           timeout=120)
+        except subprocess.CalledProcessError as e:
             tmp.unlink(missing_ok=True)
-            return None
+            return None, f"{' '.join(cmd)} failed:\n{e.stderr}"
+        except (OSError, subprocess.SubprocessError) as e:
+            tmp.unlink(missing_ok=True)
+            return None, f"{' '.join(cmd)}: {e}"
         os.replace(tmp, out)
     try:
         lib = ctypes.CDLL(str(out))
-    except OSError:
-        return None
-    p, i, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    lib.slide_open.restype = p
-    lib.slide_open.argtypes = [ctypes.c_char_p]
-    lib.slide_level_count.restype = i
-    lib.slide_level_count.argtypes = [p]
-    lib.slide_level_dimensions.restype = None
-    lib.slide_level_dimensions.argtypes = [
-        p, i, ctypes.POINTER(u32), ctypes.POINTER(u32)]
-    lib.slide_level_downsample.restype = ctypes.c_double
-    lib.slide_level_downsample.argtypes = [p, i]
-    lib.slide_read_region.restype = i
-    lib.slide_read_region.argtypes = [
-        p, i, u32, u32, u32, u32, ctypes.POINTER(ctypes.c_uint8)]
-    lib.slide_close.restype = None
-    lib.slide_close.argtypes = [p]
+    except OSError as e:
+        return None, f"cannot load {out}: {e}"
+    _declare(lib)
+    return lib, ""
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                      ctypes.c_float)
+    u8p, f32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(f32)
+    for name, res, args in (
+        ("slide_open", p, [ctypes.c_char_p]),
+        ("slide_level_count", i, [p]),
+        ("slide_level_dimensions", None,
+         [p, i, ctypes.POINTER(u32), ctypes.POINTER(u32)]),
+        ("slide_level_downsample", ctypes.c_double, [p, i]),
+        ("slide_read_region", i, [p, i, u32, u32, u32, u32, u8p]),
+        ("slide_read_grid", i, [p, i, u32, u32, u32, u32, u8p, f32p]),
+        ("slide_grid_jpeg_scaled_ok", i, [p, i, u32]),
+        ("slide_read_grid_jpeg_scaled", i,
+         [p, i, u32, u32, u32, u32, u32, u8p, f32p]),
+        ("slide_close", None, [p]),
+        ("tile_edge_energy_rgb", f32, [u8p, u32]),
+        ("tiff_write_tiled_rgb", i,
+         [ctypes.c_char_p, u8p, u32, u32, u32, i, i]),
+        ("jpeg_write_rgb", i, [ctypes.c_char_p, u8p, i, i, i]),
+        ("jpeg_decode_rgb", i,
+         [ctypes.c_char_p, u8p, u32, u32, ctypes.POINTER(u32),
+          ctypes.POINTER(u32)]),
+    ):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+
+
+def get_lib() -> ctypes.CDLL:
+    """The reader, built at first use; RuntimeError when it cannot be."""
+    lib, why = build()
+    if lib is None:
+        raise RuntimeError(f"native slide reader unavailable: {why}")
     return lib
 
 
 def available() -> bool:
-    return get_lib() is not None
+    return build()[0] is not None
+
+
+def _u8(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _f32(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
 
 
 class NativeSlide:
     """Pyramidal TIFF reader: level_count, level_dimensions,
-    level_downsample and RGB read_region, as the tiler needs them."""
+    level_downsample, RGB read_region, and the grid block reads of the
+    streaming slide path."""
 
     def __init__(self, path: str):
-        lib = get_lib()
-        if lib is None:
-            raise RuntimeError("native slide reader unavailable")
-        self._lib = lib
-        self._h = lib.slide_open(path.encode())
+        self._lib = get_lib()
+        self._h = self._lib.slide_open(path.encode())
         if not self._h:
             raise FileNotFoundError(f"cannot open slide {path}")
 
@@ -104,13 +192,67 @@ class NativeSlide:
                     ) -> np.ndarray:
         self._check_level(level)
         out = np.zeros((h, w, 3), np.uint8)
-        rc = self._lib.slide_read_region(
-            self._h, level, x, y, w, h,
-            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        )
+        rc = self._lib.slide_read_region(self._h, level, x, y, w, h, _u8(out))
         if rc != 0:
             raise IOError(f"slide_read_region failed rc={rc}")
         return out
+
+    def read_grid(self, level: int, read: int, n_cols: int, n_rows: int,
+                  row0: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+        """An (n_rows, n_cols) block of grid tiles from grid row `row0` in
+        one call → ((n_rows·n_cols, read, read, 3) uint8 tiles in row-scan
+        order, (n_rows·n_cols,) f32 edge energies). The C call releases
+        the GIL (ctypes.CDLL), so a reader thread overlaps it."""
+        self._check_level(level)
+        n = n_rows * n_cols
+        tiles = np.empty((n, read, read, 3), np.uint8)
+        energy = np.empty((n,), np.float32)
+        rc = self._lib.slide_read_grid(self._h, level, read, row0, n_cols,
+                                       n_rows, _u8(tiles), _f32(energy))
+        if rc != 0:
+            raise IOError(f"slide_read_grid failed rc={rc}")
+        return tiles, energy
+
+    @staticmethod
+    def scale_num_for(read: int, out_side: int) -> Optional[int]:
+        """The libjpeg scale numerator M (denominator 8) that decodes a
+        `read`² JPEG tile straight at `out_side`², or None when out_side
+        is not an exact M/8 fraction of read (256→224 gives M=7)."""
+        if read <= 0 or not (0 < out_side <= 2 * read):
+            return None
+        num = out_side * 8
+        if num % read:
+            return None
+        m = num // read
+        return m if 1 <= m <= 16 and (read * m + 7) // 8 == out_side else None
+
+    def scaled_grid_ok(self, level: int, read: int, out_side: int) -> bool:
+        """True iff read_grid_scaled can serve this level: JPEG-tiled with
+        side `read`, and out_side an exact M/8 scale of it."""
+        self._check_level(level)
+        return (self.scale_num_for(read, out_side) is not None
+                and bool(self._lib.slide_grid_jpeg_scaled_ok(
+                    self._h, level, read)))
+
+    def read_grid_scaled(self, level: int, read: int, n_cols: int,
+                         n_rows: int, row0: int, out_side: int
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """read_grid with libjpeg's M/8 scaled IDCT: each tile's raw JPEG
+        bytes and the level's JPEGTables decode straight at out_side², and
+        the energies are taken at that size."""
+        self._check_level(level)
+        m = self.scale_num_for(read, out_side)
+        if m is None:
+            raise ValueError(f"{out_side} is not an M/8 scale of {read}")
+        n = n_rows * n_cols
+        tiles = np.empty((n, out_side, out_side, 3), np.uint8)
+        energy = np.empty((n,), np.float32)
+        rc = self._lib.slide_read_grid_jpeg_scaled(
+            self._h, level, read, row0, n_cols, n_rows, m, _u8(tiles),
+            _f32(energy))
+        if rc != 0:
+            raise IOError(f"slide_read_grid_jpeg_scaled failed rc={rc}")
+        return tiles, energy
 
     def close(self) -> None:
         if self._h:
@@ -122,3 +264,72 @@ class NativeSlide:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def _rgb(arr: np.ndarray) -> np.ndarray:
+    """A C-contiguous (H, W, 3) uint8 copy or view; other shapes raise."""
+    arr = np.ascontiguousarray(arr, np.uint8)
+    if arr.ndim != 3 or arr.shape[2] != 3:
+        raise ValueError(f"an (H, W, 3) image, not {arr.shape}")
+    return arr
+
+
+def write_tiled_tiff(path: str, levels: Sequence[np.ndarray], tile: int = 256,
+                     jpeg_quality: int = 75) -> None:
+    """A tiled pyramidal TIFF from (H, W, 3) uint8 levels, level 0 first;
+    JPEG tiles at `jpeg_quality`, or uncompressed when it is 0."""
+    lib = get_lib()
+    for i, arr in enumerate(levels):
+        arr = _rgb(arr)
+        rc = lib.tiff_write_tiled_rgb(path.encode(), _u8(arr), arr.shape[1],
+                                      arr.shape[0], tile, 1 if i else 0,
+                                      jpeg_quality)
+        if rc != 0:
+            raise IOError(f"tiff_write_tiled_rgb failed rc={rc}")
+
+
+def write_jpeg(path: str, rgb: np.ndarray, quality: int = 75) -> None:
+    """An (H, W, 3) uint8 image as a baseline JPEG (libjpeg defaults)."""
+    rgb = _rgb(rgb)
+    rc = get_lib().jpeg_write_rgb(path.encode(), _u8(rgb), rgb.shape[1],
+                                  rgb.shape[0], quality)
+    if rc != 0:
+        raise IOError(f"jpeg_write_rgb({path}) failed rc={rc}")
+
+
+def decode_jpeg(path: str, size_hint: int = 256) -> np.ndarray:
+    """A JPEG file → (H, W, 3) uint8 RGB, as PIL's
+    `Image.open(path).convert("RGB")` gives it (libjpeg's ISLOW IDCT and
+    fancy upsampling; grayscale replicated). CMYK raises ValueError. A
+    first buffer of size_hint² pixels; a larger image decodes on a second
+    call into a buffer of its size."""
+    lib = get_lib()
+    w, h = ctypes.c_uint32(), ctypes.c_uint32()
+
+    def decode(cap_w, cap_h):
+        out = np.empty((cap_h, cap_w, 3), np.uint8)
+        rc = lib.jpeg_decode_rgb(path.encode(), _u8(out), cap_w, cap_h,
+                                 ctypes.byref(w), ctypes.byref(h))
+        return out, rc
+
+    out, rc = decode(size_hint, size_hint)
+    if rc == -14:                      # larger than the first buffer
+        out, rc = decode(w.value, h.value)
+    if rc == -15:
+        raise ValueError(f"{path}: CMYK JPEGs are not decoded")
+    if rc != 0:
+        raise IOError(f"jpeg_decode_rgb({path}) failed rc={rc}")
+    if out.shape[:2] == (h.value, w.value):
+        return out
+    return out.reshape(-1)[:h.value * w.value * 3].reshape(
+        h.value, w.value, 3).copy()
+
+
+def edge_energy(tile: np.ndarray) -> float:
+    """The C reader's edge energy of one (n, n, 3) uint8 tile (the exact
+    mean of the integer Laplacian, rounded once to f32)."""
+    tile = _rgb(tile)
+    if tile.shape[0] != tile.shape[1]:
+        raise ValueError(f"edge_energy takes a square tile, not "
+                         f"{tile.shape}")
+    return float(get_lib().tile_edge_energy_rgb(_u8(tile), tile.shape[0]))

@@ -1,22 +1,44 @@
-"""Slide inference on the GPU: tiles → embeddings → bag score.
+"""Slide inference on the GPU: slide → tiles → embeddings → bag score.
 
-Port of `snuffy_tpu/pipeline/slide_inference.py` (the tile reader and the
-per-tile path; the streaming, prefetch and scaled-decode path is not
-ported yet). Tiles go to the device as uint8; the resize to the embed
-size (when the tile size differs), the cast and the normalisation run
-there. Embeddings fill one preallocated (bucket_length(n), D) f32 device
-buffer, which is the padded bag the aggregator classifies; only the
-scores come back to the host.
+Port of `snuffy_tpu/pipeline/slide_inference.py`. `predict_slide` takes
+the streaming path whenever the tile grid of the read level is aligned
+with the tile size (no residual resize), as the JAX one does with its
+native reader:
 
-Timings: embed_s (upload + embed, synchronised), classify_s (aggregator
-forward and the copy of the scores), total_s, n_patches; predict_slide
-adds read_filter_s for the tile reader.
+  * the C reader decodes a block of grid rows per call and computes each
+    tile's edge energy there (`NativeSlide.read_grid`), or, for a JPEG-
+    tiled level whose embed/tile ratio is M/8, decodes straight at the
+    embed size through libjpeg's scaled IDCT (`read_grid_scaled`);
+  * a one-block prefetch thread reads block i+1 while block i uploads and
+    embeds (the ctypes call releases the GIL);
+  * kept tiles go up in full `embed_batch` batches through a ring of two
+    pinned host buffers, non-blocking, each refilled only after the event
+    recorded behind its last copy has passed;
+  * embeddings land in one preallocated f32 device buffer of
+    bucket_length(cols·rows) + embed_batch rows, the padded bag the
+    aggregator classifies (the grid's bucket, as in JAX, not the kept
+    count's); only the scores come back.
+
+Otherwise (a residual resize) it reads tile by tile in a process pool
+(`read_slide_tiles`) and classifies with `predict_tiles`. Tiles go to the
+device as uint8; the resize to the embed size (when the tile size differs
+and the scaled decode does not apply), the cast and the normalisation run
+there.
+
+Timings of `predict_slide`, with the JAX meanings: read_filter_s (wall
+time blocked on the reader), read_decode_s (the reader's own time,
+streaming path), embed_s (streaming: the synchronised tail after the last
+batch was dispatched; per tile: the whole embed), classify_s, total_s,
+n_patches, and decode_path (`grid_jpeg_scaled`, `grid` or `per_tile`).
+`predict_tiles` reports embed_s (upload + embed, synchronised),
+classify_s, total_s and n_patches.
 """
 
 from __future__ import annotations
 
 import multiprocessing as mp
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -26,6 +48,7 @@ import torch
 from snuffy_tpu_torch.data.bucketing import bucket_length
 from snuffy_tpu_torch.tiling.deepzoom import (
     TilerConfig,
+    area_resize,
     edge_energy,
     pick_read_level,
 )
@@ -51,12 +74,10 @@ def _init_reader(slide_path):
 
 def _read_tile(args):
     col, row, level, read, tile, threshold = args
-    import cv2
-
     slide = _reader_state["slide"]
     region = slide.read_region(level, col * read, row * read, read, read)
     if read != tile:
-        region = cv2.resize(region, (tile, tile), interpolation=cv2.INTER_AREA)
+        region = area_resize(region, tile)
     if edge_energy(region) <= threshold:
         return None
     return col, row, region
@@ -72,15 +93,8 @@ def read_slide_tiles(
     Port of `snuffy_tpu/pipeline/slide_inference.py:31-95`: a process
     pool of `workers` readers, each with its own slide handle, reads the
     tile grid of the chosen level and drops background tiles."""
-    from snuffy_tpu_torch.native import NativeSlide
-
-    with NativeSlide(slide_path) as slide:
-        level, residual = pick_read_level(
-            slide, cfg.objective_power / cfg.base_mag)
-        read = int(round(cfg.tile_size * residual))
-        lw, lh = slide.level_dimensions(level)
-    cols, rows = lw // read, lh // read
-
+    slide, level, read, cols, rows = _grid_geometry(slide_path, cfg)
+    slide.close()
     jobs = [
         (c, r, level, read, cfg.tile_size, cfg.background_threshold)
         for r in range(rows)
@@ -184,6 +198,49 @@ def predict_tiles(
     return SlidePrediction(bag_score, ins_scores, [], timings)
 
 
+def _grid_geometry(slide_path: str, cfg: TilerConfig):
+    """(open slide, read level, read side, grid cols, grid rows)."""
+    from snuffy_tpu_torch.native import NativeSlide
+
+    slide = NativeSlide(slide_path)
+    level, residual = pick_read_level(
+        slide, cfg.objective_power / cfg.base_mag)
+    read = int(round(cfg.tile_size * residual))
+    lw, lh = slide.level_dimensions(level)
+    return slide, level, read, lw // read, lh // read
+
+
+class _Uploads:
+    """uint8 batches → the device. On the card: a ring of two pinned host
+    buffers, copied non-blocking; a buffer is refilled only after the
+    event recorded behind its previous copy has passed, so a copy still in
+    flight never reads a half-written buffer. On the CPU: the array as it
+    is."""
+
+    def __init__(self, device: torch.device, shape: Tuple[int, ...]):
+        self.device = device
+        self.ring = []
+        if device.type == "cuda":
+            self.ring = [[torch.empty(shape, dtype=torch.uint8,
+                                      pin_memory=True), None]
+                         for _ in range(2)]
+        self.turn = 0
+
+    def __call__(self, batch: np.ndarray) -> torch.Tensor:
+        if not self.ring:
+            return torch.from_numpy(batch).to(self.device)
+        slot = self.ring[self.turn]
+        self.turn ^= 1
+        if slot[1] is not None:
+            slot[1].synchronize()
+        slot[0].numpy()[...] = batch
+        on_device = slot[0].to(self.device, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record()
+        return on_device
+
+
+@torch.inference_mode()
 def predict_slide(
     slide_path: str,
     embedder: torch.nn.Module,
@@ -193,16 +250,137 @@ def predict_slide(
     embed_size: int = 224,
     workers: int = 8,
     seed: int = 0,
+    prefetch: Optional[bool] = None,
+    scaled_decode: Optional[bool] = None,
 ) -> SlidePrediction:
-    """WSI → tiles with the shared reader, then `predict_tiles`."""
+    """One slide → bag and instance scores on the models' device.
+
+    The streaming path when the read level's grid is aligned with the tile
+    size, else the per-tile path (module docstring). `prefetch` None or
+    True reads the next block in a thread; `scaled_decode` None or True
+    takes the M/8 scaled JPEG decode where the level allows it, False
+    always decodes at the tile size (and resizes on the device). A reader
+    that does not build, or a slide that does not open, raises."""
+    cfg = tiler_cfg or TilerConfig()
+    t_start = time.perf_counter()
+    slide, level, read, cols, rows = _grid_geometry(slide_path, cfg)
+    if read != cfg.tile_size:
+        slide.close()
+        t0 = time.perf_counter()
+        tiles, positions = read_slide_tiles(slide_path, cfg, workers)
+        read_s = time.perf_counter() - t0
+        pred = predict_tiles(torch.from_numpy(tiles), embedder, milnet,
+                             embed_batch=embed_batch, embed_size=embed_size,
+                             seed=seed)
+        pred.timings.update(read_filter_s=read_s, decode_path="per_tile",
+                            total_s=time.perf_counter() - t_start)
+        pred.positions = positions
+        return pred
+    try:
+        scaled = (cfg.tile_size != embed_size and scaled_decode is not False
+                  and slide.scaled_grid_ok(level, read, embed_size))
+        return _stream(slide, level, read, cols, rows, embedder, milnet, cfg,
+                       embed_batch, embed_size, seed,
+                       prefetch is not False, scaled, t_start)
+    finally:
+        slide.close()
+
+
+def _stream(slide, level, read, cols, rows, embedder, milnet, cfg,
+            embed_batch, embed_size, seed, prefetch, scaled, t_start
+            ) -> SlidePrediction:
+    """The streaming path of `predict_slide` (JAX slide_inference.py
+    :189-342) on an open slide."""
+    device = next(milnet.parameters()).device
+    side = embed_size if scaled else read
+    upload = _Uploads(device, (embed_batch, side, side, 3))
+    block_rows = max(1, -(-embed_batch // max(cols, 1)))
+    starts = list(range(0, rows, block_rows)) if cols else []
+    n_pad = bucket_length(cols * rows)
+    bag = None
+    n_done = 0
+    t_decode = 0.0
+
+    def read_block(r0):
+        nonlocal t_decode
+        nb = min(block_rows, rows - r0)
+        t0 = time.perf_counter()
+        if scaled:
+            out = slide.read_grid_scaled(level, read, cols, nb, r0,
+                                         embed_size)
+        else:
+            out = slide.read_grid(level, read, cols, nb, r0)
+        t_decode += time.perf_counter() - t0
+        return out
+
+    def dispatch(batch: np.ndarray, count: int):
+        # Rows past `count` hold the padding tiles' features; the next
+        # batch overwrites them or the mask leaves them out.
+        nonlocal bag, n_done
+        x = upload(batch)
+        if x.shape[1] != embed_size or x.shape[2] != embed_size:
+            x = device_resize(x, embed_size)
+        feats, _ = embedder(x)
+        if bag is None:
+            bag = torch.zeros((n_pad + embed_batch, feats.shape[1]),
+                              dtype=torch.float32, device=device)
+        bag[n_done:n_done + embed_batch] = feats
+        n_done += count
+
+    positions: List[Tuple[int, int]] = []
+    carry: List[np.ndarray] = []
+    n_carry = 0
+    t_read = 0.0
+    pool = ThreadPoolExecutor(max_workers=1) if prefetch else None
+    try:
+        future = pool.submit(read_block, starts[0]) if pool and starts else None
+        for i, r0 in enumerate(starts):
+            t0 = time.perf_counter()
+            tiles, energy = future.result() if pool else read_block(r0)
+            t_read += time.perf_counter() - t0
+            if pool and i + 1 < len(starts):
+                future = pool.submit(read_block, starts[i + 1])
+            idx = np.nonzero(energy > cfg.background_threshold)[0]
+            positions.extend((int(j % cols), int(r0 + j // cols))
+                             for j in idx)
+            if idx.size:
+                carry.append(tiles[idx])
+                n_carry += idx.size
+            while n_carry >= embed_batch:
+                buf = np.concatenate(carry) if len(carry) > 1 else carry[0]
+                dispatch(buf[:embed_batch], embed_batch)
+                rest = buf[embed_batch:]
+                carry = [rest] if len(rest) else []
+                n_carry = len(rest)
+    finally:
+        if pool:
+            pool.shutdown(wait=True)
+    if n_carry:
+        buf = np.concatenate(carry) if len(carry) > 1 else carry[0]
+        pad = np.zeros((embed_batch - n_carry,) + buf.shape[1:], np.uint8)
+        dispatch(np.concatenate([buf, pad]), n_carry)
+    timings = dict(read_filter_s=t_read, read_decode_s=t_decode,
+                   decode_path="grid_jpeg_scaled" if scaled else "grid")
+    n = n_done
+    if n == 0:
+        # no tissue, no evidence: nothing to classify
+        timings.update(embed_s=0.0, classify_s=0.0, n_patches=0,
+                       total_s=time.perf_counter() - t_start)
+        return SlidePrediction(0.0, np.zeros((0,), np.float32), [], timings)
+
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda *a: None))
     t0 = time.perf_counter()
-    tiles, positions = read_slide_tiles(slide_path, tiler_cfg or TilerConfig(),
-                                        workers)
-    read_s = time.perf_counter() - t0
-    pred = predict_tiles(torch.from_numpy(tiles), embedder, milnet,
-                         embed_batch=embed_batch, embed_size=embed_size,
-                         seed=seed)
-    pred.timings["read_filter_s"] = read_s
-    pred.timings["total_s"] += read_s
-    pred.positions = positions
-    return pred
+    sync()
+    timings["embed_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mask = torch.arange(n_pad, device=device) < n
+    gen = torch.Generator(device).manual_seed(seed)
+    ins_logits, bag_logits = milnet(bag[:n_pad], mask, generator=gen)
+    ins_scores = torch.sigmoid(ins_logits[:n, 0]).cpu().numpy()
+    bag_score = float(torch.sigmoid(bag_logits[0]))
+    timings["classify_s"] = time.perf_counter() - t0
+    timings["total_s"] = time.perf_counter() - t_start
+    timings["n_patches"] = n
+    return SlidePrediction(bag_score, ins_scores, positions, timings)

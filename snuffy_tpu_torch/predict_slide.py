@@ -1,17 +1,24 @@
 """Single-slide inference CLI on the GPU: WSI → tiles → DINO ViT → Snuffy.
 
-The port of the root `predict_slide.py`, with its flags plus `--device`
-(default cuda; there is no silent fall back to the CPU). Run from the
-repository root:
+The port of the root `predict_slide.py`, with its flags plus the port's
+own: `--device` (default cuda; there is no silent fall back to the CPU)
+and the embedder's `--patch_size`, `--use_adapter`, `--ffn_num` and
+`--adapter_ffn_scalar` (the root CLI fixes them at 16, off, 64 and 4.0,
+its defaults here), so the Camelyon16 ViT-S/8 + adapter can serve. Run
+from the repository root:
 
   python -m snuffy_tpu_torch.predict_slide --slide tumor_001.tif \
       --embedder DINO --backbone vit_small --feats_size 384 \
       --embedder_weights dino_vits16.pth --aggregator_weights milnet.pth
 
 `--aggregator_weights` takes a reference-format `.pth` (a flax `.msgpack`
-converts with tools/export_torch_checkpoint.py); `--embedder_weights`
-takes a DINO `.pth`. Without them the weights are seeded. Prints one JSON
-line per slide.
+converts with tools/export_torch_checkpoint.py). `--embedder_weights`
+takes a DINO `.pth` (a training checkpoint's teacher, or the
+`embedder.pth` of an extraction), overlaid as the root CLI does: every
+tensor whose name and shape match, with the layer audit printed. Without
+them the weights are seeded. `--prefetch` and `--scaled_decode` steer the
+streaming slide path. Prints one JSON line per slide, its timings and
+`decode_path` included.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import json
 
 import torch
 
-from snuffy_tpu_torch.bridge import load_reference_pth
+from snuffy_tpu_torch.bridge import load_reference_pth, load_vit_weights
 from snuffy_tpu_torch.configs import SnuffyModelConfig
 from snuffy_tpu_torch.embed.registry import build_embedder
 from snuffy_tpu_torch.models.snuffy import build_milnet
@@ -35,6 +42,25 @@ def get_args_parser():
     p = root_parser()
     p.add_argument("--device", default="cuda", type=str,
                    help="torch device; cuda raises when no GPU is present")
+    p.add_argument("--patch_size", default=16, type=int)
+    p.add_argument("--use_adapter", default=0, type=int, choices=[0, 1])
+    p.add_argument("--ffn_num", default=64, type=int,
+                   help="adapter bottleneck width")
+    p.add_argument("--adapter_ffn_scalar", default=4.0, type=float)
+    helps = {
+        "transform": "1 → ImageNet normalisation inside the embedder (the "
+                     "reference's intent; the root CLI accepts the flag and "
+                     "leaves the images as they are), 0 → none",
+        "prefetch": "read the next block of grid rows in a thread while "
+                    "the current one uploads and embeds: unset or 1 = on, "
+                    "0 = off",
+        "scaled_decode": "decode JPEG tiles straight at embed_size by "
+                         "libjpeg's M/8 scaled IDCT where the level allows "
+                         "it: unset or 1 = when eligible, 0 = never (decode "
+                         "at tile_size, resize on the device)",
+    }
+    for action in p._actions:
+        action.help = helps.get(action.dest, action.help)
     return p
 
 
@@ -54,12 +80,13 @@ def main(argv=None):
 
     embedder = build_embedder(
         args.embedder, args.backbone, num_classes=args.num_classes,
-        compute_dtype=dtype, imagenet_norm=bool(args.transform),
-        device=device,
+        patch_size=args.patch_size, use_adapter=bool(args.use_adapter),
+        adapter_ffn_num=args.ffn_num,
+        adapter_ffn_scalar=args.adapter_ffn_scalar, compute_dtype=dtype,
+        imagenet_norm=bool(args.transform), device=device,
     )
     if args.embedder_weights:
-        embedder.backbone.load_state_dict(
-            load_reference_pth(args.embedder_weights), strict=True)
+        load_vit_weights(embedder.backbone, args.embedder_weights)
 
     cfg = SnuffyModelConfig(
         feats_size=args.feats_size, num_classes=args.num_classes,
@@ -87,6 +114,9 @@ def main(argv=None):
             slide_path, embedder, milnet, tiler_cfg=tiler_cfg,
             embed_batch=args.embed_batch, embed_size=args.embed_size,
             workers=args.workers,
+            prefetch=None if args.prefetch is None else bool(args.prefetch),
+            scaled_decode=(None if args.scaled_decode is None
+                           else bool(args.scaled_decode)),
         )
         print(json.dumps({"slide": slide_path, "bag_score": pred.bag_score,
                           **pred.timings}))
