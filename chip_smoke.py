@@ -62,10 +62,35 @@ per kernel, all at once), then:
      in serial steps, then 16 bags in packed steps of 8;
   9. GPU vs CPU training: from the same weights, f32, ρ=0, no dropout,
      3 serial steps through the kernels on the card and through the plain
-     versions on the CPU.
+     versions on the CPU;
+  10. the training CLI (`python -m snuffy_tpu_torch.train`'s `main`) in a
+     temporary directory on trees written with the port's CSV writer: (a)
+     the README's Camelyon16 recipe (d=384, 4 heads, Λ=500, ρ=0.5, AdamW
+     lr 0.02, soft_average) in f32, 8/4/4 bags of 2000-8600 rows (two in
+     the 10240 bucket, the test bags with label/position columns), serial
+     and in packed steps of 4; (b) TCGA multiclass (C=2) at the same
+     widths, packed steps of 4; (c) musk1's quick start on a synthetic
+     pickle; 2 epochs each: the time split of each epoch (load, train,
+     valid, metrics, checkpoints, tests), bags/s, CSV MiB/s, launches, and
+     the load taken apart (the tree's bags read in one process by each
+     parser, a spawned pool's start); checks: best epoch, AUCs in [0, 1]
+     for each class, finite losses, K1/K2 launches ≥ depth × steps ×
+     epochs, only the best and last epochs' files left, the best `.pth`
+     loads strictly;
+  10a. K1 and K2 (f32, the CLI's dtype: their CUDA-core bodies) on the
+     inputs the four runs gave them, kept from the first call at each
+     shape (rows, slots, heads, dk, segments, dropout rate): serial and
+     packed Camelyon16 buckets at S=500, packed multiclass at S=1000 a
+     bag, musk1's dk=83 with N = S; K1's output and, where training
+     reached K2 there, dq, dk, dv against the plain versions; the
+     training shapes timed (one call, 20 calls back to back, CUDA events)
+     beside the plain versions and the bound over f32's 67 TFLOP/s;
+  10b. one epoch of a small (a) with ρ=0 and no dropout through the
+     runner on the card and on the CPU, from the same weights.
 
-Each path of the main path (serve, whole slide, eval, extraction, train)
-runs with the launch counts set to 0 just before it and read just after.
+Each path of the main path (serve, whole slide, eval, extraction, train,
+each training-CLI run) runs with the launch counts set to 0 just before
+it and read just after.
 Every phase asserts; any failure exits non-zero. The line before the last
 is the kernels' JSON record, the last line the device record. It exits
 non-zero at once without a CUDA device.
@@ -74,6 +99,7 @@ non-zero at once without a CUDA device.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import json
@@ -125,10 +151,23 @@ REQUESTS = (10000, 2500, 300)
 EVAL_BAGS = 30
 TRAIN_BAGS, TRAIN_BATCH, PACKED_BAGS = 8, 8, 16
 # The H100 SXM's datasheet peaks (NVIDIA), at a 700 W power limit: HBM3
-# bytes/s and dense bf16 tensor-core FLOP/s. The bound of a kernel is the
-# larger of its bytes and its operations over these.
+# bytes/s, dense bf16 tensor-core FLOP/s and f32 FLOP/s outside the tensor
+# cores (the f32 bodies of the sparse kernels). The bound of a kernel is
+# the larger of its bytes and its operations over these.
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989.4e12
+F32_FLOPS = 67e12
+# Phase 10, the training CLI: the README's Camelyon16 recipe, in f32 (the
+# CLI has no dtype flag), 2 epochs; bags of these many 384-d rows (two in
+# the 10240 bucket), the test bags with label/position columns.
+CLI_RECIPE = ("--feats_size=384", "--num_heads=4", "--big_lambda=500",
+              "--random_patch_share=0.5", "--lr=0.02", "--optimizer=adamw",
+              "--weight_decay=0.05", "--soft_average=1", "--num_epochs=2",
+              "--embedding=dino")
+CLI_SPLITS = (("train", (8600, 8300, 2000, 2300, 2600, 2000, 2100, 2400)),
+              ("valid", (2000, 2300, 2100, 2400)),
+              ("test", (2000, 2300, 2100, 2400)))
+MUSK1_BAGS = 92
 
 
 def log(*args):
@@ -179,9 +218,9 @@ def live_pairs(slot_valid, q_valid, segments) -> int:
     return int((rows * slots).sum())
 
 
-def bound_ms(nbytes: int, flops: int):
+def bound_ms(nbytes: int, flops: int, flops_s: float = BF16_FLOPS):
     """(least time on the card in ms, "bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / flops_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -963,6 +1002,450 @@ def phase_train_gpu_vs_cpu(cfg, dev):
         raise AssertionError(f"parameters disagree: {failed}")
 
 
+@contextlib.contextmanager
+def capture_calls(fa, calls):
+    """Inside it, K1's and K2's wrappers keep a copy of the inputs of their
+    first call at each (h, k·N, k·S, dk, segments, rate) in `calls`: the
+    shapes, masks and values a run gives the kernels. The wrappers' launch
+    counts are untouched."""
+    fwd, bwd = fa._fwd_cuda, fa._bwd_cuda
+
+    def entry(q, k, segments, rate):
+        return calls.setdefault((q.shape[0], q.shape[1], k.shape[1],
+                                 q.shape[2], segments, rate), {})
+
+    def fwd_kept(q, k, v, slot_valid, q_valid, segments, rate, seed):
+        call = entry(q, k, segments, rate)
+        if "fwd" not in call:
+            call["fwd"] = ([t.clone() for t in (q, k, v, slot_valid,
+                                                q_valid)], seed)
+        return fwd(q, k, v, slot_valid, q_valid, segments, rate, seed)
+
+    def bwd_kept(q, k, v, slot_valid, row_max, row_scale, g, segments, rate,
+                 seed):
+        call = entry(q, k, segments, rate)
+        if "g" not in call:
+            call["g"] = g.clone()
+        return bwd(q, k, v, slot_valid, row_max, row_scale, g, segments,
+                   rate, seed)
+
+    fa._fwd_cuda, fa._bwd_cuda = fwd_kept, bwd_kept
+    try:
+        yield calls
+    finally:
+        fa._fwd_cuda, fa._bwd_cuda = fwd, bwd
+
+
+def back_to_back_ms(fn, launches: int = 20) -> float:
+    """Device ms a call: `launches` calls queued back to back between two
+    CUDA events (ms-long kernels keep the queue ahead of the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(launches):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / launches
+
+
+def phase_cli_kernels(fa, plain, plain_bwd, runs):
+    """K1 and K2 on the inputs phase 10's runs gave them (`runs`: label →
+    the calls `capture_calls` kept), the first call at each shape: K1's
+    output and, where a training step reached K2 at that shape, K2's dq,
+    dk, dv against the plain versions. Training shapes (rate > 0) are also
+    timed: one call and device time (20 calls back to back), both by CUDA
+    events, beside the plain versions and the bound over f32's 67 TFLOP/s
+    (bf16 over the tensor cores'). Returns K1's and K2's worst errors."""
+    import torch
+
+    log("== phase 10a: K1 and K2 against their plain versions on the inputs "
+        "phase 10's runs gave them, the first call at each shape")
+    worst = {"K1": 0.0, "K2": 0.0}
+    for label, calls in runs.items():
+        log(f"  {label}: {len(calls)} shapes")
+        for (h, kn, ks, dk, seg, rate), call in sorted(calls.items()):
+            (q, k, v, sv, qv), seed = call["fwd"]
+            kw = dict(dropout_rate=rate, dropout_seed=seed)
+            dtype = str(q.dtype).removeprefix("torch.")
+            tol, peak = KERNEL_TOL[dtype], (F32_FLOPS if dtype == "float32"
+                                            else BF16_FLOPS)
+            pairs = live_pairs(sv, qv, seg)
+            log(f"   {dtype} h={h} N={kn // seg} S={ks // seg} dk={dk} "
+                f"segments={seg} rate={rate}: {int(qv.sum())} live rows, "
+                f"{pairs} live (row, slot) pairs")
+            with torch.inference_mode():
+                def fwd():
+                    return fa.fused_packed_inverted_sparse_attention(
+                        q, k, v, sv, qv, seg, **kw)
+
+                def fwd_ref():
+                    return plain(q, k, v, sv, qv, seg, **kw)
+
+                worst["K1"] = max(worst["K1"], check_kernel(
+                    "K1 out", fwd(), fwd_ref(), tol))
+                timed = [("K1", fwd, fwd_ref, 2 * q.numel() * q.element_size()
+                          + 2 * k.numel() * k.element_size() + sv.numel()
+                          + qv.numel(), 4 * h * dk * pairs)]
+                if "g" in call:
+                    g = call["g"]
+                    _, row_max, row_scale = fa._fwd_cuda(q, k, v, sv, qv, seg,
+                                                         rate, seed)
+
+                    def bwd():
+                        return fa._bwd_cuda(q, k, v, sv, row_max, row_scale,
+                                            g, seg, rate, seed)
+
+                    def bwd_ref():
+                        return plain_bwd(q, k, v, sv, qv, g, seg, **kw)
+
+                    for name, a, b in zip(("dq", "dk", "dv"), bwd(),
+                                          bwd_ref()):
+                        worst["K2"] = max(worst["K2"], check_kernel(
+                            f"K2 {name}", a, b, tol))
+                    # q, k, v, g, the masks and row stats in; dq, dk, dv out
+                    timed.append(("K2", bwd, bwd_ref, (
+                        2 * q.numel() + 3 * k.numel() + 2 * v.numel())
+                        * q.element_size() + sv.numel() + qv.numel()
+                        + 8 * h * kn, 10 * h * dk * pairs))
+                if rate == 0:
+                    continue
+                for name, fn, ref, nbytes, flops in timed:
+                    ms, plain_ms = time_ms(fn), time_ms(ref)
+                    device = back_to_back_ms(fn)
+                    bound, by = bound_ms(nbytes, flops, peak)
+                    log(f"    {name} {dtype}: kernel {ms:.4f} ms (device, "
+                        f"back to back, {device:.4f})  plain {plain_ms:.4f} "
+                        f"ms  bound {1e3 * bound:.2f} us ({by}, "
+                        f"{100 * bound / device:.1f} % of device)")
+    return worst["K1"], worst["K2"]
+
+
+def write_cli_tree(root, dataset, splits, seed, labelled_test=True):
+    """embeddings/<dataset>/dino/<split>/<class>/<bag>.csv through the
+    port's writer, and <dataset>.csv (save_class_features); classes
+    alternate, a positive bag's first quarter shifted along one direction.
+    Returns the bytes written."""
+    import os
+
+    import numpy as np
+
+    from snuffy_tpu_torch.embed.pipeline import (
+        save_class_features,
+        write_bag_csv,
+    )
+
+    rng = np.random.default_rng(seed)
+    direction = rng.standard_normal(384).astype(np.float32) / 8
+    out = os.path.join(root, "embeddings", dataset, "dino")
+    nbytes = 0
+    for split, sizes in splits:
+        for i, n in enumerate(sizes):
+            y = i % 2
+            x = rng.standard_normal((n, 384), dtype=np.float32)
+            x[: n // 4] += y * direction
+            path = os.path.join(out, split, ("0_normal", "1_tumor")[y],
+                                f"{split}_{i}.csv")
+            if split == "test" and labelled_test:
+                write_bag_csv(path, x, [f"{j % 100}_{j // 100}"
+                                        for j in range(n)],
+                              [int(y and j < n // 4) for j in range(n)])
+            else:
+                write_bag_csv(path, x)
+            nbytes += os.path.getsize(path)
+    save_class_features(out, f"{dataset}.csv", seed=seed)
+    return nbytes
+
+
+def write_musk1(root, seed):
+    """A musk1 k-fold pickle in the JAX package's format (10 folds, 0.2
+    valid): MUSK1_BAGS bags of 2-40 166-d instances, classes alternating."""
+    import os
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    bags = [[b % 2, np.array(list(rng.standard_normal((int(n), 166))
+                                  + 0.5 * (b % 2)), dtype=object)]
+            for b, n in enumerate(rng.integers(2, 41, MUSK1_BAGS))]
+    folder = os.path.join(root, "datasets", "mil_dataset", "Musk")
+    os.makedirs(folder)
+    with open(os.path.join(folder, "musk1norm_10folds_0.2split.pkl"),
+              "wb") as f:
+        pickle.dump(bags, f)
+
+
+def train_steps(cfg, train_sizes) -> int:
+    """Optimizer steps of one epoch over bags of these many rows: a step a
+    bag, or a step a chunk of bag_batch_size bags of one bucket."""
+    from snuffy_tpu_torch.data.bucketing import bucket_length
+
+    per_bucket = {}
+    for n in train_sizes:
+        b = bucket_length(n)
+        per_bucket[b] = per_bucket.get(b, 0) + 1
+    batch = max(1, cfg.bag_batch_size)
+    return sum(math.ceil(c / batch) for c in per_bucket.values())
+
+
+def check_cli_run(label, argv, summary, c, csv_bytes, train_sizes, got,
+                  kernels):
+    """Phase 10's checks of one CLI run; prints its time split."""
+    import os
+
+    import torch
+
+    from snuffy_tpu_torch.bridge import load_reference_pth
+    from snuffy_tpu_torch.models.snuffy import build_milnet
+    from snuffy_tpu_torch.train import cli
+
+    cfg = cli.build_config(cli.get_args_parser().parse_args(argv))
+    t, epochs = summary["timings"], cfg.num_epochs
+    steps = train_steps(cfg, train_sizes)
+    train_s = sum(e["train_s"] for e in t["epochs"])
+    bags = len(train_sizes) * epochs
+    load = (f"load {t['load_s']:.4f} s ({csv_bytes / 2 ** 20:.1f} MiB of "
+            f"CSV: {csv_bytes / 2 ** 20 / t['load_s']:.1f} MiB/s)"
+            if csv_bytes else f"load {t['load_s']:.4f} s (pickle)")
+    log(f"  {label}: {load}; {bags} bags in {train_s:.4f} s of training = "
+        f"{bags / train_s:.3f} bags/s")
+    for i, (e, h) in enumerate(zip(t["epochs"], summary["history"]), 1):
+        log(f"    epoch {i}: " + "  ".join(
+            f"{k[:-2]} {e.get(k, 0.0):.4f}" for k in (
+                "train_s", "valid_s", "metrics_s", "checkpoint_s"))
+            + f" s; train loss {h['epoch_train_loss']:.6f}, valid loss "
+            f"{h['epoch_valid_loss']:.6f}, valid aucs "
+            f"{h['epoch_valid_aucs']}")
+    log("    tests at the best and last epochs: " + "  ".join(
+        f"{k[:-2]} {v:.4f}" for k, v in t["tests"].items()) + " s; best "
+        f"epoch {summary['best_epoch']}, test aucs "
+        f"{summary['test_best'][f'epoch_test_best_aucs']}")
+    log(f"    kernel_launches={got} (depth {cfg.model.depth} x {steps} "
+        f"steps x {epochs} epochs of training)")
+
+    if summary["best_epoch"] < 1:
+        raise AssertionError(f"{label}: best epoch {summary['best_epoch']}")
+    for res in summary["history"] + [summary["test_best"],
+                                     summary["test_last"]]:
+        for key, value in res.items():
+            if key.endswith("_aucs") and "feat" not in key and (
+                    len(value) != c
+                    or not all(0.0 <= a <= 1.0 for a in value)):
+                raise AssertionError(f"{label}: {key} = {value}")
+            if key.endswith("_loss") and not math.isfinite(value):
+                raise AssertionError(f"{label}: {key} = {value}")
+    for kernel in (kernels.FWD, kernels.BWD):
+        if got[kernel.name] < cfg.model.depth * steps * epochs:
+            raise AssertionError(
+                f"{label}: {kernel.name} launched {got[kernel.name]} < "
+                f"depth x steps x epochs = "
+                f"{cfg.model.depth * steps * epochs} times")
+    run_dir = os.path.join(cfg.save_path, cfg.dataset, cfg.run_name)
+    keep = {summary["best_epoch"], epochs}
+    want = sorted([f"{e}.pth" for e in keep]
+                  + [f"{e}_single_weight_parameter.pth" for e in keep]
+                  + [f"thresholds_{e}.txt" for e in keep]
+                  + ["metrics.jsonl", "summary.json"])
+    if sorted(os.listdir(run_dir)) != want:
+        raise AssertionError(f"{label}: {sorted(os.listdir(run_dir))} "
+                             f"left, not {want}")
+    best = os.path.join(run_dir, f"{summary['best_epoch']}.pth")
+    model = build_milnet(cfg.model, device="cpu")
+    model.load_state_dict(torch.load(best, weights_only=True), strict=True)
+    model.load_state_dict(load_reference_pth(best), strict=True)
+    if not all(torch.isfinite(p).all() for p in model.parameters()):
+        raise AssertionError(f"{label}: the best checkpoint is not finite")
+
+
+def measure_load(root, dataset, labelled_test):
+    """What the CLI's load_s holds, taken apart: every bag of the tree read
+    in this one process by the loader a pool worker runs (native strtof for
+    feature-only CSVs, the csv module for label/position CSVs), and a
+    spawned pool of 4 (the CLI's --num_processes) started, given one task
+    each that imports the loader's module and does nothing more, and
+    closed; load_datasets starts one such pool a split."""
+    import multiprocessing as mp
+    import os
+
+    import numpy as np
+
+    from snuffy_tpu_torch.data.bags import load_bag_csv, parse_number
+
+    tree = os.path.join(root, "embeddings", dataset, "dino")
+    took = {"strtof": [0, 0.0], "csv module": [0, 0.0]}
+    rng = np.random.default_rng(0)
+    for split in ("train", "valid", "test"):
+        for folder, _, files in os.walk(os.path.join(tree, split)):
+            for f in sorted(files):
+                path = os.path.join(folder, f)
+                route = ("csv module" if split == "test" and labelled_test
+                         else "strtof")
+                t0 = time.perf_counter()
+                load_bag_csv(path, 1, 1, rng=rng)
+                took[route][1] += time.perf_counter() - t0
+                took[route][0] += os.path.getsize(path)
+    t0 = time.perf_counter()
+    with mp.get_context("spawn").Pool(processes=4) as pool:
+        pool.map(parse_number, ["1"] * 4)
+    pool_s = time.perf_counter() - t0
+    log(f"  {dataset} loading taken apart, one process: " + "; ".join(
+        f"{route} {n / 2 ** 20:.1f} MiB in {t:.4f} s = "
+        f"{n / 2 ** 20 / t:.1f} MiB/s" for route, (n, t) in took.items()
+        if n) + f"; a spawned pool of 4 started and closed in {pool_s:.4f} "
+        "s (three a run)")
+
+
+def phase_cli(dev, fa, kernels):
+    """The port's training CLI on the card, in a temporary working
+    directory: (a) the Camelyon16 recipe in f32, serial and packed steps of
+    4; (b) multiclass TCGA (C=2), packed steps of 4; (c) musk1's quick
+    start. Returns the launches of the four runs and, for each run, the
+    inputs of K1's and K2's first call at each shape (`capture_calls`)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from snuffy_tpu_torch.data.mil_pickle import load_mil_data
+    from snuffy_tpu_torch.train.cli import main as train_cli
+
+    log("== phase 10: the training CLI (python -m snuffy_tpu_torch.train) "
+        "on the card, f32, 2 epochs a run")
+    counts, captured = {}, {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        os.chdir(root)
+        try:
+            t0 = time.perf_counter()
+            csv_bytes = write_cli_tree(root, "camelyon16", CLI_SPLITS, 21)
+            # TCGA: the same train and valid bags, feature-only test bags
+            tcga = os.path.join(root, "embeddings", "tcga", "dino")
+            os.makedirs(tcga)
+            for split in ("train", "valid"):
+                os.symlink(os.path.join(root, "embeddings", "camelyon16",
+                                        "dino", split),
+                           os.path.join(tcga, split))
+            tcga_bytes = csv_bytes - sum(
+                os.path.getsize(os.path.join(d, f))
+                for d, _, files in os.walk(os.path.join(
+                    root, "embeddings", "camelyon16", "dino", "test"))
+                for f in files)
+            tcga_bytes += write_cli_tree(root, "tcga", CLI_SPLITS[2:], 22,
+                                         labelled_test=False)
+            write_musk1(root, 23)
+            log(f"  trees written in {time.perf_counter() - t0:.2f} s: "
+                f"camelyon16 {csv_bytes / 2 ** 20:.1f} MiB of CSV, tcga "
+                "(its train and valid bags linked) and a musk1 pickle of "
+                f"{MUSK1_BAGS} bags")
+            measure_load(root, "camelyon16", labelled_test=True)
+            musk_train = [len(f) for f in load_mil_data(
+                "musk1", 166, 10, 0, 0.2)[0][1]]
+            loader = ["--use_mp=1", "--num_processes=4"]
+            cam = ["--dataset=camelyon16", "--arch=snuffy"]
+            train_sizes = CLI_SPLITS[0][1]
+            runs = (
+                ("(a) camelyon16, serial steps", "a1", list(CLI_RECIPE)
+                 + cam + ["--bag_batch_size=1"] + loader, 1, csv_bytes,
+                 train_sizes),
+                ("(a) camelyon16, packed steps of 4", "a4",
+                 list(CLI_RECIPE) + cam + ["--bag_batch_size=4"] + loader,
+                 1, csv_bytes, train_sizes),
+                ("(b) tcga multiclass C=2, packed steps of 4", "b",
+                 list(CLI_RECIPE) + ["--dataset=tcga",
+                                     "--arch=snuffy_multiclass",
+                                     "--num_classes=2",
+                                     "--bag_batch_size=4"] + loader,
+                 2, tcga_bytes, train_sizes),
+                ("(c) musk1 (166-d, 2 heads: dk=83)", "c",
+                 ["--dataset=musk1", "--arch=snuffy", "--num_heads=2",
+                  "--soft_average=1", "--num_epochs=2"], 1, 0, musk_train),
+            )
+            for label, tag, argv, c, nbytes, sizes in runs:
+                argv = argv + [f"--wandb_run={tag}"]
+                torch.cuda.synchronize()
+                with capture_calls(fa, captured.setdefault(label, {})):
+                    kernels.reset_launches()
+                    summary = train_cli(argv)
+                    torch.cuda.synchronize()
+                    got = kernels.launch_counts()
+                check_cli_run(label, argv, summary, c, nbytes, sizes, got,
+                              kernels)
+                for name, n in got.items():
+                    counts[name] = counts.get(name, 0) + n
+        finally:
+            os.chdir(cwd)
+    return counts, captured
+
+
+def phase_cli_gpu_vs_cpu(dev):
+    """One epoch of a small (a), ρ=0 and every dropout 0, from the same
+    initial weights, through the runner on the card (kernels) and on the
+    CPU (plain): losses, AUCs, thresholds and the valid bags' scores."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from snuffy_tpu_torch.configs import replace
+    from snuffy_tpu_torch.train import cli
+    from snuffy_tpu_torch.train.runner import Runner, bucket_bags
+    from snuffy_tpu_torch.train.schedules import make_epoch_schedule
+    from snuffy_tpu_torch.train.trainer import SnuffyTrainer
+
+    log("== phase 10b: GPU (kernels) vs CPU (plain), one epoch of a small "
+        "(a): f32, rho=0, no dropout")
+    splits = (("train", (600, 700, 500, 800)), ("valid", (500, 600, 700, 400)),
+              ("test", (600, 500, 700, 400)))
+    with tempfile.TemporaryDirectory() as root:
+        write_cli_tree(root, "camelyon16", splits, 24)
+        args = cli.get_args_parser().parse_args(list(CLI_RECIPE) + [
+            "--dataset=camelyon16", "--num_epochs=1",
+            "--random_patch_share=0", "--use_mp=0"])
+        cfg = cli.build_config(args)
+        cfg = replace(cfg, embeddings_path=os.path.join(root, "embeddings"),
+                      model=replace(cfg.model, attention_dropout=0.0))
+        data = cli.load_datasets(cfg)
+        runs = []
+        for device in (dev, torch.device("cpu")):
+            dcfg = replace(cfg, save_path=os.path.join(root, str(device)),
+                           run_name="run")
+            trainer = SnuffyTrainer(dcfg, device)
+            summary = Runner(dcfg, trainer, *data).run(make_epoch_schedule(
+                dcfg.optim.scheduler, dcfg.optim.lr, 1, dcfg.optim.eta_min))
+            _, scores, _, _ = trainer.run_eval_epoch(
+                bucket_bags(data[1][0], data[1][1]), 5)
+            runs.append((summary, scores))
+    (gs, g_scores), (cs, c_scores) = runs
+    check_scores("valid scores after one epoch, GPU vs CPU", g_scores,
+                 c_scores, SCORE_TOL)
+    for tag, g, c in (("epoch 1", gs["history"][0], cs["history"][0]),
+                      ("test (best)", gs["test_best"], cs["test_best"])):
+        for key, want in c.items():
+            if key in ("time_s", "epoch", "lr"):
+                continue
+            got = np.asarray(g[key], np.float64)
+            want = np.asarray(want, np.float64)
+            if key.endswith("accuracy") or key.endswith("aucs"):
+                same = np.array_equal(got, want)
+            else:  # a threshold may be +inf on both sides
+                same = np.allclose(got, want, rtol=SCORE_TOL, atol=SCORE_TOL)
+            if not same:
+                raise AssertionError(f"{tag} {key}: GPU {g[key]} vs CPU "
+                                     f"{c[key]}")
+    log(f"  losses, thresholds within {SCORE_TOL:.0e} relative; AUCs and "
+        "accuracies equal: train loss "
+        f"{gs['history'][0]['epoch_train_loss']:.6f} / "
+        f"{cs['history'][0]['epoch_train_loss']:.6f}, valid thresholds "
+        f"{gs['history'][0]['epoch_valid_thresholds_optimal']} / "
+        f"{cs['history'][0]['epoch_valid_thresholds_optimal']}")
+
+
 def build_kernels(kernels):
     """Build every kernel at once, one nvcc each; print ptxas's lines."""
     with concurrent.futures.ThreadPoolExecutor(len(kernels.KERNELS)) as pool:
@@ -1045,17 +1528,26 @@ def main() -> int:
     extract_launches = phase_extract(dev, kernels)
     train_launches = phase_train(cfg, dev, kernels)
     phase_train_gpu_vs_cpu(cfg, dev)
+    cli_launches, cli_calls = phase_cli(dev, fa, kernels)
+    k1_cli_err, k2_cli_err = phase_cli_kernels(
+        fa, packed_inverted_sparse_attention,
+        packed_inverted_sparse_attention_bwd, cli_calls)
+    del cli_calls
+    phase_cli_gpu_vs_cpu(dev)
 
     log(f"  main-path kernel launches: serve {serve_launches}, whole slide "
         f"{slide_launches}, eval {eval_launches}, extraction "
-        f"{extract_launches}, train {train_launches}")
+        f"{extract_launches}, train {train_launches}, training CLI "
+        f"{cli_launches}")
     paths = (serve_launches, slide_launches, eval_launches, extract_launches,
-             train_launches)
+             train_launches, cli_launches)
     no_library = None  # no one PyTorch call computes the slot sums σᵀv
     records = []
     for kernel, err, (ms, plain_ms, bound, bound_by, library_ms) in (
-            (kernels.FWD, fwd_err, (*fwd_record, no_library)),
-            (kernels.BWD, bwd_err, (*bwd_record, no_library)),
+            (kernels.FWD, max(fwd_err, k1_cli_err),
+             (*fwd_record, no_library)),
+            (kernels.BWD, max(bwd_err, k2_cli_err),
+             (*bwd_record, no_library)),
             (kernels.DENSE, dense_err, dense_record)):
         records.append({
             "name": kernel.name,

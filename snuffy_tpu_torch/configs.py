@@ -1,15 +1,19 @@
 """Typed configuration of the Snuffy model and its MIL training.
 
-The port's own copy of `snuffy_tpu/configs.py:25-142`: the same classes
-with the same fields and defaults, so a config built for one package
-builds the other field by field. Fields that select TPU machinery
-(`use_pallas`, `pallas_tile_n`, `remat`, `use_mesh`, `bag_batch_impl`
-'vmap') are kept for that round trip; the port reads none of them except
-`bag_batch_impl`, where it takes only 'packed'.
+The port's own copy of `snuffy_tpu/configs.py`: the same classes with the
+same fields and defaults, so a config built for one package builds the
+other field by field, and the CLIs' helpers (the dataset lists,
+`parse_literal_flag`, `replace`, `resolve_feats_size`).
+Fields that select TPU machinery (`use_pallas`, `pallas_tile_n`, `remat`,
+`use_mesh`, `bag_batch_impl` 'vmap') are kept for that round trip; the
+trainer takes `bag_batch_impl` 'packed' only, and the training CLI
+refuses the others at any value but their default.
 """
 
 from __future__ import annotations
 
+import ast
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
@@ -104,3 +108,29 @@ class MILTrainConfig:
     @property
     def for_roc_curve(self) -> bool:
         return self.roc_run_name is not None and self.roc_run_epoch is not None
+
+
+HISTOPATHOLOGY_DATASETS = ("camelyon16", "tcga")
+MIL_DATASETS = ("musk1", "musk2", "elephant")
+
+# MIL benchmark feature widths, forced by dataset (reference
+# train.py:992-999).
+MIL_DATASET_FEATS_SIZE = {"musk1": 166, "musk2": 166, "elephant": 230}
+
+
+def parse_literal_flag(value):
+    """Parse the reference's composite sweep flags (lists encoded as strings),
+    e.g. --betas='[0.5, 0.9]' (reference train.py:1008-1011)."""
+    if isinstance(value, (list, tuple)):
+        return value
+    return ast.literal_eval("".join(value))
+
+
+def replace(cfg, **kw):
+    """dataclasses.replace, re-exported for the CLIs."""
+    return dataclasses.replace(cfg, **kw)
+
+
+def resolve_feats_size(dataset: str, feats_size: int) -> int:
+    """MIL datasets force their own feature width (reference train.py:992-999)."""
+    return MIL_DATASET_FEATS_SIZE.get(dataset, feats_size)

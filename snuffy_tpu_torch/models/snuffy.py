@@ -1,6 +1,9 @@
-"""Snuffy sparse-transformer MIL aggregator (binary), in PyTorch.
+"""Snuffy sparse-transformer MIL aggregator, binary and multiclass, in
+PyTorch.
 
-Port of `snuffy_tpu/models/snuffy.py`. A bag is a static
+Port of `snuffy_tpu/models/snuffy.py` (reference snuffy.py and
+snuffy_multiclass.py; `cfg.multiclass` selects the multiclass selection
+of `ops/selection.py`). A bag is a static
 (N_pad, d) tensor with an (N_pad,) bool mask; with `segments` = k > 1 the
 rows hold k equal-length bags packed on the row axis and each bag's rows
 attend only to its own slots (one forward at GEMM height k·N).
@@ -22,10 +25,11 @@ In training mode (`model.train()`) the forward is differentiable and runs
 the three dropouts of the JAX model: on the attention probabilities
 (`attention_dropout`, the kernels' hash with one seed per layer call), on
 the attention output and the FFN output (`encoder_dropout`), and inside
-the FFN after the activation (`encoder_dropout` for the binary model).
-The hash seeds come from a CPU generator, so no device value is read back
-each layer (JAX draws them on the device). Multiclass, mesh, sp, tp and
-remat are not ported.
+the FFN after the activation (`ffn_dropout`: by default
+`encoder_dropout` for the binary model and 0.1 for the multiclass one,
+as the reference's trainers leave it). The hash seeds come from a CPU
+generator, so no device value is read back each layer (JAX draws them on
+the device). Mesh, sp, tp and remat are not ported.
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ from snuffy_tpu_torch.ops.selection import (
     PreparedSelection,
     binary_selection_draw,
     binary_selection_prepare,
+    multiclass_selection_draw,
+    multiclass_selection_prepare,
     packed_selection_draw,
     packed_selection_prepare,
 )
@@ -132,10 +138,11 @@ class SublayerConnection(nn.Module):
 class EncoderLayer(nn.Module):
     """Select Λ rows, attend, scatter back, FFN."""
 
-    def __init__(self, cfg: SnuffyModelConfig):
+    def __init__(self, cfg: SnuffyModelConfig, ffn_dropout: float):
         super().__init__()
         d = cfg.feats_size
         self.cfg = cfg
+        self.ffn_dropout = ffn_dropout
         self.self_attn = MultiHeadedAttention(d, cfg.num_heads)
         self.feed_forward = PositionwiseFeedForward(d, cfg.mlp_multiplier,
                                                     cfg.activation)
@@ -147,13 +154,16 @@ class EncoderLayer(nn.Module):
         cfg = self.cfg
         attn_rate = cfg.attention_dropout if self.training else 0.0
         enc_rate = cfg.encoder_dropout if self.training else 0.0
+        ffn_rate = self.ffn_dropout if self.training else 0.0
         seed = None
         if attn_rate > 0.0:
             seed = int(torch.randint(0, 2**31 - 1, (),
                                      generator=seed_generator))
         if segments > 1:
             sel = packed_selection_draw(generator, prep, cfg.k_rand,
-                                        n // segments)
+                                        n // segments, cfg.multiclass)
+        elif cfg.multiclass:
+            sel = multiclass_selection_draw(generator, prep)
         else:
             sel = binary_selection_draw(generator, prep, cfg.k_rand)
         # Keys and the residual read the PRE-norm selected rows.
@@ -168,31 +178,39 @@ class EncoderLayer(nn.Module):
                                   torch.full_like(sel.indices, n))
         y = torch.cat([x, x.new_zeros(1, d)]).index_copy(
             0, scatter_idx, new_sel)[:n]
-        # The binary model's FFN dropout is encoder_dropout.
         ff = self.feed_forward(layer_norm(y, self.sublayer[1].norm, dtype),
-                               dtype, enc_rate, generator)
+                               dtype, ffn_rate, generator)
         return y + dropout(ff, enc_rate, generator)
 
 
 class Encoder(nn.Module):
-    def __init__(self, cfg: SnuffyModelConfig):
+    def __init__(self, cfg: SnuffyModelConfig, ffn_dropout: float):
         super().__init__()
         self.cfg = cfg
-        self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.depth))
+        self.layers = nn.ModuleList(EncoderLayer(cfg, ffn_dropout)
+                                    for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(cfg.feats_size, eps=LN_EPS)
 
     def forward(self, x, c, mask, segments, generator, seed_generator, dtype):
         n = x.shape[0]
+        cfg = self.cfg
         c = c.detach()  # the selection passes no gradient
         if segments > 1:
             n_seg = n // segments
+            # multiclass passes k_top itself: its slot count is
+            # min(k_top·C, n_seg), as in the JAX model
             prep = packed_selection_prepare(
-                c[:, 0].reshape(segments, n_seg), mask.reshape(segments, n_seg),
-                min(self.cfg.k_top, n_seg),
+                c.reshape(segments, n_seg, -1) if cfg.multiclass
+                else c[:, 0].reshape(segments, n_seg),
+                mask.reshape(segments, n_seg),
+                cfg.k_top if cfg.multiclass else min(cfg.k_top, n_seg),
+                cfg.multiclass,
             )
+        elif cfg.multiclass:
+            prep = multiclass_selection_prepare(c, mask, cfg.k_top)
         else:
             prep = binary_selection_prepare(c[:, 0], mask,
-                                            min(self.cfg.k_top, n))
+                                            min(cfg.k_top, n))
         for layer in self.layers:
             x = layer(x, prep, mask, segments, generator, seed_generator,
                       dtype)
@@ -202,9 +220,9 @@ class Encoder(nn.Module):
 class BClassifier(nn.Module):
     """Encoder → masked mean pool (f32) → linear bag head."""
 
-    def __init__(self, cfg: SnuffyModelConfig):
+    def __init__(self, cfg: SnuffyModelConfig, ffn_dropout: float):
         super().__init__()
-        self.encoder = Encoder(cfg)
+        self.encoder = Encoder(cfg, ffn_dropout)
         self.linear = nn.Linear(cfg.feats_size, cfg.num_classes)
 
     def forward(self, x, c, mask, segments, generator, seed_generator,
@@ -230,19 +248,18 @@ class MILNet(nn.Module):
     `generator` lives on the feats' device and draws the random share and,
     in training mode, the encoder dropout; `seed_generator`, a CPU
     generator, draws the attention-dropout seeds in training mode. None
-    takes torch's default generator.
+    takes torch's default generator. `ffn_dropout` overrides the FFN's
+    inner dropout rate (default: 0.1 multiclass, else encoder_dropout).
     """
 
-    def __init__(self, cfg: SnuffyModelConfig, seed: int = 0):
+    def __init__(self, cfg: SnuffyModelConfig, seed: int = 0,
+                 ffn_dropout: Optional[float] = None):
         super().__init__()
-        if cfg.multiclass:
-            raise NotImplementedError(
-                "multiclass Snuffy is not ported yet (ROADMAP.md Queue 1, "
-                "slice 2)"
-            )
+        if ffn_dropout is None:
+            ffn_dropout = 0.1 if cfg.multiclass else cfg.encoder_dropout
         self.cfg = cfg
         self.i_classifier = FCLayer(cfg.feats_size, cfg.num_classes)
-        self.b_classifier = BClassifier(cfg)
+        self.b_classifier = BClassifier(cfg, ffn_dropout)
         gen = torch.Generator().manual_seed(seed)
         for name, mod in self.named_modules():
             if isinstance(mod, nn.Linear):
@@ -273,7 +290,9 @@ class MILNet(nn.Module):
 
 
 def build_milnet(cfg: SnuffyModelConfig, seed: int = 0,
-                 device: Optional[torch.device] = None) -> MILNet:
+                 device: Optional[torch.device] = None,
+                 ffn_dropout: Optional[float] = None) -> MILNet:
     """Seeded MILNet in eval mode on `device`: the card unless the caller
     passes another."""
-    return MILNet(cfg, seed).to(device or torch.device("cuda")).eval()
+    return MILNet(cfg, seed, ffn_dropout).to(
+        device or torch.device("cuda")).eval()

@@ -3,7 +3,8 @@
 The port's copy of the slide half of `snuffy_tpu/native`, with the same
 names and return shapes: `NativeSlide` (levels, `read_region`, the grid
 block reads `read_grid` and `read_grid_scaled`, `scaled_grid_ok`),
-`write_tiled_tiff`, plus `write_jpeg`, `decode_jpeg` and `edge_energy`.
+`write_tiled_tiff`, plus `write_jpeg`, `decode_jpeg`, `edge_energy` and
+the bag loaders' CSV parser `parse_bag_csv_fast`.
 It is host code (no kernel): g++ builds it at first use into
 `build/snuffy_tpu_torch/libslide_reader-<hash>.so` at the repository
 root, never beside the source; the hash covers the source, its header,
@@ -133,6 +134,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         ("jpeg_decode_rgb", i,
          [ctypes.c_char_p, u8p, u32, u32, ctypes.POINTER(u32),
           ctypes.POINTER(u32)]),
+        ("parse_float_csv", i,
+         [ctypes.c_char_p, ctypes.c_long, f32p, i, i, ctypes.POINTER(i), i]),
     ):
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = res, args
@@ -333,3 +336,26 @@ def edge_energy(tile: np.ndarray) -> float:
         raise ValueError(f"edge_energy takes a square tile, not "
                          f"{tile.shape}")
     return float(get_lib().tile_edge_energy_rgb(_u8(tile), tile.shape[0]))
+
+
+def parse_bag_csv_fast(path: str, max_rows: int = 65536) -> np.ndarray:
+    """A feature CSV with a header row → float32 (rows, cols), parsed by
+    strtof as `snuffy_tpu.native.parse_bag_csv_fast` parses it. A file of
+    more than `max_rows` rows, or a row wider than the header, raises
+    ValueError (the JAX copy returns the first max_rows rows)."""
+    lib = get_lib()
+    with open(path, "rb") as f:
+        data = f.read()  # bytes keep a NUL past their end for strtof
+    newline = data.find(b"\n")
+    width = len(data[:newline if newline >= 0 else len(data)].split(b","))
+    bound = min(data.count(b"\n") + 1, max_rows)
+    out = np.zeros((bound, width), np.float32)
+    n_cols = ctypes.c_int()
+    rows = lib.parse_float_csv(data, len(data), _f32(out), bound, width,
+                               ctypes.byref(n_cols), 1)
+    if rows > max_rows:
+        raise ValueError(f"{path}: {rows} rows, over the cap of {max_rows}")
+    if n_cols.value > width:
+        raise ValueError(f"{path}: a row of {n_cols.value} cells under a "
+                         f"header of {width}")
+    return np.ascontiguousarray(out[:rows, :n_cols.value])

@@ -7,9 +7,10 @@
 // (slide_read_grid), or, for JPEG-tiled levels, straight at an M/8 scale
 // through libjpeg's scaled IDCT (slide_read_grid_jpeg_scaled); write tiled
 // TIFFs and JPEGs for fixtures; and decode a JPEG file as the extraction
-// pipeline reads its tiles (jpeg_decode_rgb, in place of PIL). The label
-// reader, the gray writer and the CSV parser are not copied: no path of
-// the port calls them.
+// pipeline reads its tiles (jpeg_decode_rgb, in place of PIL); and parse
+// a bag's feature CSV (parse_float_csv, the training loaders' parser). The
+// label reader and the gray writer are not copied: no path of the port
+// calls them.
 //
 // libtiff and libjpeg (ABI 62) are declared in codec_abi.h, not included
 // from their headers, which a machine may lack.
@@ -328,6 +329,49 @@ int tiff_write_tiled_rgb(const char* path, const uint8_t* rgb, uint32_t w,
   TIFFWriteDirectory(tif);
   TIFFClose(tif);
   return 0;
+}
+
+// ------------------------------------------------------------- CSV parsing
+
+// Parse a numeric CSV held in memory (`size` bytes at `data`, followed by
+// a NUL) into float32 rows of `max_cols`, as snuffy_native.cpp's
+// parse_float_csv parses a file: strtof, one rounding to f32; a cell that
+// is not a number parses as 0; an optional header row skipped. Rows past
+// max_rows and cells past max_cols are counted, not stored: it returns the
+// number of rows and sets *n_cols to the widest row's cell count, so the
+// caller refuses a file that does not fit instead of truncating it.
+int parse_float_csv(const char* data, long size, float* out, int max_rows,
+                    int max_cols, int* n_cols, int skip_header) {
+  const char* p = data;
+  const char* end = data + size;
+  int row = 0, cols = 0;
+  if (skip_header) {
+    while (p < end && *p != '\n') ++p;
+    if (p < end) ++p;
+  }
+  while (p < end) {
+    if (*p == '\n' || *p == '\r') {
+      ++p;
+      continue;
+    }
+    int col = 0;
+    while (p < end && *p != '\n') {
+      char* next = const_cast<char*>(p);
+      float v = strtof(p, &next);
+      if (row < max_rows && col < max_cols)
+        out[(size_t)row * max_cols + col] = v;
+      ++col;
+      p = next;
+      while (p < end && *p != ',' && *p != '\n' && *p != '\r') ++p;
+      if (p < end && *p == ',') ++p;
+      while (p < end && *p == '\r') ++p;
+    }
+    if (p < end) ++p;
+    if (col > cols) cols = col;
+    ++row;
+  }
+  *n_cols = cols;
+  return row;
 }
 
 }  // extern "C"

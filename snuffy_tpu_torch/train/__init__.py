@@ -1,1 +1,2 @@
-"""MIL losses and the packed bag-classification eval."""
+"""MIL training: losses, the trainer, the epoch runner and the CLI
+(`python -m snuffy_tpu_torch.train`)."""

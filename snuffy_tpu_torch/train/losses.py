@@ -6,15 +6,18 @@ Port of `snuffy_tpu/train/losses.py` (forward only): the loss is
 
 and the bag score is the matching sigmoid mixture. The instance max skips
 padded rows with a −1e30 guard, not −inf, so an all-padded dummy bag stays
-finite.
+finite. `pos_weight` is None, a scalar or a (C,) tensor (multiclass: one
+weight a class).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+PosWeight = Optional[Union[float, torch.Tensor]]
 
 
 def bce_with_logits(logits, targets, pos_weight=None) -> torch.Tensor:
@@ -40,7 +43,7 @@ def mixed_mil_loss(
     bag_label: torch.Tensor,    # (C,)
     mask: torch.Tensor,         # (N,) bool
     w,                          # scalar in [0, 1]
-    pos_weight: Optional[float] = None,
+    pos_weight: PosWeight = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, bag_score (C,)); batched over any leading axes."""
     max_logits = masked_instance_max(ins_logits, mask)
@@ -58,7 +61,7 @@ def packed_mixed_mil_loss(
     bag_labels: torch.Tensor,   # (k, C)
     mask: torch.Tensor,         # (k·N,)
     w,
-    pos_weight: Optional[float] = None,
+    pos_weight: PosWeight = None,
     *,
     segments: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,15 +1,54 @@
-"""Bags to the trainer's buckets: `bucket_bags`, the port's copy of
-`snuffy_tpu/train/runner.py:43-77`. The rest of the JAX runner (epochs,
-metrics, checkpoints) is not ported yet."""
+"""Epoch orchestration: bucketing, metrics, checkpoints, best-AUC tracking.
+
+The port's copy of `snuffy_tpu/train/runner.py` (reference train.py:523-794):
+  * `bucket_bags` groups the bags of a split into equal-length buckets;
+  * `Runner.run`, per epoch: train → valid, tracks the best-valid-AUC
+    epoch, saves a checkpoint and the optimal-threshold JSON side file
+    (train.py:643-675); then tests at the best and last epochs with their
+    thresholds (train.py:752-778) and deletes every other epoch's files
+    (train.py:780-794).
+
+Checkpoints are reference `.pth` files: `{epoch}.pth` is the MILNet state
+dict under the reference names (what `bridge.load_reference_pth` and the
+slide CLI's `--aggregator_weights` read), `{epoch}_single_weight_parameter
+.pth` the loss-mix weight w (`snuffy_tpu/embed/torch_export.py:67-80`),
+where the JAX runner writes one flax msgpack. The metrics rows and
+`summary.json` carry the JAX runner's keys; the summary adds `timings`,
+each epoch's wall time split into train, valid, metrics (ROC, accuracy,
+ECE) and checkpoint seconds, and the tests' (test, metrics), plus
+`load_s` where the CLI sets it.
+
+The Camelyon16 FROC of the test split (`_camelyon16_froc`) needs
+`eval/froc.py`, which is not ported: where the JAX runner would compute
+it, `evaluate` raises NotImplementedError.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import json
+import os
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from snuffy_tpu_torch.bridge import load_reference_pth
+from snuffy_tpu_torch.configs import MILTrainConfig
 from snuffy_tpu_torch.data.bags import dropout_patches, l2_normalize_rows
 from snuffy_tpu_torch.data.bucketing import DEFAULT_BUCKETS, pad_bag
+from snuffy_tpu_torch.eval.metrics import (
+    compute_accuracy,
+    compute_pos_weight,
+    ece_loss,
+    multi_label_roc,
+)
+from snuffy_tpu_torch.train.trainer import SnuffyTrainer
+from snuffy_tpu_torch.utils.logging import MetricsLogger
+
+BagTuple = Tuple[List[np.ndarray], List[np.ndarray], Optional[list],
+                 Optional[list]]
 
 
 def bucket_bags(
@@ -47,3 +86,277 @@ def bucket_bags(
             np.asarray(idx, np.int64),
         )
     return out
+
+
+class Runner:
+    """The training loop of one run (reference train.py:523-794)."""
+
+    def __init__(
+        self,
+        cfg: MILTrainConfig,
+        trainer: SnuffyTrainer,
+        train_data: BagTuple,
+        valid_data: BagTuple,
+        test_data: BagTuple,
+        logger: Optional[MetricsLogger] = None,
+    ):
+        self.cfg = cfg
+        self.trainer = trainer
+        self.train_data = train_data
+        self.valid_data = valid_data
+        self.test_data = test_data
+        self.logger = logger or MetricsLogger()
+        self.rng = np.random.default_rng(cfg.seed)
+
+        # Weighted BCE from the train split, for every dataset: the
+        # reference sets it on the first train epoch (train.py:244-247).
+        trainer.pos_weight = compute_pos_weight(train_data[0])
+
+        self.save_dir = os.path.join(
+            cfg.save_path, cfg.dataset, cfg.run_name or f"run_seed{cfg.seed}"
+        )
+        os.makedirs(self.save_dir, exist_ok=True)
+
+        self.best_auc = -1.0
+        self.best_epoch = -1
+        self.timings: dict = {"epochs": []}
+        self._clock: Dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def _timed(self, key: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._clock[key] = (self._clock.get(key, 0.0)
+                                + time.perf_counter() - t0)
+
+    def _take_clock(self) -> Dict[str, float]:
+        clock, self._clock = self._clock, {}
+        return {f"{k}_s": v for k, v in clock.items()}
+
+    # ---------------------------------------------------------------- epochs
+
+    def _epoch_metrics(self, labels, scores, ins_list, feats_labels, order,
+                       prefix):
+        labels_arr = np.stack([np.asarray(l) for l in labels])[order]
+        num_classes = self.cfg.model.num_classes
+        aucs, _, th_opt = multi_label_roc(labels_arr, scores, num_classes)
+        acc = compute_accuracy(labels_arr, scores, th_opt, num_classes)
+        res = {
+            f"{prefix}_accuracy": acc,
+            f"{prefix}_aucs": [float(a) for a in aucs],
+            f"{prefix}_thresholds_optimal": [float(t) for t in th_opt],
+        }
+        if feats_labels is not None:
+            flat_labels = np.concatenate(
+                [np.asarray(feats_labels[i]) for i in order]
+            ).astype(float)
+            flat_scores = np.concatenate([s.reshape(-1) for s in ins_list])
+            f_aucs, _, f_th = multi_label_roc(
+                flat_labels, flat_scores, num_classes, for_feats=True
+            )
+            f_acc = float(np.mean(
+                (flat_scores >= f_th[0]).astype(int) == flat_labels))
+            res.update(
+                {
+                    f"{prefix}_feat_accuracy": f_acc,
+                    f"{prefix}_feat_aucs": [float(a) for a in f_aucs],
+                    f"{prefix}_feat_thresholds_optimal": [
+                        float(t) for t in f_th],
+                }
+            )
+        return res
+
+    def train_one_epoch(self, epoch: int, lr: float) -> dict:
+        labels, feats = self.train_data[0], self.train_data[1]
+        with self._timed("train"):
+            bucketed = bucket_bags(
+                labels,
+                feats,
+                l2norm=self.cfg.l2normed_embeddings,
+                dropout_patch=self.cfg.dropout_patch,
+                rng=self.rng,
+            )
+            losses, scores, ins_list, order = self.trainer.run_train_epoch(
+                bucketed, lr, self.rng, self.cfg.seed
+            )
+        with self._timed("metrics"):
+            res = self._epoch_metrics(
+                labels, scores, ins_list, self.train_data[2], order,
+                "epoch_train"
+            )
+            res["epoch_train_loss"] = float(np.mean(losses))
+        return res
+
+    def evaluate(
+        self,
+        data: BagTuple,
+        epoch: int,
+        prefix: str,
+        predefined_thresholds: Optional[list] = None,
+    ) -> dict:
+        labels, feats = data[0], data[1]
+        with self._timed("test" if "test" in prefix else "valid"):
+            bucketed = bucket_bags(
+                labels, feats, l2norm=self.cfg.l2normed_embeddings,
+                rng=self.rng
+            )
+            losses, scores, ins_list, order = self.trainer.run_eval_epoch(
+                bucketed, self.cfg.seed + epoch
+            )
+        with self._timed("metrics"):
+            res = self._epoch_metrics(labels, scores, ins_list, data[2],
+                                      order, prefix)
+            res[f"{prefix}_loss"] = float(np.mean(losses))
+            labels_arr = np.stack([np.asarray(l) for l in labels])[order]
+            if predefined_thresholds is not None:
+                res[f"{prefix}_accuracy"] = compute_accuracy(
+                    labels_arr, scores, predefined_thresholds,
+                    self.cfg.model.num_classes
+                )
+            # ECE on the mixed sigmoid scores (train.py:415-451).
+            res[f"{prefix}_ece"] = ece_loss(
+                scores, labels_arr, 0.5, n_bins=self.cfg.bins, logits=False
+            )
+
+        # ROC dump, gated as the reference gates it (train.py:365-372,
+        # 985-990): both --roc_run_name and --roc_run_epoch, the file
+        # named after --roc_run_epoch.
+        if self.cfg.for_roc_curve and self.cfg.roc_data_split in prefix:
+            roc_dir = os.path.join(self.cfg.roc_path, self.cfg.roc_run_name)
+            os.makedirs(roc_dir, exist_ok=True)
+            np.savez(
+                os.path.join(roc_dir, f"{self.cfg.roc_run_epoch}.npz"),
+                labels=labels_arr,
+                predictions=scores,
+            )
+
+        # The CAMELYON16 FROC of the test split (train.py:336-349, 392-410),
+        # under the JAX runner's gate.
+        slide_names = data[4] if len(data) > 4 else None
+        if (
+            "test" in prefix
+            and self.cfg.dataset == "camelyon16"
+            and data[3] is not None
+            and slide_names is not None
+            and os.path.isdir(self.cfg.camelyon16_mask_path)
+            and os.path.exists(self.cfg.camelyon16_reference)
+        ):
+            raise NotImplementedError(
+                "the Camelyon16 FROC needs eval/froc.py, which the port "
+                "does not have yet (ROADMAP.md Queue 1 item 7); "
+                f"{self.cfg.camelyon16_mask_path} and "
+                f"{self.cfg.camelyon16_reference} exist, so the JAX runner "
+                "would score it"
+            )
+        return res
+
+    # ----------------------------------------------------------- checkpoints
+
+    def _ckpt_path(self, epoch) -> str:
+        return os.path.join(self.save_dir, f"{epoch}.pth")
+
+    def _w_path(self, epoch) -> str:
+        return os.path.join(self.save_dir,
+                            f"{epoch}_single_weight_parameter.pth")
+
+    def save_checkpoint(self, epoch: int, valid_res: dict) -> None:
+        model_state, w = self.trainer.state_dict()
+        torch.save(model_state, self._ckpt_path(epoch))
+        torch.save(torch.tensor(w, dtype=torch.float32), self._w_path(epoch))
+        thresholds = {
+            "epoch": epoch,
+            "auc": valid_res.get("epoch_valid_aucs"),
+            "thresholds_optimal": valid_res.get(
+                "epoch_valid_thresholds_optimal"),
+            "feats_thresholds_optimal": valid_res.get(
+                "epoch_valid_feat_thresholds_optimal"
+            ),
+            "single_weight_parameter": w,
+        }
+        with open(
+            os.path.join(self.save_dir, f"thresholds_{epoch}.txt"), "w"
+        ) as f:
+            json.dump(thresholds, f)
+
+    def load_checkpoint(self, epoch: int) -> None:
+        """Load epoch's MILNet and w into the trainer."""
+        w = torch.load(self._w_path(epoch), map_location="cpu",
+                       weights_only=True)
+        self.trainer.load(load_reference_pth(self._ckpt_path(epoch)),
+                          float(w))
+
+    def load_thresholds(self, epoch: int) -> dict:
+        with open(os.path.join(self.save_dir, f"thresholds_{epoch}.txt")) as f:
+            return json.load(f)
+
+    def clean_up(self, keep_epochs) -> None:
+        """Delete every other epoch's checkpoint, w and thresholds files
+        (reference train.py:780-794)."""
+        keep = set()
+        for e in keep_epochs:
+            keep |= {f"{e}.pth", f"{e}_single_weight_parameter.pth",
+                     f"thresholds_{e}.txt"}
+        for fname in os.listdir(self.save_dir):
+            if fname not in keep and (
+                fname.endswith(".pth") or fname.startswith("thresholds_")
+            ):
+                os.remove(os.path.join(self.save_dir, fname))
+
+    # ------------------------------------------------------------------ run
+
+    def run(self, schedule) -> dict:
+        """Full training run. `schedule`: epoch → lr. Returns the summary
+        dict, also written to `summary.json`."""
+        cfg = self.cfg
+        self.trainer.init_state(cfg.seed)
+        history = []
+        for epoch in range(1, cfg.num_epochs + 1):
+            t0 = time.time()
+            lr = schedule(epoch - 1)
+            train_res = self.train_one_epoch(epoch, lr)
+            valid_res = self.evaluate(self.valid_data, epoch, "epoch_valid")
+            elapsed = time.time() - t0
+            row = {"epoch": epoch, "lr": lr, "time_s": elapsed}
+            row.update(train_res)
+            row.update(valid_res)
+            history.append(row)
+            self.logger.log(row)
+
+            with self._timed("checkpoint"):
+                self.save_checkpoint(epoch, valid_res)
+            self.timings["epochs"].append(self._take_clock())
+            auc = float(np.mean(valid_res["epoch_valid_aucs"]))
+            if auc > self.best_auc:
+                self.best_auc = auc
+                self.best_epoch = epoch
+
+        summary = {
+            "best_epoch": self.best_epoch,
+            "best_valid_auc": self.best_auc,
+            "history": history,
+        }
+
+        # Test at the best-AUC and last epochs (reference train.py:752-778).
+        for tag, epoch in (("best", self.best_epoch), ("last", cfg.num_epochs)):
+            if epoch < 1:
+                continue
+            th = self.load_thresholds(epoch)
+            with self._timed("checkpoint"):
+                self.load_checkpoint(epoch)
+            test_res = self.evaluate(
+                self.test_data,
+                epoch,
+                f"epoch_test_{tag}",
+                predefined_thresholds=th.get("thresholds_optimal"),
+            )
+            self.logger.log(test_res)
+            summary[f"test_{tag}"] = test_res
+
+        self.timings["tests"] = self._take_clock()
+        summary["timings"] = self.timings
+        with open(os.path.join(self.save_dir, "summary.json"), "w") as f:
+            json.dump(summary, f, default=float)
+        self.clean_up({self.best_epoch, cfg.num_epochs})
+        return summary

@@ -21,6 +21,13 @@ Optimizer semantics (reference train.py:165-180, 809-826):
     only, before the decay is folded in, by optax's rule: scale by
     max/‖g‖ when ‖g‖ ≥ max, with no epsilon (`clip_grad_norm_` adds one).
 
+`pos_weight` (the BCE positive-class weight the runner sets from the
+train split) is a scalar or a per-class vector, kept as a float32 tensor
+on the trainer's device. `init_state` resets the weights to a seed's,
+`w` to 0.5 and the optimizer, as the JAX `init_state` builds a fresh
+state; `state_dict` and `load` carry (MILNet, w) to and from the
+runner's checkpoints.
+
 Not ported: `bag_batch_impl='vmap'`, the device mesh and the per-bucket
 `lax.scan` (PyTorch runs the steps eagerly).
 """
@@ -87,7 +94,41 @@ class SnuffyTrainer:
                               requires_grad=cfg.soft_average)
         self.optimizer = make_optimizer(cfg.optim, self.model.parameters(),
                                         self.w, cfg.soft_average)
-        self.pos_weight: Optional[float] = None  # set for MIL datasets
+        self.pos_weight = None
+
+    @property
+    def pos_weight(self) -> Optional[torch.Tensor]:
+        """None (unweighted) or a float32 scalar or (C,) tensor on the
+        trainer's device; set from a float or an array."""
+        return self._pos_weight
+
+    @pos_weight.setter
+    def pos_weight(self, value) -> None:
+        self._pos_weight = (None if value is None else torch.as_tensor(
+            np.asarray(value, np.float32), device=self.device))
+
+    # --------------------------------------------------------------- state
+
+    def init_state(self, seed: int) -> None:
+        """The weights `build_milnet` draws at `seed`, w = 0.5 and a fresh
+        optimizer (the JAX trainer's `init_state`)."""
+        self.load(MILNet(self.cfg.model, seed).state_dict(), 0.5)
+        self.optimizer = make_optimizer(self.cfg.optim,
+                                        self.model.parameters(), self.w,
+                                        self.cfg.soft_average)
+
+    def state_dict(self) -> Tuple[Dict[str, torch.Tensor], float]:
+        """(the MILNet's state dict on the CPU, w)."""
+        return ({k: v.detach().cpu().clone()
+                 for k, v in self.model.state_dict().items()},
+                float(self.w.item()))
+
+    def load(self, model_state: Dict[str, torch.Tensor], w: float) -> None:
+        """Load a MILNet state dict (strict) and w; the optimizer state
+        stays."""
+        self.model.load_state_dict(model_state, strict=True)
+        with torch.no_grad():
+            self.w.fill_(float(w))
 
     # ------------------------------------------------------------ training
 

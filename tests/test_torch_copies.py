@@ -209,3 +209,79 @@ def test_compute_feats_flags_are_the_root_flags():
     ours = flags(compute_feats.get_args_parser())
     assert ours.pop("device")[1] == "cuda"
     assert ours == flags(root_cli.get_args_parser())
+
+
+def test_config_helpers_match():
+    assert configs.HISTOPATHOLOGY_DATASETS == \
+        jax_configs.HISTOPATHOLOGY_DATASETS
+    assert configs.MIL_DATASETS == jax_configs.MIL_DATASETS
+    assert configs.MIL_DATASET_FEATS_SIZE == jax_configs.MIL_DATASET_FEATS_SIZE
+    for value in ("[0.5, 0.9]", "['xavier_normal', 'kaiming_uniform', 'x']",
+                  ["[1,", " 2]"], (0.1, 0.2)):
+        assert configs.parse_literal_flag(value) == \
+            jax_configs.parse_literal_flag(value)
+    for dataset in ("musk1", "musk2", "elephant", "camelyon16", "tcga"):
+        assert configs.resolve_feats_size(dataset, 384) == \
+            jax_configs.resolve_feats_size(dataset, 384)
+    cfg = configs.replace(configs.MILTrainConfig(), seed=9, run_name="r")
+    assert (cfg.seed, cfg.run_name) == (9, "r")
+
+
+def test_logging_matches(tmp_path):
+    from snuffy_tpu.utils import logging as jax_logging
+    from snuffy_tpu_torch.utils import logging
+
+    row = {"epoch": 3, "lr": 1e-3, "epoch_train_loss": 0.5,
+           "epoch_valid_aucs": [0.25, 0.75], "epoch_test_best_feat_aucs":
+           (0.5,), "step_train_loss": 2.0, "time_s": 1.5,
+           "epoch_valid_ece": np.float32(0.125)}
+    assert logging.to_wandb_format(row) == jax_logging.to_wandb_format(row)
+    for module, name in ((logging, "port"), (jax_logging, "jax")):
+        log = module.MetricsLogger(str(tmp_path / name / "m.jsonl"))
+        log.log(row)
+        log.log({"epoch_test_last_aucs": [1.0]})
+    assert (tmp_path / "port" / "m.jsonl").read_text() == \
+        (tmp_path / "jax" / "m.jsonl").read_text()
+    logging.MetricsLogger().log(row)  # no path: nothing written
+
+
+def test_load_mil_data_matches(tmp_path):
+    import pickle
+
+    from snuffy_tpu.data import mil_pickle as jax_mil
+    from snuffy_tpu_torch.data import mil_pickle
+
+    rng = np.random.default_rng(0)
+    bags = [[(-1, 0, 1, 2)[b % 4],
+             np.array(list(rng.standard_normal((int(n), 230))), dtype=object)]
+            for b, n in enumerate(rng.integers(2, 9, 30))]
+    os.makedirs(tmp_path / "Elephant")
+    with open(tmp_path / "Elephant" / "data_100x100_5folds_0.2split.pkl",
+              "wb") as f:
+        pickle.dump(bags, f)
+    for fold in (0, 4):
+        got = mil_pickle.load_mil_data("elephant", 230, 5, fold, 0.2,
+                                       mil_datasets_base_path=str(tmp_path))
+        want = jax_mil.load_mil_data("elephant", 230, 5, fold, 0.2,
+                                     mil_datasets_base_path=str(tmp_path))
+        for g, w in zip(got, want):
+            assert g[2:] == w[2:] == (None, None)
+            for a, b in zip(g[0] + g[1], w[0] + w[1]):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
+            assert len(g[0]) == len(w[0]) > 0
+
+
+def test_train_flags_are_the_root_flags():
+    import train as root_cli
+
+    from snuffy_tpu_torch.train import cli
+
+    def flags(parser):
+        return {a.dest: (a.option_strings, a.default, a.type, a.choices,
+                         a.nargs, type(a).__name__)
+                for a in parser._actions if a.dest != "help"}
+
+    ours = flags(cli.get_args_parser())
+    assert ours.pop("device")[1] == "cuda"
+    assert ours == flags(root_cli.get_args_parser())

@@ -103,6 +103,8 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
     dict(h=2, n=1, s=40, dk=96),                 # one row
     dict(h=1, n=1000, s=64, dk=96),              # 16 N splits, the last short
     dict(h=4, n=777, s=512, dk=32),              # 8 N splits, the last empty
+    dict(h=4, n=1200, s=1000, dk=96),            # the multiclass CLI's S
+    dict(h=2, n=300, s=500, dk=83, segments=2),  # musk1's head width
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_kernel_matches_plain_on_the_card(cuda_device, dtype, shape, rate):
@@ -170,6 +172,8 @@ def assert_close_to_plain(got, want, tol):
     dict(h=2, n=1, s=40, dk=96),                 # one row
     dict(h=1, n=1000, s=64, dk=96),              # 16 N splits, the last short
     dict(h=4, n=777, s=512, dk=32),              # 8 N splits, the last empty
+    dict(h=4, n=1200, s=1000, dk=96),            # the multiclass CLI's S
+    dict(h=2, n=300, s=500, dk=83, segments=2),  # musk1's head width
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_backward_kernel_matches_plain_on_the_card(cuda_device, dtype, shape,

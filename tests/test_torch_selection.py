@@ -111,3 +111,94 @@ def test_packed_selection_offsets_and_per_bag_top_share():
         jtop = np.asarray(jsel_.indices)[b * s:b * s + k_top]
         live = np.asarray(jsel_.slot_valid)[b * s:b * s + k_top]
         np.testing.assert_array_equal(top.numpy()[live], jtop[live])
+
+
+# ------------------------------------------------------------- multiclass
+
+def multiclass_inputs(n, n_valid, c, seed, ties=False):
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((n, c)).astype(np.float32)
+    if ties:
+        logits = np.round(logits, 1) + np.float32(0.0)
+    return logits, np.arange(n) < n_valid
+
+
+def assert_top_half_is_jaxs(prep, jprep, n):
+    """The top half, its validity, ref_dim and the remainder equal JAX's;
+    JAX's slots past the union hold the sentinel n, the port's row 0."""
+    want = np.asarray(jprep.top.indices)
+    np.testing.assert_array_equal(prep.top.indices.numpy(),
+                                  np.where(want < n, want, 0))
+    np.testing.assert_array_equal(prep.top.slot_valid.numpy(),
+                                  np.asarray(jprep.top.slot_valid))
+    np.testing.assert_array_equal(prep.ref_dim.numpy(),
+                                  np.asarray(jprep.ref_dim))
+    np.testing.assert_array_equal(prep.remainder.numpy(),
+                                  np.asarray(jprep.remainder))
+
+
+@pytest.mark.parametrize("n_valid", [0, 3, 12, 16, 40, 64])
+@pytest.mark.parametrize("c", [2, 3])
+def test_multiclass_top_half_matches_jax(n_valid, c):
+    """k_top·C = 8·c: n_valid below, at (c = 2: 16) and above it."""
+    n, k_top = 64, 8
+    logits, valid = multiclass_inputs(n, n_valid, c, seed=n_valid + c,
+                                      ties=n_valid == 40)
+    prep = tsel.multiclass_selection_prepare(
+        torch.from_numpy(logits), torch.from_numpy(valid), k_top)
+    jprep = jsel.multiclass_selection_prepare(
+        jnp.asarray(logits), jnp.asarray(valid), k_top)
+    assert_top_half_is_jaxs(prep, jprep, n)
+    s_half = min(k_top * c, n)
+    live = prep.top.indices[prep.top.slot_valid]
+    assert len(live) == int(prep.ref_dim)
+    assert (live[1:] > live[:-1]).all()          # ascending, distinct
+    assert valid[live.numpy()].all()
+    assert prep.top.indices.shape == (s_half,)
+
+
+@pytest.mark.parametrize("n_valid", [0, 5, 20, 64])
+def test_multiclass_random_half_structure(n_valid):
+    n, c, k_top = 64, 2, 8
+    logits, valid = multiclass_inputs(n, n_valid, c, seed=7)
+    prep = tsel.multiclass_selection_prepare(
+        torch.from_numpy(logits), torch.from_numpy(valid), k_top)
+    sel = tsel.multiclass_selection_draw(torch.Generator().manual_seed(2),
+                                         prep)
+    s_half = min(k_top * c, n)
+    assert sel.indices.shape == sel.slot_valid.shape == (2 * s_half,)
+    rand = sel.indices[s_half:][sel.slot_valid[s_half:]]
+    assert len(rand) == int(prep.ref_dim)        # ref_dim of them
+    assert prep.remainder[rand].all()            # from the remainder
+    assert len(set(rand.tolist())) == len(rand)  # distinct
+    assert not set(rand.tolist()) & set(
+        sel.indices[:s_half][sel.slot_valid[:s_half]].tolist())
+
+
+def test_packed_multiclass_selection_matches_jax():
+    """Three bags (64 rows: 64, 10 and 0 valid) with k_top = 40, so
+    k_top·C passes the bag length: the slot count is min(k_top·C, N)."""
+    k, n, c, k_top = 3, 64, 2, 40
+    rng = np.random.default_rng(4)
+    logits = rng.standard_normal((k, n, c)).astype(np.float32)
+    valid = np.arange(n)[None, :] < np.array([[64], [10], [0]])
+    prep = tsel.packed_selection_prepare(torch.from_numpy(logits),
+                                         torch.from_numpy(valid), k_top,
+                                         multiclass=True)
+    jprep = jsel.packed_selection_prepare(jnp.asarray(logits),
+                                          jnp.asarray(valid), k_top,
+                                          multiclass=True)
+    assert_top_half_is_jaxs(prep, jprep, n)
+    sel = tsel.packed_selection_draw(torch.Generator().manual_seed(1), prep,
+                                     0, n, multiclass=True)
+    jsel_ = jsel.packed_selection_draw(jax.random.PRNGKey(0), jprep, 0, n,
+                                       multiclass=True)
+    s = 2 * min(k_top * c, n)
+    assert sel.indices.shape == (k * s,) == np.asarray(jsel_.indices).shape
+    np.testing.assert_array_equal(sel.slot_valid.numpy(),
+                                  np.asarray(jsel_.slot_valid))
+    for b in range(k):
+        live = sel.indices[b * s:(b + 1) * s][sel.slot_valid[b * s:(b + 1) * s]]
+        assert ((live >= b * n) & (live < (b + 1) * n)).all()
+        assert len(set(live.tolist())) == len(live)
+        assert len(live) == 2 * int(prep.ref_dim[b])

@@ -128,7 +128,7 @@ def test_package_imports_with_jax_blocked():
         import importlib, pkgutil, sys
         # the card's machine has none of these; PIL only inside workers
         BLOCKED = ("jax", "jaxlib", "flax", "optax", "snuffy_tpu", "pandas",
-                   "PIL", "cv2")
+                   "sklearn", "PIL", "cv2")
 
         class Block:
             def find_spec(self, name, path=None, target=None):
@@ -153,7 +153,9 @@ def test_package_imports_with_jax_blocked():
     count, names = out.stdout.strip().splitlines()[-2:]
     assert int(count) >= 20
     for new in ("ops.kernels", "ops.dense_attention", "embed.pipeline",
-                "compute_feats", "tools.profile_vit_attention"):
+                "compute_feats", "tools.profile_vit_attention",
+                "eval.metrics", "data.mil_pickle", "utils.logging",
+                "train.runner", "train.cli", "train.__main__"):
         assert f"snuffy_tpu_torch.{new}" in names.split()
 
 

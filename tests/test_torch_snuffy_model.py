@@ -185,3 +185,121 @@ def test_losses_match_jax_including_a_dummy_bag():
         torch.from_numpy(labels[0]), torch.from_numpy(mask[:20]), 0.3, 2.5)
     np.testing.assert_allclose(one_l.numpy(), got_l[0].numpy(), rtol=1e-6)
     np.testing.assert_allclose(one_s.numpy(), got_s[0].numpy(), rtol=1e-6)
+
+
+# ------------------------------------------------------------- multiclass
+
+MC = dataclasses.replace(CFG, num_classes=3, multiclass=True, big_lambda=8,
+                         random_patch_share=0.5)
+
+
+def pinned_draw_jax(key, prep):
+    """The random half pinned to the first rows of the remainder, so that
+    both frameworks attend the same slots."""
+    from snuffy_tpu.ops.selection import Selection
+
+    s_half = prep.top.indices.shape[-1]
+    order = jnp.argsort(~prep.remainder, axis=-1, stable=True)[..., :s_half]
+    avail = jnp.take_along_axis(prep.remainder, order, axis=-1)
+    valid = (jnp.arange(s_half) < prep.ref_dim[..., None]) & avail
+    return Selection(
+        jnp.concatenate([prep.top.indices, order.astype(jnp.int32)], -1),
+        jnp.concatenate([prep.top.slot_valid, valid], -1))
+
+
+def pinned_draw_torch(generator, prep):
+    from snuffy_tpu_torch.ops.selection import Selection
+
+    s_half = prep.top.indices.shape[-1]
+    order = torch.sort((~prep.remainder).int(), dim=-1,
+                       stable=True).indices[..., :s_half]
+    avail = prep.remainder.gather(-1, order)
+    valid = (torch.arange(s_half) < prep.ref_dim[..., None]) & avail
+    return Selection(torch.cat([prep.top.indices, order], -1),
+                     torch.cat([prep.top.slot_valid, valid], -1))
+
+
+def pin_the_draws(monkeypatch):
+    from snuffy_tpu.models import snuffy as jax_model
+    from snuffy_tpu.ops import selection as jax_sel
+    from snuffy_tpu_torch.models import snuffy as port_model
+    from snuffy_tpu_torch.ops import selection as port_sel
+
+    monkeypatch.setattr(jax_model, "multiclass_selection_draw",
+                        pinned_draw_jax)
+    monkeypatch.setattr(jax_sel, "multiclass_selection_draw",
+                        pinned_draw_jax)
+    monkeypatch.setattr(port_model, "multiclass_selection_draw",
+                        pinned_draw_torch)
+    monkeypatch.setattr(port_sel, "multiclass_selection_draw",
+                        pinned_draw_torch)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_multiclass_milnet_matches_jax(dtype, monkeypatch):
+    pin_the_draws(monkeypatch)
+    cfg = dataclasses.replace(MC, compute_dtype=dtype)
+    params = init_milnet_params(cfg, seed=2, n_example=128)
+    feats, mask = bag(n=100, n_pad=128)
+    want_ins, want_bag = jax_forward(cfg, params, feats, mask)
+    model = milnet_from_jax(params, cfg, device="cpu")
+    with torch.inference_mode():
+        ins, bag_logits = model(torch.from_numpy(feats),
+                                torch.from_numpy(mask))
+    assert ins.shape == (128, 3) and bag_logits.shape == (3,)
+    np.testing.assert_allclose(ins.numpy(), want_ins, **TOL["float32"])
+    np.testing.assert_allclose(bag_logits.numpy(), want_bag, **TOL[dtype])
+
+
+def test_packed_multiclass_milnet_matches_jax_packed(monkeypatch):
+    """Bags of 100, 0 and 5 valid rows (5 < k_top·C = 12)."""
+    pin_the_draws(monkeypatch)
+    params = init_milnet_params(MC, seed=3, n_example=128)
+    rng = np.random.default_rng(3)
+    feats = rng.standard_normal((3 * 128, 32)).astype(np.float32)
+    mask = np.concatenate([np.arange(128) < n for n in (100, 0, 5)])
+    want_ins, want_bag = jax_forward(MC, params, feats, mask, segments=3)
+    model = milnet_from_jax(params, MC, device="cpu")
+    with torch.inference_mode():
+        ins, bag_logits = model(torch.from_numpy(feats),
+                                torch.from_numpy(mask), segments=3)
+    assert bag_logits.shape == (3, 3) and torch.isfinite(bag_logits).all()
+    np.testing.assert_allclose(ins.numpy(), want_ins, **TOL["float32"])
+    np.testing.assert_allclose(bag_logits.numpy(), want_bag,
+                               **TOL["float32"])
+
+
+def test_multiclass_random_draw_is_seeded_and_attends_2x_slots(monkeypatch):
+    """Unpinned: S = 2·min(k_top·C, N) slots reach the attention, and one
+    generator seed gives one result."""
+    from snuffy_tpu_torch.models import snuffy as port
+
+    slots = []
+    attention = port.fused_packed_inverted_sparse_attention
+
+    def spy(q, k, v, *args, **kw):
+        slots.append(k.shape[1])
+        return attention(q, k, v, *args, **kw)
+
+    monkeypatch.setattr(port, "fused_packed_inverted_sparse_attention", spy)
+    model = build_milnet(MC, seed=4, device="cpu")
+    feats, mask = (torch.from_numpy(a) for a in bag(n=40, n_pad=48))
+    with torch.inference_mode():
+        out = [model(feats, mask, generator=torch.Generator().manual_seed(s))
+               for s in (0, 0, 1)]
+    assert torch.equal(out[0][1], out[1][1])
+    assert torch.isfinite(out[2][1]).all()
+    assert slots == [2 * min(MC.k_top * 3, 48)] * (3 * MC.depth)
+
+
+@pytest.mark.parametrize("multiclass, override, want", [
+    (False, None, 0.25), (True, None, 0.1), (True, 0.3, 0.3)])
+def test_ffn_dropout_defaults_as_the_jax_model(multiclass, override, want):
+    from snuffy_tpu.models.snuffy import MILNet as JaxMILNet
+
+    cfg = dataclasses.replace(CFG, multiclass=multiclass,
+                              encoder_dropout=0.25)
+    model = build_milnet(cfg, device="cpu", ffn_dropout=override)
+    rates = {layer.ffn_dropout for layer in model.b_classifier.encoder.layers}
+    assert rates == {want}
+    assert JaxMILNet(cfg, ffn_dropout=override)._ffn_dropout() == want
