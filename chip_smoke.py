@@ -86,11 +86,31 @@ per kernel, all at once), then:
      training shapes timed (one call, 20 calls back to back, CUDA events)
      beside the plain versions and the bound over f32's 67 TFLOP/s;
   10b. one epoch of a small (a) with ρ=0 and no dropout through the
-     runner on the card and on the CPU, from the same weights.
+     runner on the card and on the CPU, from the same weights;
+  11. the root CLIs' default embedders: (a) K1 at the slide CLI's MILNet
+     shape (bf16, h=4, dk=128: the tensor-core body's launch_tc<128>, with
+     ptxas's registers and spills for it; N=10240 with 10000 valid, S=200,
+     ρ=0, segments 1 and 8) against the plain version, two launches
+     bitwise equal, one-call and device times, the bound; (b) the port's
+     `predict_slide.main` with only --slide and --device cuda (SimCLR
+     ResNet-18 bf16 → MILNet d=512, 4 heads, Λ=200, ρ=0, depth 1) on a
+     CLI_SLIDE_GRID² JPEG-tiled slide, its timing keys and K1 launches,
+     then `predict_tiles` on 10000, 2500 and 300 uint8 224² tiles at the
+     same defaults (embed_s, classify_s), and a small request in f32 on
+     the card against the CPU; (c) the port's `compute_feats.main` at its
+     defaults (SimCLR) and with MAE ViT-B/16 on phase 7's 300-tile bag
+     written as JPEGs: CSVs read back and equal the decoded tiles'
+     embeddings, tiles/s; one batch of 128 tiles through MAE ViT-L/16
+     bf16, each of its 24 K5 launches held to the plain version; K5 timed
+     at the ViT-B and ViT-L shapes on those runs' own inputs, beside SDPA;
+     (d) DINO ViT-S/16 at 256² input (the position grid resized to 16²),
+     f32, GPU vs CPU; (e) `hubconf.load_dino_resnet50` from a written
+     `.pth`, f32, GPU vs CPU.
 
 Each path of the main path (serve, whole slide, eval, extraction, train,
-each training-CLI run) runs with the launch counts set to 0 just before
-it and read just after.
+each training-CLI run, the SimCLR slide CLI and requests, the SimCLR and
+MAE extraction CLI runs and the ViT-L batch) runs with the launch counts
+set to 0 just before it and read just after.
 Every phase asserts; any failure exits non-zero. The line before the last
 is the kernels' JSON record, the last line the device record. It exits
 non-zero at once without a CUDA device.
@@ -147,6 +167,13 @@ SCALED_TOL = {"instances": 0.05, "bag": 0.02}
 SCORE_TOL = 1e-4
 
 H, N, N_VALID, S, DK = 4, 10240, 10000, 512, 96
+# Phase 11b: the slide CLI's fixture, CLI_SLIDE_GRID² tiles of 256² at
+# level 0, read at the 2x level at the CLI's default objective.
+CLI_SLIDE_GRID = 40
+# Conv nets, f32 (TF32 off): GPU vs CPU, max |diff| relative to max |CPU|.
+# cuDNN picks its own algorithms (implicit GEMM, Winograd), whose f32
+# sums run in other orders than the CPU's, and the norms rescale them.
+CONV_TOL = 1e-3
 REQUESTS = (10000, 2500, 300)
 EVAL_BAGS = 30
 TRAIN_BAGS, TRAIN_BATCH, PACKED_BAGS = 8, 8, 16
@@ -193,19 +220,19 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def attention_inputs(dtype, segments, gen, dev):
+def attention_inputs(dtype, segments, gen, dev, s=S, dk=DK):
     import torch
 
-    q = torch.randn((H, segments * N, DK), generator=gen, device=dev)
-    k = torch.randn((H, segments * S, DK), generator=gen, device=dev)
-    v = torch.randn((H, segments * N, DK), generator=gen, device=dev)
+    q = torch.randn((H, segments * N, dk), generator=gen, device=dev)
+    k = torch.randn((H, segments * s, dk), generator=gen, device=dev)
+    v = torch.randn((H, segments * N, dk), generator=gen, device=dev)
     q_valid = (torch.arange(N, device=dev) < N_VALID).repeat(segments)
-    slot_valid = torch.rand(segments * S, generator=gen, device=dev) > 0.1
+    slot_valid = torch.rand(segments * s, generator=gen, device=dev) > 0.1
     if segments > 1:
         # segment 6: a dummy bag (no live rows or slots); segment 7: live
         # rows but every slot dead. Both must stay finite.
         q_valid[6 * N:7 * N] = False
-        slot_valid[6 * S:8 * S] = False
+        slot_valid[6 * s:8 * s] = False
     return [t.to(dtype).contiguous() for t in (q, k, v)] + [slot_valid,
                                                            q_valid]
 
@@ -794,8 +821,8 @@ def phase_extract(dev, kernels):
                                "slide_jpeg")
         os.makedirs(bag_dir)
         for j, tile in enumerate(bag):
-            native.write_jpeg(os.path.join(bag_dir, f"{j % 20}_{j // 20}.jpeg"),
-                              tile, quality=90)
+            name = f"{j % 20}_{j // 20}.jpeg"
+            native.write_jpeg(os.path.join(bag_dir, name), tile, quality=90)
         paths = sorted(glob.glob(os.path.join(bag_dir, "*.jpeg")))
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -1446,6 +1473,473 @@ def phase_cli_gpu_vs_cpu(dev):
         f"{cs['history'][0]['epoch_valid_thresholds_optimal']}")
 
 
+def slide_cli_defaults():
+    """The slide CLI's arguments at its defaults (the root predict_slide's:
+    SimCLR ResNet-18, bf16, d=512, 4 heads, Λ=200, ρ=0, depth 1) and the
+    MILNet config its `main` builds from them."""
+    from snuffy_tpu_torch import predict_slide as cli
+    from snuffy_tpu_torch.configs import SnuffyModelConfig
+
+    args = cli.get_args_parser().parse_args(["--slide", "-"])
+    cfg = SnuffyModelConfig(
+        feats_size=args.feats_size, num_classes=args.num_classes,
+        num_heads=args.num_heads, big_lambda=args.big_lambda,
+        random_patch_share=args.random_patch_share, depth=args.depth,
+        compute_dtype="bfloat16" if args.bf16 else "float32")
+    return args, cfg
+
+
+def phase_k1_dk128(fa, plain, kernels, dev):
+    """K1 at the slide CLI's MILNet shape: bf16, h=4, dk=128 (the
+    tensor-core body's launch_tc<128>), S = Λ = 200 slots, ρ=0, segments
+    1 and 8. Device time by 20 calls back to back between CUDA events
+    (late in a run torch.profiler has recorded no, or part of the, device
+    time). Returns its worst error and (ms, plain ms, bound ms, bound by,
+    device ms) at one bag."""
+    import torch
+
+    _, cfg = slide_cli_defaults()
+    dk, s = cfg.feats_size // cfg.num_heads, cfg.k_top + cfg.k_rand
+    if cfg.num_heads != H:
+        raise AssertionError(f"{cfg.num_heads} heads, not {H}")
+    log(f"== phase 11a: K1 at the slide CLI's shape (bf16, h={H}, N={N} "
+        f"with {N_VALID} valid, S={s}, dk={dk}, rho=0)")
+    built = kernels.load_kernel(kernels.FWD.name)
+    lines = [line for line in ptxas_summary(built.log) if "Li128]" in line]
+    if built.log and not lines:
+        raise AssertionError("no ptxas line for K1's launch_tc<128> bodies")
+    for line in lines or ["(built before this run: no ptxas output)"]:
+        log(f"    ptxas {line}")
+    gen = torch.Generator(dev).manual_seed(21)
+    worst, record = 0.0, None
+    kw = dict(dropout_rate=0.0, dropout_seed=0)
+    for segments in (1, 8):
+        args = attention_inputs(torch.bfloat16, segments, gen, dev, s=s,
+                                dk=dk)
+
+        def kernel():
+            return fa.fused_packed_inverted_sparse_attention(
+                *args, segments, **kw)
+
+        with torch.inference_mode():
+            got = kernel()
+            ref = plain(*args, segments, **kw)
+            torch.cuda.synchronize()
+            log(f"  bfloat16 segments={segments}:")
+            worst = max(worst, check_kernel("out", got, ref,
+                                            KERNEL_TOL["bfloat16"]))
+            if not torch.equal(kernel(), got):
+                raise AssertionError("two launches on the same inputs differ")
+            ms = time_ms(kernel)
+            plain_ms = time_ms(lambda: plain(*args, segments, **kw))
+            device = back_to_back_ms(kernel)
+        q, k, v, sv, qv = args
+        nbytes = (sum(t.numel() * t.element_size() for t in (q, k, v, sv, qv))
+                  + k.numel() * k.element_size())   # out
+        bound, by = bound_ms(nbytes, 4 * H * dk * live_pairs(sv, qv,
+                                                             segments))
+        log(f"    kernel {ms:.4f} ms (device, back to back, {device:.4f})  "
+            f"plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({by})  (bitwise "
+            "equal over two launches)")
+        if segments == 1:
+            record = (ms, plain_ms, bound, by, device)
+    return worst, record
+
+
+def phase_simclr_serve(dev, kernels):
+    """The slide CLI's `main` with only --slide and --device cuda, then
+    predict_tiles at the same defaults on in-memory requests; a small
+    request in f32 on the card against the CPU. Returns the launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from snuffy_tpu_torch import predict_slide as cli
+    from snuffy_tpu_torch.embed.registry import build_embedder
+    from snuffy_tpu_torch.models.snuffy import build_milnet
+    from snuffy_tpu_torch.pipeline.slide_inference import predict_tiles
+
+    args, cfg = slide_cli_defaults()
+    log(f"== phase 11b: the slide CLI at its defaults ({args.embedder} "
+        f"{args.backbone}, bf16={args.bf16}, MILNet d={cfg.feats_size}, "
+        f"{cfg.num_heads} heads, Lambda={cfg.big_lambda}, "
+        f"rho={cfg.random_patch_share}, depth {cfg.depth}; seeded weights)")
+    keys = ("read_filter_s", "read_decode_s", "embed_s", "classify_s",
+            "total_s")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "slide.tif")
+        write_slide(path, CLI_SLIDE_GRID, seed=13)
+        argv = ["--slide", path, "--device", "cuda"]
+        cli.main(argv)                                         # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        pred = cli.main(argv)
+        cli_launches = kernels.launch_counts()
+    t = pred.timings
+    log(f"  predict_slide.main on a {CLI_SLIDE_GRID}x{CLI_SLIDE_GRID} grid "
+        f"of q{SLIDE_QUALITY} JPEG tiles (read at the 2x level by the "
+        f"default objective {args.objective} over base {args.base_mag}): "
+        f"decode_path={t['decode_path']} n_patches={t['n_patches']} "
+        + " ".join(f"{k}={t[k]:.4f}" for k in keys)
+        + f" bag_score={pred.bag_score:.6f} launches {cli_launches}")
+    scores = np.append(pred.instance_scores, pred.bag_score)
+    if t["n_patches"] <= 0 or not (np.isfinite(scores).all()
+                                   and (scores >= 0).all()
+                                   and (scores <= 1).all()):
+        raise AssertionError("the slide CLI's scores are not finite in [0, 1]")
+    if cli_launches[kernels.FWD.name] < cfg.depth:
+        raise AssertionError("the slide CLI did not run K1")
+
+    embedder = build_embedder(num_classes=cfg.num_classes,
+                              compute_dtype="bfloat16", device=dev)
+    milnet = build_milnet(cfg, seed=0, device=dev)
+    gen = torch.Generator(dev).manual_seed(14)
+
+    def tiles(n):
+        return torch.randint(0, 256, (n, 224, 224, 3), dtype=torch.uint8,
+                             device=dev, generator=gen)
+
+    for n in REQUESTS:   # warm-up: allocator, cuDNN and GEMM plans
+        predict_tiles(tiles(n), embedder, milnet)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for n in REQUESTS:
+        batch = tiles(n)
+        torch.cuda.synchronize()
+        before = kernels.launch_counts()[kernels.FWD.name]
+        pred = predict_tiles(batch, embedder, milnet)
+        t = pred.timings
+        grew = kernels.launch_counts()[kernels.FWD.name] - before
+        log(f"  request n_patches={t['n_patches']} embed_s={t['embed_s']:.4f} "
+            f"classify_s={t['classify_s']:.4f} total_s={t['total_s']:.4f} "
+            f"({n / t['embed_s']:.1f} tiles/s embedded) "
+            f"bag_score={pred.bag_score:.6f} K1 launches={grew}")
+        if t["n_patches"] != n or not np.isfinite(pred.instance_scores).all():
+            raise AssertionError("wrong or non-finite request output")
+        if grew < cfg.depth:
+            raise AssertionError(f"K1 launched {grew} < depth times")
+    tiles_launches = kernels.launch_counts()
+    if tiles_launches[kernels.DENSE.name]:
+        raise AssertionError("the ResNet path launched dense attention")
+
+    # A small request in f32, the card (K1, cuDNN with TF32 off) against
+    # the CPU (plain).
+    emb32 = copy.deepcopy(embedder)
+    emb32.backbone.compute_dtype = "float32"
+    m32 = build_milnet(dataclasses.replace(cfg, compute_dtype="float32"),
+                       device=dev)
+    m32.load_state_dict(milnet.state_dict())
+    small = tiles(16)
+    with torch.inference_mode():
+        f_gpu, _ = emb32(small)
+        f_cpu, _ = copy.deepcopy(emb32).cpu()(small.cpu())
+    check_kernel("ResNet-18 f32 embeddings, GPU vs CPU (relative)",
+                 f_gpu.cpu(), f_cpu, CONV_TOL)
+    gpu = predict_tiles(small, emb32, m32, embed_batch=8)
+    cpu = predict_tiles(small.cpu(), copy.deepcopy(emb32).cpu(),
+                        copy.deepcopy(m32).cpu(), embed_batch=8)
+    check_scores("SimCLR -> d=512 MILNet f32 instance scores, GPU vs CPU",
+                 gpu.instance_scores, cpu.instance_scores, SCORE_TOL)
+    check_scores("SimCLR -> d=512 MILNet f32 bag score, GPU vs CPU",
+                 [gpu.bag_score], [cpu.bag_score], SCORE_TOL)
+    return {k: cli_launches[k] + tiles_launches[k] for k in cli_launches}
+
+
+def max_ulps(got, want) -> float:
+    """The largest difference of two bf16 tensors in ulps of the larger
+    magnitude, values below 2^-8 of max |want| counted in the ulp of 2^-8
+    max |want| (tests/test_torch_fused_attention.py `max_ulps`)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    floor = 2.0 ** -8 * float(want.abs().max())
+    big = torch.maximum(got.abs(), want.abs()).clamp_min(floor)
+    return float(((got - want).abs()
+                  / torch.exp2(torch.floor(torch.log2(big)) - 7)).max())
+
+
+@contextlib.contextmanager
+def dense_calls(keep, check=False):
+    """Inside it, the dense-attention wrapper keeps the inputs of its first
+    call at each shape in `keep` and, with `check`, holds every bf16
+    launch's output to the plain version within one bf16 ulp of max
+    |plain|, 2^-7 (KERNEL_TOL's bf16 bound: phase 4's 2^-8 holds only
+    where the largest output sits at the top of its binade). Where a
+    launch is past 2^-8, it also prints the kernel's and the plain
+    version's distance from the exact result (f64, p unrounded).
+    keep[shape] is (q, k, v, n_valid), keep["errors"] each launch's (max
+    abs error, relative to max |plain|, ulps by `max_ulps`). The launch
+    counts are the kernel's alone."""
+    import torch
+
+    from snuffy_tpu_torch.ops import dense_attention as da
+
+    launch = da._dense_cuda
+
+    def kept(q, k, v, n_valid):
+        out = launch(q, k, v, n_valid)
+        if tuple(q.shape) not in keep:
+            keep[tuple(q.shape)] = tuple(t.clone() for t in (q, k, v)) + (
+                n_valid,)
+        if check:
+            ref = da.dense_attention_reference(q, k, v, n_valid)
+            if not bool(torch.isfinite(out.float()).all()):
+                raise AssertionError("dense kernel output not finite")
+            scale = max(float(ref.float().abs().max()), 1e-30)
+            err = float((out.float() - ref.float()).abs().max())
+            rel, ulps = err / scale, max_ulps(out, ref)
+            keep.setdefault("errors", []).append((err, rel, ulps))
+            if rel > DENSE_TOL["bfloat16"]:
+                s_ = torch.bmm(q.double(), k.double().transpose(1, 2))
+                s_ = s_ * q.shape[-1] ** -0.5
+                s_[..., n_valid:] = -1e30
+                exact = torch.bmm(torch.softmax(s_, dim=-1), v.double())
+                log(f"    launch {len(keep['errors'])} at {tuple(q.shape)}: "
+                    f"rel {rel:.3e}, {ulps:.1f} ulps; from the exact "
+                    "result: kernel "
+                    f"{float((out.double() - exact).abs().max()) / scale:.3e}"
+                    ", plain "
+                    f"{float((ref.double() - exact).abs().max()) / scale:.3e}"
+                    " of max |plain|")
+                del s_, exact
+            if q.dtype != torch.bfloat16 or not rel <= KERNEL_TOL["bfloat16"]:
+                raise AssertionError(f"dense kernel at {tuple(q.shape)} "
+                                     f"disagrees with plain: rel {rel}, "
+                                     f"{ulps} ulps")
+        return out
+
+    da._dense_cuda = kept
+    try:
+        yield keep
+    finally:
+        da._dense_cuda = launch
+
+
+def time_dense(label, q, k, v, n_valid):
+    """K5 on these inputs: one call, plain, SDPA (one call and device) and
+    the kernel's device time (20 calls back to back between CUDA events),
+    beside the bound."""
+    import torch
+
+    from snuffy_tpu_torch.ops.dense_attention import (
+        dense_attention_reference,
+        fused_self_attention,
+    )
+    from snuffy_tpu_torch.tools.profile_vit_attention import (
+        dense_bound_ms,
+        sdpa,
+    )
+
+    def kernel():
+        return fused_self_attention(q, k, v, n_valid)
+
+    def library():
+        return sdpa(q, k, v, n_valid)
+
+    with torch.inference_mode():
+        ms, lib_ms = time_ms(kernel), time_ms(library)
+        plain_ms = time_ms(lambda: dense_attention_reference(q, k, v,
+                                                             n_valid))
+        device, lib_device = (back_to_back_ms(f) for f in (kernel, library))
+    z, n, dk = q.shape
+    bound, by = dense_bound_ms(z, n, n_valid, dk, q.dtype)
+    log(f"    K5 at {label} (z={z}, n={n}, dk={dk}, "
+        f"{str(q.dtype).removeprefix('torch.')}, the run's own inputs): "
+        f"kernel {ms:.4f} ms (device, back to back, {device:.4f})  plain "
+        f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms (device, back to back, "
+        f"{lib_device:.4f})  bound {bound:.4f} ms ({by})")
+
+
+def phase_extract_embedders(dev, kernels):
+    """The extraction CLI's `main` at its defaults (SimCLR ResNet-18) and
+    with MAE ViT-B/16 on phase 7's 300-tile bag written as JPEGs; then one
+    batch of 128 tiles through MAE ViT-L/16, every K5 launch held to the
+    plain version. Returns the launches."""
+    import csv
+    import glob
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from snuffy_tpu_torch import compute_feats as cf
+    from snuffy_tpu_torch import native
+    from snuffy_tpu_torch.embed.pipeline import embed_batch, embed_tiles
+    from snuffy_tpu_torch.embed.registry import build_embedder
+
+    log("== phase 11c: the extraction CLI (python -m "
+        "snuffy_tpu_torch.compute_feats) at its defaults (SimCLR ResNet-18, "
+        "bf16, batch 128, 8 decode workers) and with --embedder MAE "
+        "--backbone mae_vit_base_patch16, on phase 7's 300-tile bag as "
+        "q90 JPEGs; then a batch of 128 tiles through MAE ViT-L/16")
+    rng = np.random.default_rng(8)
+    bag = [rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+           for n in EXTRACT_BAGS][1]
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    kept = {}
+    cli_batch = cf.get_args_parser().parse_args([]).batch_size
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "datasets")
+        bag_dir = os.path.join(data, "camelyon16", "single", "fold1", "train",
+                               "1_tumor", "slide_jpeg")
+        os.makedirs(bag_dir)
+        for j, tile in enumerate(bag):
+            name = f"{j % 20}_{j // 20}.jpeg"
+            native.write_jpeg(os.path.join(bag_dir, name), tile, quality=90)
+        paths = sorted(glob.glob(os.path.join(bag_dir, "*.jpeg")))
+        decoded = np.stack([native.decode_jpeg(p, 224) for p in paths])
+        for label, flags, dim, per_batch in (
+                ("SimCLR", [], 512, 0),
+                ("MAE", ["--embedder", "MAE", "--backbone",
+                         "mae_vit_base_patch16"], 768, 12)):
+            out = os.path.join(root, "embeddings")
+            argv = flags + ["--datasets_path", data, "--embeddings_path",
+                            out, "--device", "cuda"]
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            with dense_calls(kept):
+                rows = cf.main(argv)
+            elapsed = time.perf_counter() - t0
+            got = kernels.launch_counts()
+            for k in launches:
+                launches[k] += got[k]
+            dense = got[kernels.DENSE.name]
+            log(f"  {label}: {len(bag)} tiles in {elapsed:.4f} s = "
+                f"{len(bag) / elapsed:.3f} tiles/s through the CLI (model "
+                f"build, decode pool, embed, CSVs); dense_attention_launches="
+                f"{dense}")
+            if dense != per_batch * math.ceil(len(bag) / cli_batch):
+                raise AssertionError(f"{label}: dense attention launched "
+                                     f"{dense} times")
+            out_dir = os.path.join(out, "camelyon16", label)
+            (csv_path, cls), = rows
+            with open(csv_path, newline="") as fh:
+                header, *body = list(csv.reader(fh))
+            feats = np.array(body, np.float32)
+            with open(os.path.join(out_dir, "camelyon16.csv"),
+                      newline="") as fh:
+                dataset = list(csv.reader(fh))
+            if (header != [str(i) for i in range(dim)]
+                    or feats.shape != (len(bag), dim)
+                    or not np.isfinite(feats).all()
+                    or dataset != [["0", "label"], [csv_path, str(cls)]]
+                    or not os.path.exists(os.path.join(out_dir,
+                                                       "embedder.pth"))):
+                raise AssertionError(f"{label}: the CSVs do not read back")
+            embedder = build_embedder(label, cf.get_args_parser().parse_args(
+                argv).backbone, compute_dtype="bfloat16", device=dev)
+            want = embed_tiles(embedder, decoded, cli_batch)
+            check_kernel(f"{label} CSV vs the decoded tiles' embeddings",
+                         torch.from_numpy(feats), torch.from_numpy(want),
+                         EMBED_TOL)
+            del embedder
+    shape_b = next(s for s in kept if s[0] == 12 * cli_batch)
+    time_dense(f"MAE ViT-B/16, batch {cli_batch}", *kept[shape_b])
+
+    embedder = build_embedder("MAE", "mae_vit_large_patch16",
+                              compute_dtype="bfloat16", device=dev)
+    batch = bag[:EXTRACT_BATCH]
+    embed_batch(embedder, batch, EXTRACT_BATCH)                # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    checked = {}
+    t0 = time.perf_counter()
+    with dense_calls(checked, check=True):
+        feats = embed_batch(embedder, batch, EXTRACT_BATCH)
+    elapsed = time.perf_counter() - t0
+    got = kernels.launch_counts()
+    for k in launches:
+        launches[k] += got[k]
+    errors = checked["errors"]
+    over = sum(r > DENSE_TOL["bfloat16"] for _, r, _ in errors)
+    log(f"  MAE ViT-L/16 bf16, one batch of {EXTRACT_BATCH}: "
+        f"dense_attention_launches={got[kernels.DENSE.name]}, each within "
+        f"{KERNEL_TOL['bfloat16']:.3e} of max |plain|: worst max_abs_err "
+        f"{max(e for e, _, _ in errors):.3e}, rel "
+        f"{max(r for _, r, _ in errors):.3e} ({over} of {len(errors)} "
+        f"launches above phase 4's {DENSE_TOL['bfloat16']:.3e}), "
+        f"{max(u for _, _, u in errors):.3f} ulps; {elapsed:.4f} s with the "
+        "checks")
+    if got[kernels.DENSE.name] != 24 or len(errors) != 24:
+        raise AssertionError("MAE ViT-L/16 did not launch K5 24 times")
+    if feats.shape != (EXTRACT_BATCH, 1024) or not np.isfinite(feats).all():
+        raise AssertionError(f"MAE ViT-L/16 feats {feats.shape} not finite")
+    shape_l = next(s for s in checked if s != "errors")
+    time_dense(f"MAE ViT-L/16, batch {EXTRACT_BATCH}", *checked[shape_l])
+    return launches, max(e for e, _, _ in errors)
+
+
+def phase_vit_grid(dev):
+    """ViT-S/16 at 256² input (the CLIs' --embed_size 256): the position
+    grid resized from 14² to 16², f32, the card against the CPU."""
+    import torch
+
+    from snuffy_tpu_torch.embed.registry import build_embedder
+
+    log("== phase 11d: DINO ViT-S/16 at 256² input (257 tokens, the "
+        "position grid resized 14² -> 16²), f32, GPU vs CPU")
+    emb = build_embedder("DINO", "vit_small", compute_dtype="float32",
+                         device=dev)
+    gen = torch.Generator(dev).manual_seed(15)
+    x = torch.randint(0, 256, (4, 256, 256, 3), dtype=torch.uint8,
+                      device=dev, generator=gen)
+    keep = {}
+    with torch.inference_mode(), dense_calls(keep):
+        f_gpu, _ = emb(x)
+    with torch.inference_mode():
+        f_cpu, _ = copy.deepcopy(emb).cpu()(x.cpu())
+    if list(keep) != [(4 * 6, 257, 64)]:
+        raise AssertionError(f"dense attention shapes {list(keep)}")
+    check_scores("ViT-S/16 256² f32 embeddings, GPU vs CPU",
+                 f_gpu.cpu().numpy(), f_cpu.numpy(), EMBED_TOL)
+
+
+def phase_resnet50(dev):
+    """hubconf.load_dino_resnet50 from a `.pth` written here (seeded
+    weights, BatchNorm statistics drawn, torchvision's names with fc and
+    num_batches_tracked), f32, the card against the CPU."""
+    import os
+    import tempfile
+
+    import torch
+
+    from snuffy_tpu_torch import hubconf
+    from snuffy_tpu_torch.models.resnet import FrozenBatchNorm, ResNet50
+
+    log("== phase 11e: hubconf.load_dino_resnet50 from a written "
+        "dino_resnet50.pth, f32, GPU vs CPU")
+    src = ResNet50(seed=6)
+    gen = torch.Generator().manual_seed(16)
+    with torch.no_grad():
+        for mod in src.modules():
+            if isinstance(mod, FrozenBatchNorm):
+                for t in (mod.weight, mod.running_var):
+                    t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+                for t in (mod.bias, mod.running_mean):
+                    t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+    sd = dict(src.state_dict())
+    sd["fc.weight"], sd["fc.bias"] = torch.zeros(1000, 2048), torch.zeros(1000)
+    sd["bn1.num_batches_tracked"] = torch.tensor(100)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(sd, os.path.join(tmp, "dino_resnet50.pth"))
+        gpu = hubconf.load_dino_resnet50(tmp, device=dev)
+        cpu = hubconf.load_dino_resnet50(tmp, device="cpu")
+    for k, v in src.state_dict().items():
+        if not torch.equal(gpu.state_dict()[k].cpu(), v):
+            raise AssertionError(f"{k} was not loaded")
+    x = torch.rand((4, 224, 224, 3), generator=gen)
+    with torch.inference_mode():
+        f_gpu, f_cpu = gpu(x.to(dev)), cpu(x)
+    if f_gpu.shape != (4, 2048):
+        raise AssertionError(f"ResNet-50 feats {tuple(f_gpu.shape)}")
+    check_kernel("ResNet-50 f32 features, GPU vs CPU (relative)",
+                 f_gpu.cpu(), f_cpu, CONV_TOL)
+
+
 def build_kernels(kernels):
     """Build every kernel at once, one nvcc each; print ptxas's lines."""
     with concurrent.futures.ThreadPoolExecutor(len(kernels.KERNELS)) as pool:
@@ -1534,21 +2028,32 @@ def main() -> int:
         packed_inverted_sparse_attention_bwd, cli_calls)
     del cli_calls
     phase_cli_gpu_vs_cpu(dev)
+    k1_dk128_err, k1_dk128_record = phase_k1_dk128(
+        fa, packed_inverted_sparse_attention, kernels, dev)
+    simclr_launches = phase_simclr_serve(dev, kernels)
+    embedders_launches, k5_vitl_err = phase_extract_embedders(dev, kernels)
+    phase_vit_grid(dev)
+    phase_resnet50(dev)
 
     log(f"  main-path kernel launches: serve {serve_launches}, whole slide "
         f"{slide_launches}, eval {eval_launches}, extraction "
         f"{extract_launches}, train {train_launches}, training CLI "
-        f"{cli_launches}")
+        f"{cli_launches}, SimCLR serve (slide CLI and requests) "
+        f"{simclr_launches}, SimCLR/MAE extraction {embedders_launches}")
+    log(f"  K1 at dk=128, one bag: kernel {k1_dk128_record[0]:.4f} ms "
+        f"(device {k1_dk128_record[4]:.4f}), bound {k1_dk128_record[2]:.4f} "
+        f"ms ({k1_dk128_record[3]})")
     paths = (serve_launches, slide_launches, eval_launches, extract_launches,
-             train_launches, cli_launches)
+             train_launches, cli_launches, simclr_launches,
+             embedders_launches)
     no_library = None  # no one PyTorch call computes the slot sums σᵀv
     records = []
     for kernel, err, (ms, plain_ms, bound, bound_by, library_ms) in (
-            (kernels.FWD, max(fwd_err, k1_cli_err),
+            (kernels.FWD, max(fwd_err, k1_cli_err, k1_dk128_err),
              (*fwd_record, no_library)),
             (kernels.BWD, max(bwd_err, k2_cli_err),
              (*bwd_record, no_library)),
-            (kernels.DENSE, dense_err, dense_record)):
+            (kernels.DENSE, max(dense_err, k5_vitl_err), dense_record)):
         records.append({
             "name": kernel.name,
             "route": "cuda",

@@ -8,6 +8,10 @@
   vit_from_jax(params)          flax ViT params (± adapter) → DINO-keyed
                                 numpy state dict (the inverse of
                                 snuffy_tpu/embed/torch_import.py:import_vit)
+  resnet_from_jax(params)       flax ResNet18/50 params → torchvision-keyed
+                                numpy state dict
+  mae_from_jax(params)          flax MAE params → MAE-keyed numpy state
+                                dict of the encoder
   load_reference_pth(path)      a reference/DINO `.pth` → state dict of
                                 tensors, `module.`/`backbone.` stripped
   load_vit_weights(model, path) a DINO(-adapter) `.pth` onto a port ViT,
@@ -20,13 +24,13 @@ that converts with `np.asarray`. Nothing here imports JAX.
 
 from __future__ import annotations
 
-import argparse
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from snuffy_tpu_torch.configs import SnuffyModelConfig
+from snuffy_tpu_torch.embed import torch_import
 from snuffy_tpu_torch.models.snuffy import MILNet, build_milnet
 
 
@@ -73,18 +77,7 @@ def milnet_from_jax(params: dict, cfg: SnuffyModelConfig,
     return model
 
 
-def vit_from_jax(params: dict) -> Dict[str, np.ndarray]:
-    """Dense kernels (in, out) → weights (out, in); conv kernels
-    (kh, kw, in, out) → (out, in, kh, kw); LayerNorm scale → weight."""
-    sd: Dict[str, np.ndarray] = {
-        "cls_token": _f32(params["cls_token"]),
-        "pos_embed": _f32(params["pos_embed"]),
-        "patch_embed.proj.weight": _f32(np.transpose(
-            params["patch_embed"]["proj"]["kernel"], (3, 2, 0, 1))),
-        "patch_embed.proj.bias": _f32(params["patch_embed"]["proj"]["bias"]),
-        "norm.weight": _f32(params["norm"]["scale"]),
-        "norm.bias": _f32(params["norm"]["bias"]),
-    }
+def _vit_blocks(sd: Dict[str, np.ndarray], params: dict) -> None:
     depth = sum(1 for k in params if k.startswith("blocks_"))
     for i in range(depth):
         blk, pre = params[f"blocks_{i}"], f"blocks.{i}"
@@ -112,30 +105,82 @@ def vit_from_jax(params: dict) -> Dict[str, np.ndarray]:
                     ad["ln"]["scale"])
                 sd[f"{apre}.adapter_layer_norm_before.bias"] = _f32(
                     ad["ln"]["bias"])
+
+
+def _conv_weight(kernel) -> np.ndarray:
+    """flax conv kernel (kh, kw, in, out) → weight (out, in, kh, kw)."""
+    return _f32(np.transpose(kernel, (3, 2, 0, 1)))
+
+
+def vit_from_jax(params: dict) -> Dict[str, np.ndarray]:
+    """Dense kernels (in, out) → weights (out, in); conv kernels
+    (kh, kw, in, out) → (out, in, kh, kw); LayerNorm scale → weight."""
+    sd: Dict[str, np.ndarray] = {
+        "cls_token": _f32(params["cls_token"]),
+        "pos_embed": _f32(params["pos_embed"]),
+        "patch_embed.proj.weight": _conv_weight(
+            params["patch_embed"]["proj"]["kernel"]),
+        "patch_embed.proj.bias": _f32(params["patch_embed"]["proj"]["bias"]),
+        "norm.weight": _f32(params["norm"]["scale"]),
+        "norm.bias": _f32(params["norm"]["bias"]),
+    }
+    _vit_blocks(sd, params)
+    return sd
+
+
+def mae_from_jax(params: dict) -> Dict[str, np.ndarray]:
+    """The MAE encoder's tensors under the MAE checkpoint's names, by
+    `vit_from_jax`'s map; the decoder, `mask_token` and the fixed sin-cos
+    grid (no parameter in either framework) are left out."""
+    sd: Dict[str, np.ndarray] = {
+        "cls_token": _f32(params["cls_token"]),
+        "patch_embed.proj.weight": _conv_weight(
+            params["patch_embed"]["proj"]["kernel"]),
+        "patch_embed.proj.bias": _f32(params["patch_embed"]["proj"]["bias"]),
+        "norm.weight": _f32(params["norm"]["scale"]),
+        "norm.bias": _f32(params["norm"]["bias"]),
+    }
+    _vit_blocks(sd, params)
+    return sd
+
+
+def resnet_from_jax(params: dict) -> Dict[str, np.ndarray]:
+    """flax ResNet18/ResNet50 params → torchvision names: `layer{i}_{j}`
+    → `layer{i}.{j}`, `downsample_conv`/`downsample_bn` →
+    `downsample.0`/`.1`, conv kernels (kh, kw, in, out) → (out, in, kh,
+    kw), FrozenBatchNorm's scale/bias/mean/var → weight/bias/running_mean/
+    running_var (InstanceNorm has none)."""
+    bn = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+          "var": "running_var"}
+
+    def module(tree: dict, name: str) -> None:
+        if "kernel" in tree:
+            sd[f"{name}.weight"] = _conv_weight(tree["kernel"])
+        else:
+            for k, v in tree.items():
+                sd[f"{name}.{bn[k]}"] = _f32(v)
+
+    sd: Dict[str, np.ndarray] = {}
+    for top, tree in params.items():
+        if not top.startswith("layer"):
+            module(tree, top)
+            continue
+        name = top.replace("_", ".")
+        for sub, leaf in tree.items():
+            sub = {"downsample_conv": "downsample.0",
+                   "downsample_bn": "downsample.1"}.get(sub, sub)
+            module(leaf, f"{name}.{sub}")
     return sd
 
 
 def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
     """Load a state dict on the CPU, unwrapping a 'state_dict', 'model' or
     'teacher' container as the reference loaders do, and strip `module.`
-    and `backbone.` prefixes. The load stays `weights_only`, with
-    `argparse.Namespace` allowed: a DINO training checkpoint stores its
-    arguments as one beside `teacher` and `student`."""
-    with torch.serialization.safe_globals([argparse.Namespace]):
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    for container in ("state_dict", "model", "teacher"):
-        if isinstance(ckpt, dict) and isinstance(ckpt.get(container), dict):
-            ckpt = ckpt[container]
-            break
-    out = {}
-    for k, v in ckpt.items():
-        if not isinstance(v, torch.Tensor):
-            continue
-        for prefix in ("module.", "backbone."):
-            if k.startswith(prefix):
-                k = k[len(prefix):]
-        out[k] = v
-    return out
+    and `backbone.` prefixes (`embed.torch_import`; still `weights_only`,
+    with `argparse.Namespace` allowed for a DINO training checkpoint's
+    arguments)."""
+    return torch_import.strip_prefixes(
+        torch_import.load_torch_state_dict(path))
 
 
 def load_vit_weights(model: torch.nn.Module, path: str
@@ -145,17 +190,5 @@ def load_vit_weights(model: torch.nn.Module, path: str
     parameter whose name and shape the checkpoint holds is copied, the rest
     (adapter keys absent from a plain DINO checkpoint, say) keep their
     init. Prints the audit and returns (matched, mismatched) names."""
-    sd = load_reference_pth(path)
-    own = model.state_dict()
-    matched = [k for k, v in own.items()
-               if k in sd and tuple(sd[k].shape) == tuple(v.shape)]
-    mismatched = [k for k in own if k not in matched]
-    print(f"layer audit: {len(matched)} matched, {len(mismatched)} "
-          f"missing/mismatched, {len(set(sd) - set(own))} unused in "
-          f"{path}")
-    for k in mismatched:
-        have = tuple(sd[k].shape) if k in sd else "absent"
-        print(f"  missing: {k} (model {tuple(own[k].shape)}, "
-              f"checkpoint {have})")
-    model.load_state_dict({k: sd[k] for k in matched}, strict=False)
-    return matched, mismatched
+    return torch_import.load_embedder_weights(model, path, "DINO",
+                                              "vit_small")

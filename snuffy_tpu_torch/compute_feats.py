@@ -1,35 +1,44 @@
-"""Patch feature extraction CLI on the GPU: JPEG bags → DINO ViT → CSVs.
+"""Patch feature extraction CLI on the GPU: JPEG bags → embedder → CSVs.
 
 The port of the root `compute_feats.py`, with its flags plus `--device`
-(default cuda; there is no silent fall back to the CPU). Run from the
-repository root:
+(default cuda; there is no silent fall back to the CPU). The embedders
+are the root's: SimCLR ResNet-18 (the default; `--norm_layer` instance or
+batch), the DINO ViTs (± adapter) and the MAE ViT-B/L encoders. Run from
+the repository root:
 
+  python -m snuffy_tpu_torch.compute_feats --weights simclr.pth \
+      --dataset camelyon16
   python -m snuffy_tpu_torch.compute_feats --embedder DINO \
       --backbone vit_small --patch_size 8 --use_adapter \
       --weights dino_adapter.pth --dataset camelyon16
+  python -m snuffy_tpu_torch.compute_feats --embedder MAE \
+      --backbone mae_vit_base_patch16 --weights mae.pth
 
 Reads `<datasets_path>/<dataset>/single/<fold>/**/<bag>/*.jpeg` and writes
 `<embeddings_path>/<dataset>/<embedder>[_<version>]/<split>/<class>/<bag>.csv`,
 the per-class CSVs and the shuffled `<dataset>.csv` the MIL trainer reads,
-and `embedder.pth`: the backbone's state dict under the DINO names, which
-`--weights` here and `--embedder_weights` of `predict_slide` load. Only
-the DINO ViTs (± adapter) are ported; SimCLR and MAE raise.
+and `embedder.pth`: the backbone's state dict under its family's names
+(torchvision's, DINO's or MAE's), which `--weights` here and
+`--embedder_weights` of `predict_slide` load. `--weights` is overlaid as
+the root CLI does (`embed.torch_import.load_embedder_weights`): every
+tensor whose name and shape match, with the layer audit printed.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import warnings
 
 import torch
 
-from snuffy_tpu_torch.bridge import load_vit_weights
 from snuffy_tpu_torch.embed.pipeline import (
     extract_dataset,
     save_class_features,
     write_dataset_csv,
 )
 from snuffy_tpu_torch.embed.registry import build_embedder
+from snuffy_tpu_torch.embed.torch_import import load_embedder_weights
 from snuffy_tpu_torch.predict_slide import resolve_device
 
 
@@ -61,8 +70,8 @@ def get_args_parser():
     parser.add_argument("--use_adapter", default=False, action="store_true")
     parser.add_argument("--compute_dtype", default="bfloat16", type=str,
                         choices=["float32", "bfloat16"],
-                        help="ViT matmul dtype on device (embeddings are "
-                             "written in f32)")
+                        help="the embedder's compute dtype on device "
+                             "(embeddings are written in f32)")
     parser.add_argument("--transform", default=0, type=int,
                         help="1 → ImageNet normalization")
     parser.add_argument("--droped", default=0, type=int,
@@ -75,6 +84,14 @@ def get_args_parser():
                         help="torch device; cuda raises when no GPU is "
                              "present")
     return parser
+
+
+def validate_args(args):
+    if args.norm_layer == "instance" and "simclr" not in args.embedder.lower():
+        warnings.warn(
+            "norm_layer=instance is the DSMIL-SimCLR convention; check that "
+            "your pretrained model used InstanceNorm2d too"
+        )
 
 
 def class_labels_of(fold_root: str) -> dict:
@@ -97,17 +114,19 @@ def class_labels_of(fold_root: str) -> dict:
 
 def main(argv=None):
     args = get_args_parser().parse_args(argv)
+    validate_args(args)
     device = resolve_device(args.device)
     embedder = build_embedder(
         args.embedder, args.backbone, num_classes=args.num_classes,
         patch_size=args.patch_size, use_adapter=args.use_adapter,
         adapter_ffn_num=args.ffn_num,
         adapter_ffn_scalar=args.adapter_ffn_scalar,
-        compute_dtype=args.compute_dtype,
+        norm_layer=args.norm_layer, compute_dtype=args.compute_dtype,
         imagenet_norm=bool(args.transform), device=device,
     )
     if args.weights:
-        load_vit_weights(embedder.backbone, args.weights)
+        load_embedder_weights(embedder.backbone, args.weights, args.embedder,
+                              args.backbone, args.norm_layer)
 
     dataset_path = os.path.join(args.datasets_path, args.dataset)
     version = (f"{args.embedder}"

@@ -15,15 +15,20 @@ attention kernel (`ops/dense_attention.py`): its scores and softmax are
 f32 whatever the compute dtype, where the JAX MHSA rounds the scores to
 bf16 under `compute_dtype="bfloat16"`. LayerNorm eps is 1e-6 (flax's
 default), stats in f32.
-The positional embedding is not interpolated: JAX resizes it with its
-bicubic kernel (Keys a=−0.5; torch's bicubic uses a=−0.75), so an input
-whose patch grid differs from the 224² one raises instead of differing.
+An input whose patch grid differs from the 224² one gets the position
+grid resized as `jax.image.resize(..., "bicubic")` resizes it
+(`interpolate_pos_encoding`): Keys' cubic with a = −0.5 (torch's bicubic
+takes −0.75), half-pixel centres, the kernel widened by the scale on a
+downscale, and the weights renormalised where taps fall off the edge.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -141,6 +146,78 @@ class PatchEmbed(nn.Module):
         return F.linear(x.to(dtype), w.to(dtype), self.proj.bias.to(dtype))
 
 
+def init_weights(model: nn.Module, tokens, gen: torch.Generator) -> None:
+    """The JAX models' init: flax's lecun_normal kernels, zero biases,
+    trunc_normal(0.02) `tokens`, the adapters' LoRA-style init."""
+    with torch.no_grad():
+        for p in tokens:
+            nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=gen)
+            p.mul_(0.02)
+        for mod in model.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv2d)):
+                lecun_normal(mod.weight, gen)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+        for mod in model.modules():
+            if isinstance(mod, Adapter):
+                mod.reset_parameters(gen)
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel, a = −0.5, of |x| (jax.image's
+    `_fill_keys_cubic_kernel`)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def bicubic_weights(in_size: int, out_size: int) -> torch.Tensor:
+    """(out, in) f32 weights of `jax.image.resize(..., "bicubic")` along
+    one axis (antialiased, no translation), step for step in f32 as
+    jax/_src/image/scale.py `compute_weight_mat` builds them: sample
+    centres (o + ½)·in/out − ½; on a downscale the kernel widened by
+    in/out; each output's weights divided by their sum (so taps that fall
+    off the edge are renormalised away); an output whose centre lies
+    outside the input gets none."""
+    inv_scale = np.float32(1.0 / (out_size / in_size))
+    kernel_scale = np.maximum(inv_scale, np.float32(1.0))
+    sample_f = ((np.arange(out_size, dtype=np.float32) + np.float32(0.5))
+                * inv_scale - np.float32(0.5))
+    x = (np.abs(sample_f[None, :]
+                - np.arange(in_size, dtype=np.float32)[:, None])
+         / kernel_scale)
+    w = _keys_cubic(x)
+    total = w.sum(axis=0, keepdims=True, dtype=np.float32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, np.float32(1.0)),
+                 np.float32(0.0))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    w = np.where(inside[None, :], w, np.float32(0.0))
+    return torch.from_numpy(np.ascontiguousarray(w.T, dtype=np.float32))
+
+
+def interpolate_pos_encoding(pos_embed: torch.Tensor, n_patches: int,
+                             w: int, h: int, patch_size: int
+                             ) -> torch.Tensor:
+    """Bicubic-resize the grid part of a (1, 1+N0, D) position embedding to
+    the (h // patch, w // patch) patch grid, in f32, with JAX's weights
+    (`snuffy_tpu/models/vit.py` `interpolate_pos_encoding`). Returned as
+    it is when the input has N0 patches."""
+    n0 = pos_embed.shape[1] - 1
+    if n_patches == n0:
+        return pos_embed
+    dim = pos_embed.shape[-1]
+    g0 = int(round(math.sqrt(n0)))
+    gw, gh = w // patch_size, h // patch_size
+    grid = pos_embed[0, 1:].float().reshape(g0, g0, dim)
+    wh = bicubic_weights(g0, gh).to(grid.device)
+    ww = bicubic_weights(g0, gw).to(grid.device)
+    grid = torch.einsum("oh,hwd,pw->opd", wh, grid, ww)
+    return torch.cat([pos_embed[:, :1].float(),
+                      grid.reshape(1, gh * gw, dim)], dim=1)
+
+
 class VisionTransformer(nn.Module):
     """ViT backbone → CLS embedding (B, D) in float32."""
 
@@ -166,38 +243,18 @@ class VisionTransformer(nn.Module):
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, adapter)
             for _ in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self._init_weights(torch.Generator().manual_seed(seed))
-
-    def _init_weights(self, gen: torch.Generator) -> None:
-        """The JAX model's init: flax's lecun_normal kernels, zero biases,
-        trunc_normal(0.02) cls/pos tokens, the adapters' LoRA-style init."""
-        with torch.no_grad():
-            for p in (self.cls_token, self.pos_embed):
-                nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=gen)
-                p.mul_(0.02)
-            for mod in self.modules():
-                if isinstance(mod, (nn.Linear, nn.Conv2d)):
-                    lecun_normal(mod.weight, gen)
-                    if mod.bias is not None:
-                        mod.bias.zero_()
-            for mod in self.modules():
-                if isinstance(mod, Adapter):
-                    mod.reset_parameters(gen)
+        init_weights(self, (self.cls_token, self.pos_embed),
+                     torch.Generator().manual_seed(seed))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = (torch.bfloat16 if self.compute_dtype == "bfloat16"
                  else torch.float32)
-        b = x.shape[0]
+        b, h_img, w_img, _ = x.shape
         x = self.patch_embed(x, dtype)
-        if x.shape[1] != self.pos_embed.shape[1] - 1:
-            raise NotImplementedError(
-                f"{x.shape[1]} patches but a {self.pos_embed.shape[1] - 1}-"
-                "patch position grid: the JAX model resizes it with its own "
-                "bicubic kernel (Keys a=-0.5), which is not ported; feed "
-                "224x224 images"
-            )
+        pe = interpolate_pos_encoding(self.pos_embed, x.shape[1], w_img,
+                                      h_img, self.patch_embed.patch_size)
         cls = self.cls_token.to(dtype).expand(b, -1, -1)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dtype)
+        x = torch.cat([cls, x], dim=1) + pe.to(dtype)
         for blk in self.blocks:
             x = blk(x, dtype)
         # LayerNorm is per token: normalise the CLS token only.

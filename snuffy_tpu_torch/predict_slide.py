@@ -1,19 +1,22 @@
-"""Single-slide inference CLI on the GPU: WSI → tiles → DINO ViT → Snuffy.
+"""Slide inference CLI on the GPU: WSI → tiles → embedder → Snuffy MIL.
 
-The port of the root `predict_slide.py`, with its flags plus the port's
-own: `--device` (default cuda; there is no silent fall back to the CPU)
-and the embedder's `--patch_size`, `--use_adapter`, `--ffn_num` and
-`--adapter_ffn_scalar` (the root CLI fixes them at 16, off, 64 and 4.0,
-its defaults here), so the Camelyon16 ViT-S/8 + adapter can serve. Run
-from the repository root:
+The port of the root `predict_slide.py`, with its flags and defaults
+(SimCLR ResNet-18 with InstanceNorm, bf16, into a d=512 MILNet: 4 heads,
+Λ=200, ρ=0, depth 1) plus the port's own: `--device` (default cuda;
+there is no silent fall back to the CPU) and the embedder's
+`--patch_size`, `--use_adapter`, `--ffn_num` and `--adapter_ffn_scalar`
+(the root CLI fixes them at 16, off, 64 and 4.0, its defaults here), so
+the Camelyon16 ViT-S/8 + adapter can serve. Run from the repository root:
 
+  python -m snuffy_tpu_torch.predict_slide --slide tumor_001.tif
   python -m snuffy_tpu_torch.predict_slide --slide tumor_001.tif \
       --embedder DINO --backbone vit_small --feats_size 384 \
       --embedder_weights dino_vits16.pth --aggregator_weights milnet.pth
 
 `--aggregator_weights` takes a reference-format `.pth` (a flax `.msgpack`
 converts with tools/export_torch_checkpoint.py). `--embedder_weights`
-takes a DINO `.pth` (a training checkpoint's teacher, or the
+takes a `.pth` of the family the flags name (a torchvision ResNet-18, an
+MAE encoder, a DINO ViT such as a training checkpoint's teacher, or the
 `embedder.pth` of an extraction), overlaid as the root CLI does: every
 tensor whose name and shape match, with the layer audit printed. Without
 them the weights are seeded. `--prefetch` and `--scaled_decode` steer the
@@ -28,12 +31,16 @@ import json
 
 import torch
 
-from snuffy_tpu_torch.bridge import load_reference_pth, load_vit_weights
+from snuffy_tpu_torch.bridge import load_reference_pth
 from snuffy_tpu_torch.configs import SnuffyModelConfig
 from snuffy_tpu_torch.embed.registry import build_embedder
+from snuffy_tpu_torch.embed.torch_import import load_embedder_weights
 from snuffy_tpu_torch.models.snuffy import build_milnet
 from snuffy_tpu_torch.pipeline.slide_inference import predict_slide
 from snuffy_tpu_torch.tiling.deepzoom import TilerConfig
+
+# The root CLI fixes the ResNet's norm (predict_slide.py:70-77).
+NORM_LAYER = "instance"
 
 
 def get_args_parser():
@@ -82,11 +89,13 @@ def main(argv=None):
         args.embedder, args.backbone, num_classes=args.num_classes,
         patch_size=args.patch_size, use_adapter=bool(args.use_adapter),
         adapter_ffn_num=args.ffn_num,
-        adapter_ffn_scalar=args.adapter_ffn_scalar, compute_dtype=dtype,
-        imagenet_norm=bool(args.transform), device=device,
+        adapter_ffn_scalar=args.adapter_ffn_scalar, norm_layer=NORM_LAYER,
+        compute_dtype=dtype, imagenet_norm=bool(args.transform),
+        device=device,
     )
     if args.embedder_weights:
-        load_vit_weights(embedder.backbone, args.embedder_weights)
+        load_embedder_weights(embedder.backbone, args.embedder_weights,
+                              args.embedder, args.backbone, NORM_LAYER)
 
     cfg = SnuffyModelConfig(
         feats_size=args.feats_size, num_classes=args.num_classes,

@@ -285,3 +285,59 @@ def test_train_flags_are_the_root_flags():
     ours = flags(cli.get_args_parser())
     assert ours.pop("device")[1] == "cuda"
     assert ours == flags(root_cli.get_args_parser())
+
+
+@pytest.mark.parametrize("module", ["models.pos_embed", "utils.tables"])
+def test_verbatim_copies_are_their_originals(module):
+    """`models/pos_embed.py` and `utils/tables.py` import nothing of JAX;
+    the port keeps them byte for byte."""
+    import importlib
+
+    ours = importlib.import_module(f"snuffy_tpu_torch.{module}")
+    theirs = importlib.import_module(f"snuffy_tpu.{module}")
+    with open(ours.__file__, "rb") as a, open(theirs.__file__, "rb") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("dim, grid, cls", [(64, 4, True), (768, 14, True),
+                                            (1024, 14, False), (12, 7, True)])
+def test_sincos_grid_matches(dim, grid, cls):
+    from snuffy_tpu.models import pos_embed as jax_pos_embed
+    from snuffy_tpu_torch.models import pos_embed
+
+    got = pos_embed.sincos_2d(dim, grid, cls)
+    want = jax_pos_embed.sincos_2d(dim, grid, cls)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_layer_audit_tables_match(capsys):
+    from snuffy_tpu.utils import tables as jax_tables
+    from snuffy_tpu_torch.utils import tables
+
+    matched = [f"blocks.{i}.w" for i in range(5)]
+    for mismatched in ([], [f"m{i}" for i in range(3)],
+                       [f"m{i}" for i in range(25)]):
+        assert tables.print_layer_audit(matched, mismatched) == \
+            jax_tables.print_layer_audit(matched, mismatched)
+    assert tables.print_table({"a": 1, "bb": 2.5}) == \
+        jax_tables.print_table({"a": 1, "bb": 2.5})
+    capsys.readouterr()
+
+
+def test_build_embedder_takes_the_jax_arguments_and_defaults():
+    """The JAX `build_embedder`'s parameters, in its order and with its
+    defaults (SimCLR/resnet18, norm_layer), then the port's
+    `imagenet_norm` (the JAX `Embedder.jit_apply`'s argument) and
+    `device`."""
+    import inspect
+
+    from snuffy_tpu.embed import registry as jax_registry
+    from snuffy_tpu_torch.embed import registry
+
+    ours = inspect.signature(registry.build_embedder).parameters
+    theirs = inspect.signature(jax_registry.build_embedder).parameters
+    assert [(p.name, p.default, p.kind) for p in theirs.values()] == \
+        [(p.name, p.default, p.kind) for p in ours.values()][:len(theirs)]
+    assert list(ours)[len(theirs):] == ["imagenet_norm", "device"]
+    assert registry.EMBEDDER_FEAT_DIMS == jax_registry.EMBEDDER_FEAT_DIMS

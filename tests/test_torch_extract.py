@@ -223,8 +223,8 @@ def test_embed_tiles_pads_the_tail_batch():
 def test_compute_feats_cli_end_to_end(tmp_path, monkeypatch):
     """Two runs of the CLI on the CPU at ViT-S/16 + adapter: the second
     loads a changed copy of the first's embedder.pth with --weights, saves
-    exactly it and writes other features; SimCLR raises with its ROADMAP
-    item."""
+    exactly it and writes other features; a third at the defaults runs
+    SimCLR ResNet-18."""
     from snuffy_tpu_torch import compute_feats as cli
 
     monkeypatch.chdir(tmp_path)
@@ -258,8 +258,14 @@ def test_compute_feats_cli_end_to_end(tmp_path, monkeypatch):
         assert h == h2 and [x[-2:] for x in r] == [x[-2:] for x in r2]
         assert not np.allclose(np.array([x[:-2] for x in r], np.float32),
                                np.array([x[:-2] for x in r2], np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--embedder", "SimCLR", "--device", "cpu"])
+    # the default embedder, SimCLR ResNet-18, writes 512-d features
+    rows3 = cli.main(["--batch_size", "3", "--num_workers", "0",
+                      "--compute_dtype", "float32", "--device", "cpu"])
+    header, body = read_csv(rows3[0][0])
+    assert len(rows3) == 4 and header[:2] == ["0", "1"] and \
+        header[512:] == ["label", "position"]
+    assert "layer1.0.conv1.weight" in torch.load(
+        tmp_path / "embeddings" / "camelyon16" / "SimCLR" / "embedder.pth")
 
 
 def test_build_embedder_takes_the_jax_adapter_arguments():
@@ -272,5 +278,10 @@ def test_build_embedder_takes_the_jax_adapter_arguments():
     assert ad.down_proj.weight.shape == (64, 384) and ad.scale == 4.0
     assert build_embedder("DINO", "vit_small", device="cpu"
                           ).backbone.blocks[0].adaptmlp is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_embedder("DINO", "vit_small", img_size=256, device="cpu")
+    # img_size sizes the MAE's grid only: the ViT keeps its 224² grid and
+    # resizes it to the input's (built on the meta device: shapes only)
+    meta = torch.device("meta")
+    with meta:
+        vit = build_embedder("DINO", "vit_small", img_size=256,
+                             device=meta).backbone
+    assert vit.pos_embed.shape == (1, 197, 384)

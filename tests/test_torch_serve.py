@@ -155,7 +155,9 @@ def test_package_imports_with_jax_blocked():
     for new in ("ops.kernels", "ops.dense_attention", "embed.pipeline",
                 "compute_feats", "tools.profile_vit_attention",
                 "eval.metrics", "data.mil_pickle", "utils.logging",
-                "train.runner", "train.cli", "train.__main__"):
+                "train.runner", "train.cli", "train.__main__",
+                "models.resnet", "models.mae", "models.pos_embed",
+                "embed.torch_import", "hubconf", "utils.tables"):
         assert f"snuffy_tpu_torch.{new}" in names.split()
 
 

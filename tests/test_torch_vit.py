@@ -110,15 +110,31 @@ def test_profile_flop_count_matches_torch_flop_counter():
 
 
 def test_other_grid_sizes_raise_instead_of_differing():
-    model = VisionTransformer(**SMALL)
-    with pytest.raises(NotImplementedError, match="bicubic"):
-        model(torch.zeros(1, 64, 64, 3))
+    """Another patch grid neither raises nor differs: the position grid is
+    resized with JAX's bicubic weights (tests/test_torch_pos_interp.py),
+    and a 64² input (4×4 patches, a downscale from 14×14) gives the JAX
+    model's embedding."""
+    jm, params = jax_small("float32")
+    x = tiles(n=2)[:, :64, :64].astype(np.float32) / 255.0
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x), True))
+    with torch.inference_mode():
+        got = torch_small(params, "float32")(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, **TOL["float32"])
 
 
 def test_unported_embedders_name_their_roadmap_item():
-    for name, backbone in (("SimCLR", "resnet18"), ("MAE", "mae_vit_base_patch16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_embedder(name, backbone)
+    """SimCLR and MAE build now; the one embedder left unported is the
+    DINO XCiT hub entry, whose models were never written."""
+    from snuffy_tpu_torch.hubconf import load_dino_xcit
+
+    meta = torch.device("meta")   # shapes only: no weights drawn
+    for name, backbone, dim in (("SimCLR", "resnet18", 512),
+                                ("MAE", "mae_vit_base_patch16", 768)):
+        with meta:
+            emb = build_embedder(name, backbone, device=meta)
+        assert emb.head.in_features == dim
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        load_dino_xcit("dino_xcit_small_12_p16")
 
 
 def test_dino_state_dict_loads_strict_through_prefixes(tmp_path):
