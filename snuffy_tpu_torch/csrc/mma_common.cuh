@@ -2,7 +2,9 @@
 // kernels (dense_attention.cu, sparse_attention_fwd.cu,
 // sparse_attention_bwd.cu), as thin wrappers over PTX for sm_90a:
 //   bf16 packing, also of a float split into two bf16 (hi + lo);
+//   a float split into two tf32 (big + small);
 //   mma.sync m16n8k16 bf16 with ldmatrix (and .trans) operand loads;
+//   mma.sync m16n8k8 tf32;
 //   cp.async 16- and 4-byte copies with commit/wait groups;
 //   mbarrier init / arrive / expect_tx / parity wait;
 //   TMA 3-D tile loads (cp.async.bulk.tensor) completing on an mbarrier;
@@ -42,6 +44,18 @@ __device__ __forceinline__ void pack_bf16_split(float a, float b, uint32_t& hi, 
   lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
+// x as two tf32 operands of mma.sync, big + small: big = tf32(x) rounded
+// to nearest with ties away from zero (what cvt.rna.tf32.f32 gives, in two
+// integer instructions: half of the 13 dropped bits' range added to the
+// magnitude bits, then those bits cleared), and small = x - big, exact in
+// f32 (|small| <= 2^-11 |x|), whose low 13 bits the tensor cores do not
+// read: they take it to within 2^-10 of itself, so big + small is x
+// within 2^-21 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
 // 2^x on the special-function unit (relative error ~2^-22; ex2(-inf) = 0).
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -68,6 +82,19 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16 x 8, row) . b (8 x 8, col), tf32 in, f32 sums. Fragments (g
+// = lane / 4, t = lane % 4): a[0..3] at (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4); b0 at (t, g), b1 at (t + 4, g); d as m16n8k16's. Not
+// volatile: a function of its registers alone, so the compiler may
+// interleave independent products and the work around them.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

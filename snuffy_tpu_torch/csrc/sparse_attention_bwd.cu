@@ -41,7 +41,8 @@
 //     only).
 // Per (row, slot, dim) pass A runs q.k^T and p~ g, then q.k^T, v.g^T and
 // ds k; pass B k.q^T, g.v^T and ds^T q: 8 products against the TPU
-// kernel's 5. Two bodies:
+// kernel's 5. Three bodies, by dtype and dk (and 16-byte aligned bases,
+// which the tensor-core bodies' cp.async needs):
 //   bf16, dk <= 128, dk % 8 == 0: 4 warps of 16 rows (pass A) or 16 slots
 //     (pass B), every product on the tensor cores (mma.sync m16n8k16, bf16
 //     in, f32 sums), tiles double-buffered by 16-byte cp.async and read by
@@ -56,8 +57,24 @@
 //     moves dv, dq and dk by 1.5e-3-2.8e-3 of their largest value and
 //     flips outputs near 2^-8 of it by up to 73 bf16 ulps; hi + lo keeps
 //     them within 4.4e-6, one ulp after the cast.
-//   f32, or other dk: 256 threads, every product on CUDA cores in f32 (8
-//     multiply-adds per (row, slot, dim)); pass B split over N as above.
+//   f32, dk <= 128, dk % 4 == 0 (the training CLI's dtype): the bf16
+//     body's passes and steps on f32 tiles, 8 warps a block (4 groups of
+//     16 rows or slots, each taking half of every chunk's or tile's
+//     16-wide steps, their sums merged in shared memory), every product on
+//     the tensor
+//     cores as 3xTF32 (sparse_attention_fwd.cu says how, and why this
+//     split: emulated at the CLI's widths it keeps dq, dk and dv within
+//     1.1e-6-1.8e-6 of max |plain|). p~ and ds are f32 already and are
+//     split like any other operand; their C fragments become A fragments
+//     with the summed index relabelled (mma_c_rows_f32). A 64-row tile
+//     whose rows all have scale 0 issues no products: pass A writes its
+//     zero dq, dv and D, pass B neither loads nor multiplies it. ptxas
+//     (-v, sm_90a): row_grad_tf32_kernel 173 / 167 / 211 / 243 registers
+//     at DKP 32 / 64 / 96 / 128, slot_grad_tf32_kernel 162 / 166 / 198 /
+//     230; no spills.
+//   f32 or bf16 otherwise (musk1's dk=83, dk > 128): 256 threads, every
+//     product on CUDA cores in f32 (8 multiply-adds per (row, slot, dim));
+//     pass B split over N as above.
 // The ragged edges of N, S and dk are masked here, nothing is padded.
 
 #include <cuda_bf16.h>
@@ -451,11 +468,12 @@ row_grad_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint32_t qf[DKP / 16][4];
   load_frags<DKP>(qf, qs, warp, lane);
 
-  float acc[DKP / 8][4];
+  // acc: the sum over the chunks; part: one chunk's
+  float acc[DKP / 8][4], part[DKP / 8][4];
 #pragma unroll
   for (int j = 0; j < DKP / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+    for (int e = 0; e < 4; ++e) acc[j][e] = part[j][e] = 0.0f;
 
   // Sweep 1: dv = p~ g, 16 slots a step.
   for (int c = 0; c < chunks; ++c) {
@@ -653,11 +671,12 @@ slot_grad_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     live[h] = slot[h] < s && slot_valid[(size_t)seg * s + slot[h]];
   }
 
-  float acc[DKP / 8][4];
+  // acc: the sum over the tiles; part: one tile's
+  float acc[DKP / 8][4], part[DKP / 8][4];
 #pragma unroll
   for (int j = 0; j < DKP / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+    for (int e = 0; e < 4; ++e) acc[j][e] = part[j][e] = 0.0f;
 
   for (int it = 0; it < tiles; ++it) {
     const int b = it & 1;
@@ -716,6 +735,397 @@ slot_grad_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---- The f32 tensor-core body: f32, dk <= 128, dk % 4 == 0. ----
+//
+// The bf16 body's passes and steps on the f32 tiles of
+// sparse_attention_common.cuh, every product as 3xTF32, 8 warps a block:
+// operands are split into big + small tf32 parts as they leave shared
+// memory, and p~ and ds, f32 in the C fragments, enter the next product as
+// A fragments (mma_c_rows_f32), the slot (or row) index relabelled. A
+// 64-row tile whose rows all have scale 0 (a padded chunk's dummy bag, a
+// bag's padding) issues no products: pass A writes its zeros, pass B
+// neither loads nor multiplies it.
+
+// Pass A. Grid (ceil(N / 64), heads * segments). Warp w takes rows 16 (w &
+// 3) .. + 15 of the block's q and v tiles and, of each chunk of 64 slots
+// (k, g and the slot codes in two cp.async buffers), the 16-slot steps
+// 2 (w >> 2) and 2 (w >> 2) + 1. The halves' dv meet before D = v . dv,
+// their dq at the end.
+template <int DKP>
+__global__ void __launch_bounds__(kF32Threads, 1)
+row_grad_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ g,
+                     const uint8_t* __restrict__ slot_valid,
+                     const float* __restrict__ row_max, const float* __restrict__ row_scale,
+                     float* __restrict__ dq, float* __restrict__ dv, float* __restrict__ delta,
+                     int segments, int n, int s, int dk, float scale, uint32_t seed,
+                     float rate, float inv_keep) {
+  extern __shared__ uint4 smem_tc[];
+  constexpr int kS = tf_stride<DKP>();
+  constexpr int kTile = kRows * kS;  // floats of a tile
+  float* qs = reinterpret_cast<float*>(smem_tc);
+  float* vs = qs + kTile;
+  float* ks = vs + kTile;      // two buffers
+  float* gs = ks + 2 * kTile;  // two buffers
+  float* code = gs + 2 * kTile;  // 2 x 64
+  float* dls = code + 2 * kSlots;  // D of the block's 64 rows
+
+  const int hh = blockIdx.y;
+  const int seg = hh % segments;
+  const int r0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int row0 = 16 * (warp & 3);  // the warp's rows in the tile
+  const int half = warp >> 2;        // its 16-slot steps: 2 half, 2 half + 1
+  const size_t rbase = (size_t)hh * n;
+  const float* kh = k + (size_t)hh * s * dk;
+  const float* gh = g + (size_t)hh * s * dk;
+  const uint8_t* sv = slot_valid + (size_t)seg * s;
+  const int chunks = (s + kSlots - 1) / kSlots;
+
+  // the thread's rows r0 + row0 + g + 8h; past n they are dead (scale 0)
+  int row[2];
+  float rm[2], rs[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = r0 + row0 + (lane >> 2) + 8 * h;
+    rm[h] = row[h] < n ? row_max[rbase + row[h]] : 0.0f;
+    rs[h] = row[h] < n ? row_scale[rbase + row[h]] : 0.0f;
+  }
+
+  // A tile with no live row: dq, dv and D are 0.
+  if (!__syncthreads_or(rs[0] != 0.0f || rs[1] != 0.0f)) {
+    if (half == 1) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (row[h] >= n) continue;
+      const size_t base = (rbase + row[h]) * dk;
+      for (int d = 4 * t; d < dk; d += 16) {
+        *reinterpret_cast<float4*>(dq + base + d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        *reinterpret_cast<float4*>(dv + base + d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+      if (t == 0) delta[rbase + row[h]] = 0.0f;
+    }
+    return;
+  }
+
+  // Chunk c of k and g into buffer b (one commit group), and its slot
+  // codes: 1 live, 0 dead (scored -1e30), -1 past S.
+  auto prefetch = [&](int c, int b) {
+    tile_async_f32<DKP>(ks + b * kTile, kh, c * kSlots, s, dk);
+    tile_async_f32<DKP>(gs + b * kTile, gh, c * kSlots, s, dk);
+    cp_async_commit();
+    if (threadIdx.x < kSlots) {
+      const int j = c * kSlots + threadIdx.x;
+      code[b * kSlots + threadIdx.x] = j < s ? (sv[j] ? 1.0f : 0.0f) : -1.0f;
+    }
+  };
+
+  tile_async_f32<DKP>(qs, q + rbase * dk, r0, n, dk);
+  tile_async_f32<DKP>(vs, v + rbase * dk, r0, n, dk);
+  prefetch(0, 0);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // acc: the sum over the chunks; part: one chunk's
+  float acc[DKP / 8][4], part[DKP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DKP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = part[j][e] = 0.0f;
+
+  // Sweep 1: dv = p~ g, 16 slots a step.
+  for (int c = 0; c < chunks; ++c) {
+    const int b = c & 1;
+    if (c + 1 < chunks) prefetch(c + 1, b ^ 1);
+    const float* kb = ks + b * kTile;
+    const float* gb = gs + b * kTile;
+    const float* cb = code + b * kSlots;
+#pragma unroll 1
+    for (int jp = 2 * half; jp < 2 * half + 2; ++jp) {
+      float sc[2][4];
+      mma_rows_f32<DKP, 2>(sc, qs, row0, kb, 16 * jp, lane);
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int j = 16 * jp + 8 * jn + 2 * t + (e & 1);
+          const float cd = cb[j];
+          float p = 0.0f;
+          if (cd >= 0.0f) {
+            p = __expf((cd > 0.0f ? sc[jn][e] * scale : kNegBig) - rm[h]) * rs[h];
+            if (rate > 0.0f)
+              p *= keep_factor(seed, (uint32_t)hh, (uint32_t)row[h],
+                               (uint32_t)(c * kSlots + j), rate, inv_keep);
+          }
+          sc[jn][e] = p;
+        }
+      mma_c_rows_f32<DKP>(part, sc[0], gb + 16 * jp * kS, lane);
+      mma_c_rows_f32<DKP>(part, sc[1], gb + (16 * jp + 8) * kS, lane);
+    }
+    add_part<DKP>(acc, part);
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // Sweep 2 loads its first chunk into buffer 0 while the halves' dv meet
+  // in buffer 1 and D = v . dv is formed from the f32 sums; dv and D are
+  // written.
+  prefetch(0, 0);
+  merge_halves<DKP>(acc, ks + kTile, warp, lane);
+  if (half == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* vrow = vs + (row0 + (lane >> 2) + 8 * h) * kS + 2 * t;
+      float dl = 0.0f;
+#pragma unroll
+      for (int jn = 0; jn < DKP / 8; ++jn) {
+        const float2 vv = *reinterpret_cast<const float2*>(vrow + 8 * jn);
+        dl = fmaf(vv.x, acc[jn][2 * h], fmaf(vv.y, acc[jn][2 * h + 1], dl));
+      }
+      dl += __shfl_xor_sync(0xffffffffu, dl, 1);
+      dl += __shfl_xor_sync(0xffffffffu, dl, 2);
+      if (t == 0) dls[row0 + (lane >> 2) + 8 * h] = dl;
+      if (row[h] < n) {
+        const size_t base = (rbase + row[h]) * dk;
+#pragma unroll
+        for (int jn = 0; jn < DKP / 8; ++jn) {
+          const int d = 8 * jn + 2 * t;
+          if (d < dk)
+            *reinterpret_cast<float2*>(dv + base + d) =
+                make_float2(acc[jn][2 * h], acc[jn][2 * h + 1]);
+        }
+        if (t == 0) delta[rbase + row[h]] = dl;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < DKP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  cp_async_wait<0>();
+  __syncthreads();
+  float dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) dl[h] = dls[row0 + (lane >> 2) + 8 * h];
+
+  // Sweep 2: ds, then dq = scale * ds k.
+  for (int c = 0; c < chunks; ++c) {
+    const int b = c & 1;
+    if (c + 1 < chunks) prefetch(c + 1, b ^ 1);
+    const float* kb = ks + b * kTile;
+    const float* gb = gs + b * kTile;
+    const float* cb = code + b * kSlots;
+#pragma unroll 1
+    for (int jp = 2 * half; jp < 2 * half + 2; ++jp) {
+      float sc[2][4], vg[2][4];
+      mma_rows_f32<DKP, 2>(sc, qs, row0, kb, 16 * jp, lane);
+      mma_rows_f32<DKP, 2>(vg, vs, row0, gb, 16 * jp, lane);
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int j = 16 * jp + 8 * jn + 2 * t + (e & 1);
+          float ds = 0.0f;
+          if (cb[j] > 0.0f) {  // ds is 0 at dead slots and past S
+            const float sigma = __expf(sc[jn][e] * scale - rm[h]) * rs[h];
+            const float f = rate > 0.0f ? keep_factor(seed, (uint32_t)hh, (uint32_t)row[h],
+                                                      (uint32_t)(c * kSlots + j), rate, inv_keep)
+                                        : 1.0f;
+            ds = sigma * (vg[jn][e] * f - dl[h]);
+          }
+          sc[jn][e] = ds;
+        }
+      mma_c_rows_f32<DKP>(part, sc[0], kb + 16 * jp * kS, lane);
+      mma_c_rows_f32<DKP>(part, sc[1], kb + (16 * jp + 8) * kS, lane);
+    }
+    add_part<DKP>(acc, part);
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  merge_halves<DKP>(acc, ks, warp, lane);
+  if (half == 1) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= n) continue;
+    const size_t base = (rbase + row[h]) * dk;
+#pragma unroll
+    for (int jn = 0; jn < DKP / 8; ++jn) {
+      const int d = 8 * jn + 2 * t;
+      if (d < dk)
+        *reinterpret_cast<float2*>(dq + base + d) =
+            make_float2(scale * acc[jn][2 * h], scale * acc[jn][2 * h + 1]);
+    }
+  }
+}
+
+// Pass B. Grid (ceil(S / 64), heads * segments, splits): rows
+// [split * rows_per_split, ...) of N. Warp w takes slots 16 (w & 3) .. +
+// 15 of the block's k and g tiles and, of each 64-row tile (q, v, the row
+// stats and D in two cp.async buffers), the 16-row steps 2 (w >> 2) and
+// 2 (w >> 2) + 1: s^T = k q^T and g v^T give ds^T in the C fragments, and
+// dk^T += ds^T q (mma_c_rows_f32); the halves' sums merge at the end.
+// Whether the next tile has a live row is read from row_scale between the
+// two steps; a tile with none is neither loaded nor multiplied. One split
+// writes dk; several write f32 partials for dk_reduce_kernel.
+template <int DKP>
+__global__ void __launch_bounds__(kF32Threads, 1)
+slot_grad_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ g,
+                      const uint8_t* __restrict__ slot_valid,
+                      const float* __restrict__ row_max, const float* __restrict__ row_scale,
+                      const float* __restrict__ delta, float* __restrict__ dk_out,
+                      float* __restrict__ partial, int segments, int n, int s, int dk,
+                      int rows_per_split, float scale, uint32_t seed, float rate,
+                      float inv_keep) {
+  extern __shared__ uint4 smem_tc[];
+  constexpr int kS = tf_stride<DKP>();
+  constexpr int kTile = kRows * kS;  // floats of a tile
+  float* ks = reinterpret_cast<float*>(smem_tc);
+  float* gs = ks + kTile;
+  float* qs = gs + kTile;      // two buffers
+  float* vs = qs + 2 * kTile;  // two buffers
+  float* stats = vs + 2 * kTile;  // 2 x (max, scale, D) x 64
+
+  const int hh = blockIdx.y;
+  const int seg = hh % segments;
+  const int c0 = blockIdx.x * kSlots;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int slot0 = 16 * (warp & 3);  // the warp's slots in the block
+  const int half = warp >> 2;         // its 16-row steps: 2 half, 2 half + 1
+  const int row_begin = blockIdx.z * rows_per_split;
+  const int row_end = min(n, row_begin + rows_per_split);
+  const int tiles = (row_end - row_begin + kRows - 1) / kRows;
+  const float* qh = q + (size_t)hh * n * dk;
+  const float* vh = v + (size_t)hh * n * dk;
+  const float* rmh = row_max + (size_t)hh * n;
+  const float* rsh = row_scale + (size_t)hh * n;
+  const float* dlh = delta + (size_t)hh * n;
+
+  // Rows [r0, r0 + 64) of q, v, the row stats and D into buffer b; rows at
+  // or past row_end are zeros (scale 0, so their ds is 0).
+  auto prefetch = [&](int r0, int b) {
+    tile_async_f32<DKP>(qs + b * kTile, qh, r0, row_end, dk);
+    tile_async_f32<DKP>(vs + b * kTile, vh, r0, row_end, dk);
+    if (threadIdx.x < 3 * kRows) {
+      const int idx = threadIdx.x;
+      const int i = idx % kRows;
+      const bool live = r0 + i < row_end;
+      const float* src = idx < kRows ? rmh : (idx < 2 * kRows ? rsh : dlh);
+      cp_async4(stats + b * 3 * kRows + idx, live ? src + r0 + i : src, live ? 4 : 0);
+    }
+  };
+  // the scale of row r0 + threadIdx.x (0 for threads past 64 and rows past row_end)
+  auto scale_of = [&](int r0) {
+    return threadIdx.x < kRows && r0 + (int)threadIdx.x < row_end ? rsh[r0 + threadIdx.x] : 0.0f;
+  };
+
+  tile_async_f32<DKP>(ks, k + (size_t)hh * s * dk, c0, s, dk);
+  tile_async_f32<DKP>(gs, g + (size_t)hh * s * dk, c0, s, dk);
+  bool live_tile = tiles > 0 && __syncthreads_or(scale_of(row_begin) != 0.0f);
+  if (live_tile) prefetch(row_begin, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // slots c0 + slot0 + g + 8h: ds is 0 unless live
+  int slot[2];
+  bool live[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    slot[h] = c0 + slot0 + (lane >> 2) + 8 * h;
+    live[h] = slot[h] < s && slot_valid[(size_t)seg * s + slot[h]];
+  }
+
+  // acc: the sum over the tiles; part: one tile's
+  float acc[DKP / 8][4], part[DKP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DKP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = part[j][e] = 0.0f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int b = it & 1;
+    const int r0 = row_begin + it * kRows;
+    const float next_scale = it + 1 < tiles ? scale_of(r0 + kRows) : 0.0f;
+    const float* qb = qs + b * kTile;
+    const float* vb = vs + b * kTile;
+    const float* rm = stats + b * 3 * kRows;
+    const float* rs = rm + kRows;
+    const float* dl = rs + kRows;
+    // rows 16jp .. 16jp + 15 of the tile
+    auto step = [&](int jp) {
+      // sc[jn][e], vg[jn][e]: slot g + 8 (e >> 1), row 16jp + 8jn + 2t + (e & 1)
+      float sc[2][4], vg[2][4];
+      mma_rows_f32<DKP, 2>(sc, ks, slot0, qb, 16 * jp, lane);
+      mma_rows_f32<DKP, 2>(vg, gs, slot0, vb, 16 * jp, lane);
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int i = 16 * jp + 8 * jn + 2 * t + (e & 1);
+          float ds = 0.0f;
+          if (live[h]) {
+            const float sigma = __expf(sc[jn][e] * scale - rm[i]) * rs[i];
+            const float f = rate > 0.0f ? keep_factor(seed, (uint32_t)hh, (uint32_t)(r0 + i),
+                                                      (uint32_t)slot[h], rate, inv_keep)
+                                        : 1.0f;
+            ds = sigma * (vg[jn][e] * f - dl[i]);
+          }
+          sc[jn][e] = ds;
+        }
+      mma_c_rows_f32<DKP>(part, sc[0], qb + 16 * jp * kS, lane);
+      mma_c_rows_f32<DKP>(part, sc[1], qb + (16 * jp + 8) * kS, lane);
+    };
+    if (live_tile) step(2 * half);
+    // the other buffer was released by the last iteration's barrier
+    const bool live_next = __syncthreads_or(next_scale != 0.0f);
+    if (live_next) prefetch(r0 + kRows, b ^ 1);
+    cp_async_commit();
+    if (live_tile) {
+      step(2 * half + 1);
+      add_part<DKP>(acc, part);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    live_tile = live_next;
+  }
+  merge_halves<DKP>(acc, qs, warp, lane);
+  if (half == 1) return;
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (slot[h] >= s) continue;
+    const size_t row = (size_t)hh * s + slot[h];
+#pragma unroll
+    for (int jn = 0; jn < DKP / 8; ++jn) {
+      const int d = 8 * jn + 2 * t;
+      if (d >= dk) continue;
+      float* dst = partial != nullptr
+                       ? partial + ((size_t)blockIdx.z * gridDim.y * s + row) * dk + d
+                       : dk_out + row * dk + d;
+      *reinterpret_cast<float2*>(dst) =
+          make_float2(scale * acc[jn][2 * h], scale * acc[jn][2 * h + 1]);
+    }
+  }
+}
+
+template <int DKP>
+constexpr size_t smem_tf32_rows() {
+  return (size_t)6 * tf_tile_bytes<DKP>() + 3 * kSlots * sizeof(float);
+}
+template <int DKP>
+constexpr size_t smem_tf32_slots() {
+  return (size_t)6 * tf_tile_bytes<DKP>() + 2 * 3 * kRows * sizeof(float);
+}
+
 template <int DKP>
 constexpr size_t smem_tc_rows() {
   return (size_t)6 * tc_tile_bytes<DKP>() + 2 * kSlots * sizeof(float);
@@ -746,10 +1156,11 @@ struct BwdArgs {
   dim3 grid_rows() const { return dim3((n + kRows - 1) / kRows, heads * segments); }
   dim3 grid_slots() const { return dim3((s + kSlots - 1) / kSlots, heads * segments, splits); }
   float* part() const { return splits > 1 ? static_cast<float*>(partial) : nullptr; }
-  // the tensor-core body's 16-byte copies: whole 16-byte chunks a row and
-  // 16-byte aligned bases
+  // the tensor-core bodies' 16-byte copies: whole 16-byte chunks a row
+  // (dk % 8 == 0 in bf16, dk % 4 == 0 in f32) and 16-byte aligned bases
+  template <typename T>
   bool aligned16() const {
-    return dk_dim % 8 == 0 &&
+    return dk_dim % (16 / sizeof(T)) == 0 &&
            (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
             reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g) |
             reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
@@ -829,9 +1240,44 @@ cudaError_t launch_tc(const BwdArgs& a) {
   return launch_reduce<bf16>(a);
 }
 
+// The f32 tensor-core body, dk <= DKP.
+template <int DKP>
+cudaError_t launch_tf32(const BwdArgs& a) {
+  static std::atomic<uint64_t> ready_rows{0}, ready_slots{0};
+  cudaError_t err = allow_smem(row_grad_tf32_kernel<DKP>, smem_tf32_rows<DKP>(), ready_rows);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(slot_grad_tf32_kernel<DKP>, smem_tf32_slots<DKP>(), ready_slots);
+  if (err != cudaSuccess) return err;
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* g = static_cast<const float*>(a.g);
+  const uint8_t* sv = static_cast<const uint8_t*>(a.slot_valid);
+  const float* rm = static_cast<const float*>(a.row_max);
+  const float* rs = static_cast<const float*>(a.row_scale);
+  float* delta = static_cast<float*>(a.delta);
+  row_grad_tf32_kernel<DKP><<<a.grid_rows(), kF32Threads, smem_tf32_rows<DKP>(), a.stream>>>(
+      q, k, v, g, sv, rm, rs, static_cast<float*>(a.dq), static_cast<float*>(a.dv), delta,
+      a.segments, a.n, a.s, a.dk_dim, a.scale, a.seed, a.rate, a.inv_keep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  slot_grad_tf32_kernel<DKP><<<a.grid_slots(), kF32Threads, smem_tf32_slots<DKP>(), a.stream>>>(
+      q, k, v, g, sv, rm, rs, delta, static_cast<float*>(a.dk), a.part(), a.segments, a.n,
+      a.s, a.dk_dim, a.rows_per_split(), a.scale, a.seed, a.rate, a.inv_keep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce<float>(a);
+}
+
 template <typename T>
 cudaError_t launch_dtype(const BwdArgs& a) {
-  if (sizeof(T) == 2 && a.dk_dim <= 128 && a.aligned16()) {
+  if (a.dk_dim <= 128 && a.aligned16<T>()) {
+    if (sizeof(T) == 4) {
+      if (a.dk_dim <= 32) return launch_tf32<32>(a);
+      if (a.dk_dim <= 64) return launch_tf32<64>(a);
+      if (a.dk_dim <= 96) return launch_tf32<96>(a);
+      return launch_tf32<128>(a);
+    }
     if (a.dk_dim <= 32) return launch_tc<32>(a);
     if (a.dk_dim <= 64) return launch_tc<64>(a);
     if (a.dk_dim <= 96) return launch_tc<96>(a);

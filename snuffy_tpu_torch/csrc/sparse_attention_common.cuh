@@ -2,8 +2,8 @@
 // (sparse_attention_fwd.cu, sparse_attention_bwd.cu): the tile shape, the
 // dropout hash of the TPU kernel, tile loads, the 64 x 64 score tile, the
 // sum of N splits, and the tensor-core tiles and products of their bf16
-// bodies. dense_attention.cu takes the block size, the type conversions
-// and the 16-lane reductions from here.
+// and f32 bodies. dense_attention.cu takes the block size, the type
+// conversions and the 16-lane reductions from here.
 
 #pragma once
 
@@ -209,6 +209,178 @@ __device__ __forceinline__ void mma_split_rows(float (&acc)[DKP / 8][4], const u
     mma_bf16(acc[2 * jj], lo, bx[0], bx[1]);
     mma_bf16(acc[2 * jj + 1], lo, bx[2], bx[3]);
   }
+}
+
+// ---- Tensor-core tiles: f32, dk <= 128, dk % 4 == 0. ----
+//
+// mma.sync m16n8k8 (tf32 in, f32 sums), every product as 3xTF32: each
+// f32 operand is split into big + small tf32 parts as it leaves shared
+// memory (split_tf32), and a . b is formed as big.small + small.big +
+// big.big, small.small (2^-22 of the product) left out. The tensor cores'
+// f32 sums do not round to nearest: chained over a whole split of N they
+// drifted by up to 7.5e-5 of max |out| on the card. So no sum is chained
+// for long: a score sums 16 dims at a time in fresh registers, a sum over
+// N or S one 64-row tile (or one 64-slot chunk) at a time, and each part
+// is added to its total with an f32 add. A tile is 64 rows of DKP floats
+// (dk padded with zeros to a multiple of 32) at a row stride of DKP + 4,
+// filled by 16-byte cp.async (zero-filled past the rows or dk). The stride
+// is 4 words past a multiple of 32 banks, so ldmatrix's 8 rows of 16 bytes
+// and the loads of mma_c_rows_f32 (rows 2t, 2t + 1, column g) are free of
+// bank conflicts. ldmatrix is a 16-bit instruction; on f32 it hands lane
+// (g, t) the float at row g, column t of an 8 x 4 block, which is where
+// the tf32 A and B fragments want it.
+
+// 8 warps a block: 4 groups of 16 rows (or slots), each split in two
+// halves over the other axis of the products; the halves' sums meet once,
+// in shared memory, at the end.
+constexpr int kF32Threads = 256;
+
+template <int DKP>
+__host__ __device__ constexpr int tf_stride() {
+  return DKP + 4;
+}
+template <int DKP>
+__host__ __device__ constexpr int tf_tile_bytes() {
+  return kRows * tf_stride<DKP>() * 4;
+}
+
+// Starts the copy of rows [r0, r0 + 64) of a (rows, dk) f32 matrix into a
+// tile: zeros past `rows` and past dk.
+template <int DKP>
+__device__ __forceinline__ void tile_async_f32(float* dst, const float* __restrict__ src, int r0,
+                                               int rows, int dk) {
+  constexpr int kChunks = DKP / 4;
+  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kF32Threads) {
+    const int r = idx / kChunks;
+    const int d = (idx - r * kChunks) * 4;
+    const bool live = r0 + r < rows && d < dk;
+    cp_async16(dst + r * tf_stride<DKP>() + d, live ? src + (size_t)(r0 + r) * dk + d : src,
+               live ? 16 : 0);
+  }
+}
+
+// The four registers of an ldmatrix.x4, split into big and small parts.
+__device__ __forceinline__ void ldsm_x4_split(uint32_t (&big)[4], uint32_t (&small)[4],
+                                              const float* p) {
+  uint32_t r[4];
+  ldsm_x4(r, p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(r[i]), big[i], small[i]);
+}
+
+// c = a . b^T over DKP for rows a0 .. a0 + 15 of the tile a and rows b0 ..
+// b0 + 8 NB - 1 of the tile b: c[j][e] pairs row g + 8 (e >> 1) of a with
+// row b0 + 8j + 2t + (e & 1) of b. Per 8 dims, A and B are loaded and
+// split first, then each term runs over the NB products in turn; every 16
+// dims are summed in fresh registers and added to c.
+template <int DKP, int NB>
+__device__ __forceinline__ void mma_rows_f32(float (&c)[NB][4], const float* as, int a0,
+                                             const float* bs, int b0, int lane) {
+  constexpr int kS = tf_stride<DKP>();
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.0f;
+  const float* ap = as + (a0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kS + (lane >> 4) * 4;
+  const float* bp = bs + (b0 + (lane & 7) + (lane >> 4) * 8) * kS + ((lane >> 3) & 1) * 4;
+#pragma unroll 2
+  for (int k2 = 0; k2 < DKP / 16; ++k2) {
+    float d[NB][4] = {};
+#pragma unroll
+    for (int kk = 2 * k2; kk < 2 * k2 + 2; ++kk) {
+      // a: rows a0 + {0-7, 8-15, 0-7, 8-15} x dims 8kk + {0-3, 0-3, 4-7, 4-7}
+      uint32_t ab[4], as_[4];
+      ldsm_x4_split(ab, as_, ap + 8 * kk);
+      // b, two blocks of 8 rows an ldmatrix: rows b0 + 16jp + {0-7, 0-7,
+      // 8-15, 8-15} x dims 8kk + {0-3, 4-7, 0-3, 4-7}
+      uint32_t bb[NB / 2][4], bs_[NB / 2][4];
+#pragma unroll
+      for (int jp = 0; jp < NB / 2; ++jp) ldsm_x4_split(bb[jp], bs_[jp], bp + 16 * jp * kS + 8 * kk);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        mma_tf32(d[j], ab, bs_[j >> 1][2 * (j & 1)], bs_[j >> 1][2 * (j & 1) + 1]);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        mma_tf32(d[j], as_, bb[j >> 1][2 * (j & 1)], bb[j >> 1][2 * (j & 1) + 1]);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        mma_tf32(d[j], ab, bb[j >> 1][2 * (j & 1)], bb[j >> 1][2 * (j & 1) + 1]);
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[j][e] += d[j][e];
+  }
+}
+
+// part (16 rows x DKP, C fragments) += c . x, where c is the C fragment of
+// a 16 x 8 tile whose 8 columns are the summed index and x points at the 8
+// matching rows of a tile. The C fragment holds columns 2t and 2t + 1;
+// they are taken as the A fragment's k = t and t + 4, and x's rows 2t and
+// 2t + 1 as B's rows t and t + 4. The sum runs over the same 8 pairs in
+// another order, with no shuffle. `part` is a tile's (or a chunk's) part
+// of a long sum: the caller adds it to the total (add_part).
+template <int DKP>
+__device__ __forceinline__ void mma_c_rows_f32(float (&part)[DKP / 8][4], const float (&c)[4],
+                                               const float* x, int lane) {
+  constexpr int kS = tf_stride<DKP>();
+  uint32_t ab[4], as_[4];
+  split_tf32(c[0], ab[0], as_[0]);  // (g, k = t)         <- (g, 2t)
+  split_tf32(c[2], ab[1], as_[1]);  // (g + 8, k = t)     <- (g + 8, 2t)
+  split_tf32(c[1], ab[2], as_[2]);  // (g, k = t + 4)     <- (g, 2t + 1)
+  split_tf32(c[3], ab[3], as_[3]);  // (g + 8, k = t + 4) <- (g + 8, 2t + 1)
+  const float* x0 = x + 2 * (lane & 3) * kS + (lane >> 2);
+#pragma unroll
+  for (int j4 = 0; j4 < DKP / 32; ++j4) {
+    // B (t, g) is row 2t, dim 8jn + g; B (t + 4, g) row 2t + 1
+    uint32_t bb[4][2], bs_[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      split_tf32(x0[8 * (4 * j4 + i)], bb[i][0], bs_[i][0]);
+      split_tf32(x0[kS + 8 * (4 * j4 + i)], bb[i][1], bs_[i][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mma_tf32(part[4 * j4 + i], ab, bs_[i][0], bs_[i][1]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mma_tf32(part[4 * j4 + i], as_, bb[i][0], bb[i][1]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mma_tf32(part[4 * j4 + i], ab, bb[i][0], bb[i][1]);
+  }
+}
+
+// acc += part, and part = 0 for the next one.
+template <int DKP>
+__device__ __forceinline__ void add_part(float (&acc)[DKP / 8][4], float (&part)[DKP / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < DKP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[j][e] += part[j][e];
+      part[j][e] = 0.0f;
+    }
+}
+
+// The two halves' sums of a 16 x DKP C-fragment accumulator meet: warps
+// 4-7 leave theirs in `scratch` (64 DKP floats), warps 0-3 add them to
+// their own. Ends with a barrier; only warps 0-3 then hold the sum.
+template <int DKP>
+__device__ __forceinline__ void merge_halves(float (&acc)[DKP / 8][4], float* scratch,
+                                             int warp, int lane) {
+  float* mine = scratch + (warp & 3) * (DKP / 8) * 4 * 32 + lane;
+  if (warp >= 4) {
+#pragma unroll
+    for (int j = 0; j < DKP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[(4 * j + e) * 32] = acc[j][e];
+  }
+  __syncthreads();
+  if (warp < 4) {
+#pragma unroll
+    for (int j = 0; j < DKP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += mine[(4 * j + e) * 32];
+  }
+  __syncthreads();
 }
 
 }  // namespace snuffy

@@ -34,7 +34,9 @@
 //   split reduce: sums the partials in split order and casts (several
 //     splits only).
 // Both passes compute q.k^T (and the bf16 body p^T v twice, below), so
-// the FLOPs are 1.5x (2x) the TPU kernel's. Two bodies:
+// the FLOPs are 1.5x (2x) the TPU kernel's. Three bodies, by dtype and dk
+// (and 16-byte aligned bases, which the tensor-core bodies' cp.async
+// needs):
 //   bf16, dk <= 128, dk % 8 == 0: 4 warps, 16 rows (pass 1) or 16 slots
 //     (pass 2) each, every product on the tensor cores (mma.sync m16n8k16,
 //     bf16 in, f32 sums), tiles double-buffered by 16-byte cp.async and
@@ -46,9 +48,35 @@
 //     plain version: p rounded once to bf16 (as the TPU's MXU takes it at
 //     JAX's default precision) moved out by ~2^-9 of max |out| before its
 //     rounding to bf16, enough for two-ulp flips near the 2^-7 tolerance.
-//   f32, or other dk: 256 threads, every product on CUDA cores in f32;
-//     pass 1 loads its tiles 16 bytes at a time where dk allows (in pass
-//     2 that pushed ptxas past 128 registers into spills).
+//   f32, dk <= 128, dk % 4 == 0 (the training CLI's dtype): the bf16
+//     body's passes on f32 tiles, 8 warps a block (4 groups of 16 rows or
+//     slots, each split in two halves over the other axis, their sums
+//     merged once at the end), every product on the tensor cores as
+//     3xTF32: each f32 operand split as it leaves shared memory into big
+//     = tf32(x) (to nearest, as cvt.rna) and small = x - big, of which the
+//     tensor cores read the leading 11 bits (split_tf32), and a . b as
+//     big.small + small.big + big.big, three mma.sync m16n8k8 (tf32 in,
+//     f32 sums), about 2^-20 of |a b|, at 495 / 3 = 165 TFLOP/s of f32
+//     work. The C fragment of p^T holds columns (2t, 2t + 1) where the
+//     tf32 A fragment wants (t, t + 4): the summed row index is relabelled
+//     instead, and v's rows are loaded in the same order (mma_c_rows_f32).
+//     The split was chosen by emulating it on the CPU at the training CLI's
+//     widths (h=4, dk=96, S=500 and 1000, segments 1 and 4, rates 0 and 0.1;
+//     tests/test_torch_sparse_attention.py): 3xTF32 keeps out, dq, dk and
+//     dv within 1.1e-6-1.8e-6 of max |plain|, 50x inside the f32 tolerance
+//     of 1e-4; one TF32 product moves them by 4.6e-4-8.6e-4, past it; hi +
+//     lo bf16 parts in three products (twice the tensor rate) by
+//     5.2e-6-1.6e-5, inside 1e-4 but past the 1e-5 that the card's tests
+//     hold f32 to. A 64-row tile with no valid row costs nothing but its
+//     stats: pass 1 writes (0, 0) for it, pass 2 neither loads nor
+//     multiplies it (a packed chunk's dummy bags). ptxas (-v, sm_90a):
+//     row_stats_tf32_kernel 94 / 120 / 120 / 120 registers at DKP 32 / 64
+//     / 96 / 128 (two blocks an SM allow 128), slot_accumulate_tf32_kernel
+//     130 / 158 / 181 / 209; no spills.
+//   f32 or bf16 otherwise (musk1's dk=83, dk > 128): 256 threads, every
+//     product on CUDA cores in f32; pass 1 loads its tiles 16 bytes at a
+//     time where dk allows (in pass 2 that pushed ptxas past 128 registers
+//     into spills).
 // The ragged edges of N, S and dk are masked here, nothing is padded.
 
 #include <cuda_bf16.h>
@@ -534,6 +562,299 @@ slot_accumulate_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 }
 
+// ---- The f32 tensor-core body: f32, dk <= 128, dk % 4 == 0. ----
+//
+// The bf16 body's passes on the f32 tiles of sparse_attention_common.cuh,
+// every product as 3xTF32, 8 warps a block. Operands are read from shared
+// memory and split as they are used, so no fragment stays in registers
+// across a loop. A 64-row tile with no live row (a padded chunk's dummy
+// bag, a bag's padding) issues no products.
+
+// Pass 1. Grid (ceil(N / 64), heads * segments). Warp w takes rows 16 (w &
+// 3) .. + 15 of the block's 64 and, of each chunk of 64 slots (two
+// cp.async buffers), the half 32 (w >> 2) .. + 31, for an online max and
+// sum; the halves merge at the end. A tile with no valid row loads nothing
+// and writes max 0, scale 0 (every reader of this body skips such a tile,
+// and the CUDA-core backward takes a row of scale 0 as dead whatever its
+// max).
+template <int DKP>
+__global__ void __launch_bounds__(kF32Threads, 2)
+row_stats_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const uint8_t* __restrict__ slot_valid,
+                      const uint8_t* __restrict__ q_valid, float* __restrict__ row_max,
+                      float* __restrict__ row_scale, int segments, int n, int s, int dk,
+                      float scale) {
+  extern __shared__ uint4 smem_tc[];
+  constexpr int kTile = kRows * tf_stride<DKP>();  // floats of a tile
+  float* qs = reinterpret_cast<float*>(smem_tc);
+  float* ks = qs + kTile;          // two chunk buffers
+  float* code = ks + 2 * kTile;    // 2 x 64
+  float* upper = code + 2 * kSlots;  // (max, sum) x 64 of the upper halves
+
+  const int hh = blockIdx.y;
+  const int seg = hh % segments;
+  const int r0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int half = warp >> 2;
+  const float* kh = k + (size_t)hh * s * dk;
+  const uint8_t* sv = slot_valid + (size_t)seg * s;
+  const uint8_t* qv = q_valid + (size_t)seg * n;
+  const int chunks = (s + kSlots - 1) / kSlots;
+
+  const bool mine = threadIdx.x < kRows && r0 + threadIdx.x < n;
+  if (!__syncthreads_or(mine && qv[r0 + threadIdx.x])) {
+    if (mine) {
+      row_max[(size_t)hh * n + r0 + threadIdx.x] = 0.0f;
+      row_scale[(size_t)hh * n + r0 + threadIdx.x] = 0.0f;
+    }
+    return;
+  }
+
+  tile_async_f32<DKP>(qs, q + (size_t)hh * n * dk, r0, n, dk);
+  tile_async_f32<DKP>(ks, kh, 0, s, dk);
+  cp_async_commit();
+  if (threadIdx.x < kSlots) {
+    const int j = threadIdx.x;
+    code[j] = j < s ? (sv[j] ? 1.0f : 0.0f) : -1.0f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.0f, 0.0f};
+  for (int c = 0; c < chunks; ++c) {
+    const int buf = c & 1;
+    if (c + 1 < chunks) {  // the next chunk loads while this one is used
+      tile_async_f32<DKP>(ks + (buf ^ 1) * kTile, kh, (c + 1) * kSlots, s, dk);
+      cp_async_commit();
+      if (threadIdx.x < kSlots) {
+        const int j = (c + 1) * kSlots + threadIdx.x;
+        code[(buf ^ 1) * kSlots + threadIdx.x] = j < s ? (sv[j] ? 1.0f : 0.0f) : -1.0f;
+      }
+    }
+    float sc[4][4];
+    mma_rows_f32<DKP, 4>(sc, qs, 16 * (warp & 3), ks + buf * kTile, 32 * half, lane);
+    const float* cb = code + buf * kSlots + 32 * half;
+    float cmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float cd = cb[8 * j + 2 * t + (e & 1)];
+        const float x = cd > 0.0f ? sc[j][e] * scale : (cd == 0.0f ? kNegBig : -INFINITY);
+        sc[j][e] = x;
+        cmax[e >> 1] = fmaxf(cmax[e >> 1], x);
+      }
+    float new_m[2], base[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 1));
+      cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 2));
+      new_m[h] = fmaxf(m_run[h], cmax[h]);
+      // -inf while the half has met no slot (its slots of the first chunk
+      // past S): it then sums nothing
+      base[h] = new_m[h] == -INFINITY ? 0.0f : new_m[h];
+    }
+    float csum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) csum[e >> 1] += __expf(sc[j][e] - base[e >> 1]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      csum[h] += __shfl_xor_sync(0xffffffffu, csum[h], 1);
+      csum[h] += __shfl_xor_sync(0xffffffffu, csum[h], 2);
+      l_run[h] = l_run[h] * __expf(m_run[h] - base[h]) + csum[h];
+      m_run[h] = new_m[h];
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  // the upper halves hand over; the lower ones (which hold slot 0, so a
+  // finite max) merge and write
+  const int i = 16 * (warp & 3) + (lane >> 2);
+  if (half == 1 && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      upper[2 * (i + 8 * h)] = m_run[h];
+      upper[2 * (i + 8 * h) + 1] = l_run[h];
+    }
+  }
+  __syncthreads();
+  if (half == 0 && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + i + 8 * h;
+      if (row < n) {
+        const float m2 = upper[2 * (i + 8 * h)], l2 = upper[2 * (i + 8 * h) + 1];
+        const float m = fmaxf(m_run[h], m2);
+        const float l = l_run[h] * __expf(m_run[h] - m) + l2 * __expf(m2 - m);
+        const size_t idx = (size_t)hh * n + row;
+        row_max[idx] = m;
+        row_scale[idx] = qv[row] ? 1.0f / l : 0.0f;
+      }
+    }
+  }
+}
+
+// Pass 2. Grid (ceil(S / 64), heads * segments, splits): rows
+// [split * rows_per_split, ...) of N. Warp w takes slots 16 (w & 3) .. +
+// 15 of the block's k tile and, of each 64-row tile (q, v and the row
+// stats in two cp.async buffers), the half 32 (w >> 2) .. + 31: s^T = k
+// q^T, p^T formed in the C fragments, then out^T += p^T v with the C
+// fragments as A fragments (mma_c_rows_f32); the halves' sums merge at
+// the end. Whether the next tile has a live row is read from row_scale
+// while this tile's scores are formed; a tile with none is neither loaded
+// nor multiplied. One split writes the output; several write f32
+// partials for split_reduce_kernel.
+template <int DKP>
+__global__ void __launch_bounds__(kF32Threads, 1)
+slot_accumulate_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const uint8_t* __restrict__ slot_valid,
+                            const float* __restrict__ row_max,
+                            const float* __restrict__ row_scale, float* __restrict__ out,
+                            float* __restrict__ partial, int segments, int n, int s, int dk,
+                            int rows_per_split, float scale, uint32_t seed, float rate,
+                            float inv_keep) {
+  extern __shared__ uint4 smem_tc[];
+  constexpr int kS = tf_stride<DKP>();
+  constexpr int kTile = kRows * kS;  // floats of a tile
+  float* ks = reinterpret_cast<float*>(smem_tc);
+  float* qs = ks + kTile;      // two buffers
+  float* vs = qs + 2 * kTile;  // two buffers
+  float* stats = vs + 2 * kTile;  // 2 x (max, scale) x 64
+
+  const int hh = blockIdx.y;
+  const int seg = hh % segments;
+  const int c0 = blockIdx.x * kSlots;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int slot0 = 16 * (warp & 3);  // the warp's slots in the block
+  const int row0 = 32 * (warp >> 2);  // the warp's rows in a tile
+  const int row_begin = blockIdx.z * rows_per_split;
+  const int row_end = min(n, row_begin + rows_per_split);
+  const int tiles = (row_end - row_begin + kRows - 1) / kRows;
+  const float* qh = q + (size_t)hh * n * dk;
+  const float* vh = v + (size_t)hh * n * dk;
+  const float* rmh = row_max + (size_t)hh * n;
+  const float* rsh = row_scale + (size_t)hh * n;
+
+  // Rows [r0, r0 + 64) of q, v and the row stats into buffer b; rows at or
+  // past row_end are zeros (so their p is e^0 * 0 = 0).
+  auto prefetch = [&](int r0, int b) {
+    tile_async_f32<DKP>(qs + b * kTile, qh, r0, row_end, dk);
+    tile_async_f32<DKP>(vs + b * kTile, vh, r0, row_end, dk);
+    if (threadIdx.x < 2 * kRows) {
+      const int i = threadIdx.x & (kRows - 1);
+      const bool live = r0 + i < row_end;
+      const float* src = threadIdx.x < kRows ? rmh : rsh;
+      cp_async4(stats + b * 2 * kRows + threadIdx.x, live ? src + r0 + i : src, live ? 4 : 0);
+    }
+  };
+  // the scale of row r0 + threadIdx.x (0 for threads past 64 and rows past row_end)
+  auto scale_of = [&](int r0) {
+    return threadIdx.x < kRows && r0 + (int)threadIdx.x < row_end ? rsh[r0 + threadIdx.x] : 0.0f;
+  };
+
+  tile_async_f32<DKP>(ks, k + (size_t)hh * s * dk, c0, s, dk);
+  bool live_tile = tiles > 0 && __syncthreads_or(scale_of(row_begin) != 0.0f);
+  if (live_tile) prefetch(row_begin, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // slots c0 + slot0 + g + 8h: live (scored), dead (-1e30) or past S (p = 0)
+  bool live[2], exists[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = c0 + slot0 + g + 8 * h;
+    exists[h] = j < s;
+    live[h] = exists[h] && slot_valid[(size_t)seg * s + j];
+  }
+
+  // acc: the sum over the tiles; part: one tile's
+  float acc[DKP / 8][4], part[DKP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DKP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = part[j][e] = 0.0f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int b = it & 1;
+    const int r0 = row_begin + it * kRows;
+    const float next_scale = it + 1 < tiles ? scale_of(r0 + kRows) : 0.0f;
+    const float* qb = qs + b * kTile;
+    const float* vb = vs + b * kTile;
+    const float* rm = stats + b * 2 * kRows;
+    const float* rs = rm + kRows;
+
+    // s^T (16 slots, 32 rows): sc[j][e] is slot g + 8 (e >> 1), row
+    // row0 + 8j + 2t + (e & 1)
+    float sc[4][4];
+    if (live_tile) {
+      mma_rows_f32<DKP, 4>(sc, ks, slot0, qb, row0, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int i = row0 + 8 * j + 2 * t + (e & 1);
+          const float x = live[h] ? sc[j][e] * scale : kNegBig;
+          float p = exists[h] ? __expf(x - rm[i]) * rs[i] : 0.0f;
+          if (rate > 0.0f)
+            p *= keep_factor(seed, (uint32_t)hh, (uint32_t)(r0 + i),
+                             (uint32_t)(c0 + slot0 + g + 8 * h), rate, inv_keep);
+          sc[j][e] = p;
+        }
+    }
+    // the other buffer was released by the last iteration's barrier
+    const bool live_next = __syncthreads_or(next_scale != 0.0f);
+    if (live_next) prefetch(r0 + kRows, b ^ 1);
+    cp_async_commit();
+    if (live_tile) {
+      // p^T . v: the C fragment of rows row0 + 8j .. + 7 is the A fragment
+      // of one 8-deep step
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma_c_rows_f32<DKP>(part, sc[j], vb + (row0 + 8 * j) * kS, lane);
+      add_part<DKP>(acc, part);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    live_tile = live_next;
+  }
+  merge_halves<DKP>(acc, qs, warp, lane);
+  if (warp >= 4) return;
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = c0 + slot0 + g + 8 * h;
+    if (!exists[h]) continue;
+    const size_t row = (size_t)hh * s + j;
+#pragma unroll
+    for (int jn = 0; jn < DKP / 8; ++jn) {
+      const int d = 8 * jn + 2 * t;
+      if (d >= dk) continue;
+      float* dst = partial != nullptr ? partial + ((size_t)blockIdx.z * gridDim.y * s + row) * dk + d
+                                      : out + row * dk + d;
+      *reinterpret_cast<float2*>(dst) = make_float2(acc[jn][2 * h], acc[jn][2 * h + 1]);
+    }
+  }
+}
+
+template <int DKP>
+constexpr size_t smem_tf32_pass1() {
+  return (size_t)3 * tf_tile_bytes<DKP>() + 4 * kSlots * sizeof(float);
+}
+template <int DKP>
+constexpr size_t smem_tf32_pass2() {
+  return (size_t)5 * tf_tile_bytes<DKP>() + 4 * kRows * sizeof(float);
+}
+
 template <int DKP>
 constexpr size_t smem_tc_pass1() {
   return (size_t)3 * tc_tile_bytes<DKP>() + 2 * kSlots * sizeof(float);
@@ -648,10 +969,44 @@ cudaError_t launch_tc(const Args& a) {
   return launch_reduce<bf16>(a);
 }
 
+// The f32 tensor-core body, dk <= DKP.
+template <int DKP>
+cudaError_t launch_tf32(const Args& a) {
+  static std::atomic<uint64_t> ready1{0}, ready2{0};
+  cudaError_t err = allow_smem(row_stats_tf32_kernel<DKP>, smem_tf32_pass1<DKP>(), ready1);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(slot_accumulate_tf32_kernel<DKP>, smem_tf32_pass2<DKP>(), ready2);
+  if (err != cudaSuccess) return err;
+  row_stats_tf32_kernel<DKP><<<a.grid1(), kF32Threads, smem_tf32_pass1<DKP>(), a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const uint8_t*>(a.slot_valid), static_cast<const uint8_t*>(a.q_valid),
+      static_cast<float*>(a.row_max), static_cast<float*>(a.row_scale), a.segments, a.n,
+      a.s, a.dk, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  slot_accumulate_tf32_kernel<DKP>
+      <<<a.grid2(), kF32Threads, smem_tf32_pass2<DKP>(), a.stream>>>(
+          static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+          static_cast<const float*>(a.v), static_cast<const uint8_t*>(a.slot_valid),
+          static_cast<const float*>(a.row_max), static_cast<const float*>(a.row_scale),
+          static_cast<float*>(a.out), a.part(), a.segments, a.n, a.s, a.dk, a.rows_per_split(),
+          a.scale, a.seed, a.rate, a.inv_keep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce<float>(a);
+}
+
 template <typename T>
 cudaError_t launch_dtype(const Args& a) {
-  // cp.async moves 16 bytes: dk % 8 == 0 and 16-byte aligned bases
-  if (sizeof(T) == 2 && a.dk <= 128 && a.vec<T>()) {
+  // cp.async moves 16 bytes: whole 16-byte chunks a row (dk % 8 == 0 in
+  // bf16, dk % 4 == 0 in f32) and 16-byte aligned bases
+  if (a.dk <= 128 && a.vec<T>()) {
+    if (sizeof(T) == 4) {
+      if (a.dk <= 32) return launch_tf32<32>(a);
+      if (a.dk <= 64) return launch_tf32<64>(a);
+      if (a.dk <= 96) return launch_tf32<96>(a);
+      return launch_tf32<128>(a);
+    }
     if (a.dk <= 32) return launch_tc<32>(a);
     if (a.dk <= 64) return launch_tc<64>(a);
     if (a.dk <= 96) return launch_tc<96>(a);

@@ -13,6 +13,17 @@ launches the forward kernel and keeps its row statistics (max and
 q_valid/sum, 8 bytes a row) for the backward kernel, which runs no
 softmax again. The public functions keep the JAX signatures.
 
+Each kernel has three bodies, picked per call by the same rule in both
+files (`kernel_body` says which):
+  f32, dk ≤ 128, dk % 4 == 0    tensor cores, every product as 3xTF32
+                                (big + small tf32 parts, three mma.sync)
+  bf16, dk ≤ 128, dk % 8 == 0   tensor cores, bf16 products, p, p̃ and ds
+                                as hi + lo bf16 parts
+  anything else (musk1's dk=83, dk > 128)    CUDA cores, f32 FMAs
+The tensor-core bodies also need 16-byte aligned bases (every tensor of a
+call: q, k, v and, backward, g and the outputs), which fresh and
+contiguous tensors have; otherwise the CUDA-core body runs.
+
 For CUDA tensors the wrappers launch the kernels or raise; for CPU
 tensors the same Function runs the plain versions in `sparse_attention.py`,
 which are the kernels' oracles.
@@ -101,6 +112,22 @@ def launched_passes(kernel, n: int, s: int, folded_heads: int) -> tuple:
     split."""
     split = slot_splits(n, s, folded_heads) > 1
     return kernel.passes if split else kernel.passes[:2]
+
+
+BODIES = ("f32 tensor cores (3xTF32)", "bf16 tensor cores", "CUDA cores")
+
+
+def kernel_body(*tensors: torch.Tensor) -> str:
+    """The body (one of BODIES) that the kernels' dispatch takes for a call
+    on these tensors (q first; the rest those whose bases the kernel
+    reads or writes): the rule of `launch_dtype` in
+    `csrc/sparse_attention_{fwd,bwd}.cu`."""
+    q = tensors[0]
+    dk = q.shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    if dk <= 128 and aligned and dk % (16 // q.element_size()) == 0:
+        return BODIES[0] if q.dtype == torch.float32 else BODIES[1]
+    return BODIES[2]
 
 
 def _fwd_cuda(q, k, v, slot_valid, q_valid, segments, rate, seed):

@@ -194,8 +194,7 @@ def test_backward_kernel_matches_plain_on_the_card(cuda_device, dtype, shape,
 def test_backward_kernel_all_dead_segments(cuda_device, dtype):
     """A segment with live rows and no live slot (σ uniform) gets no
     gradient into its dead slots, as in the plain version; a dummy bag
-    gets none at all. f32 runs the CUDA-core body, bf16 the tensor-core
-    one."""
+    gets none at all. Both dtypes run their tensor-core bodies."""
     q, k, v, sv, qv = make(h=2, n=70, s=20, dk=32, segments=3, dtype=dtype,
                            device=cuda_device)
     sv[20:60] = False      # segments 1 and 2: no live slot
@@ -215,6 +214,59 @@ def test_backward_kernel_all_dead_segments(cuda_device, dtype):
     assert torch.count_nonzero(dk[:, 20:]) == 0
     assert torch.count_nonzero(dv[:, 140:]) == 0
     assert torch.count_nonzero(dv[:, 70:140]) > 0  # uniform σ still reads v
+
+
+@pytest.mark.parametrize("dtype, dk, body", [
+    (torch.float32, 96, 0), (torch.float32, 4, 0), (torch.float32, 128, 0),
+    (torch.float32, 83, 2), (torch.float32, 132, 2), (torch.float32, 256, 2),
+    (torch.bfloat16, 96, 1), (torch.bfloat16, 8, 1), (torch.bfloat16, 4, 2),
+    (torch.bfloat16, 100, 2), (torch.bfloat16, 136, 2),
+])
+def test_kernel_body_follows_the_dispatch_rule(dtype, dk, body):
+    """f32 with dk ≤ 128, dk % 4 == 0 takes the f32 tensor-core body, bf16
+    with dk ≤ 128, dk % 8 == 0 the bf16 one, anything else the CUDA-core
+    body; so does a base that is not 16-byte aligned."""
+    q, k, v = make(dk=dk, dtype=dtype)[:3]
+    assert fa.kernel_body(q, k, v) == fa.BODIES[body]
+    shifted = torch.empty(q.numel() + 1, dtype=dtype)[1:].view(q.shape)
+    assert fa.kernel_body(shifted, k, v) == fa.BODIES[2]
+
+
+@pytest.mark.parametrize("symbol, want", [
+    ("_ZN34_GLOBAL__N__4c2ba1_23_sparse_attention_fwd_cu_a20567a321row_stats"
+     "_tf32_kernelILi64EEvPKfS2_", "row_stats_tf32_kernel[Li64]"),
+    ("_ZN34_GLOBAL__N__e7a0506_23_sparse_attention_fwd_cu_a20567a322slot_"
+     "accumulate_kernelI13__nv_bfloat16Li16EEvPKT_",
+     "slot_accumulate_kernel[13__nv_bfloat16Li16]"),
+    ("_ZN12_GLOBAL__N_122dense_attention_kernelIfEEvv",
+     "dense_attention_kernel[f]"),
+    ("not_mangled", "not_mangled"),
+])
+def test_chip_smoke_names_kernels_from_their_mangled_symbols(symbol, want):
+    """chip_smoke prints ptxas's registers and spills under each kernel's
+    name: the length-prefixed identifier of the symbol, digits and all."""
+    import chip_smoke
+
+    assert chip_smoke.kernel_symbol_name(symbol) == want
+
+
+def test_chip_smoke_tells_the_body_from_the_traced_kernel_names():
+    import chip_smoke
+
+    for body, names in zip(fa.BODIES, (
+            ["void row_stats_tf32_kernel<96>(float const*)",
+             "void split_reduce_kernel<float>(float const*)"],
+            ["void slot_accumulate_tc_kernel<96>(bf16 const*)"],
+            ["void row_stats_kernel<float>(float const*)"])):
+        times = [(name, 1.0) for name in names]
+        assert chip_smoke.traced_body(fa, fa.FWD, times) == body
+        chip_smoke.check_body(fa, fa.FWD, times, body)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_body(fa, fa.BWD, [("void row_grad_kernel<float>", 1.0)],
+                              fa.BODIES[0])
+    bound, by, note = chip_smoke.kernel_bound(fa, fa.BODIES[0], 10**6, 10**10)
+    assert by == "operations" and "67 TFLOP/s" in note
+    assert bound == pytest.approx(1e3 * 10**10 / (495e12 / 3))
 
 
 def test_forward_splits_fill_the_card_and_cover_n():
@@ -346,3 +398,65 @@ def test_bf16_kernel_is_one_ulp_from_plain_at_operating_widths(
     assert ulps <= 1.0, (
         f"{ulps} ulps at {worst}: kernel {float(got.flatten()[worst])}, "
         f"plain {float(want.flatten()[worst])}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dk", [64, 96])
+@pytest.mark.parametrize("segments", [1, 3])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_f32_tensor_core_body_matches_plain_on_the_card(cuda_device, dk,
+                                                        segments, rate):
+    """The f32 tensor-core body (3xTF32), forward and backward, within the
+    f32 tolerance of the plain versions. Rows 64-127 of each bag are
+    invalid, a whole 64-row tile the body skips; with 3 segments, segment
+    1 is a dummy bag (no valid row or slot): its outputs and gradients are
+    exactly 0."""
+    n, s = 300, 100
+    q, k, v, sv, qv = make(h=2, n=n, s=s, dk=dk, segments=segments,
+                           device=cuda_device)
+    assert fa.kernel_body(q, k, v) == fa.BODIES[0]
+    for b in range(segments):
+        qv[b * n + 64:b * n + 128] = False
+    if segments == 3:
+        qv[n:2 * n] = False
+        sv[s:2 * s] = False
+    g = torch.randn(k.shape, generator=torch.Generator().manual_seed(7)
+                    ).to(cuda_device)
+    kw = dict(dropout_rate=rate, dropout_seed=11)
+    out, got = grads_on_the_card([q, k, v, sv, qv], segments, g, **kw)
+    with torch.inference_mode():
+        want_out = packed_inverted_sparse_attention(q, k, v, sv, qv, segments,
+                                                    **kw)
+    want = packed_inverted_sparse_attention_bwd(q, k, v, sv, qv, g, segments,
+                                                **kw)
+    assert_close_to_plain(out.detach(), want_out, TOL[torch.float32])
+    for a, b in zip(got, want):
+        assert_close_to_plain(a, b, TOL[torch.float32])
+    dq, dk_, dv = got
+    for b in range(segments):
+        assert torch.count_nonzero(dq[:, b * n + 64:b * n + 128]) == 0
+        assert torch.count_nonzero(dv[:, b * n + 64:b * n + 128]) == 0
+    if segments == 3:
+        assert torch.count_nonzero(out[:, s:2 * s]) == 0
+        assert torch.count_nonzero(dk_[:, s:2 * s]) == 0
+        assert torch.count_nonzero(dq[:, n:2 * n]) == 0
+        assert torch.count_nonzero(dv[:, n:2 * n]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [1, 4])
+def test_f32_tensor_core_body_is_bitwise_repeatable(cuda_device, segments):
+    """The f32 body's N splits, forward and backward, are summed in a
+    fixed order, without atomics: two launches give the same bits."""
+    q, k, v, sv, qv = make(h=4, n=2000, s=500, dk=96, segments=segments,
+                           device=cuda_device)
+    g = torch.randn(k.shape, generator=torch.Generator().manual_seed(8)
+                    ).to(cuda_device)
+    with torch.inference_mode():
+        a = fa._fwd_cuda(q, k, v, sv, qv, segments, 0.1, 3)
+        b = fa._fwd_cuda(q, k, v, sv, qv, segments, 0.1, 3)
+        da = fa._bwd_cuda(q, k, v, sv, a[1], a[2], g, segments, 0.1, 3)
+        db = fa._bwd_cuda(q, k, v, sv, a[1], a[2], g, segments, 0.1, 3)
+    torch.cuda.synchronize()
+    for x, y in zip((*a, *da), (*b, *db)):
+        assert torch.equal(x, y)

@@ -456,3 +456,219 @@ def test_split_p_and_ds_keep_the_backward_kernel_off_two_ulp_flips(
         assert max_ulps(kern.bfloat16(), p.bfloat16())[0] <= 1.0, name
         assert _rel(one, p) > 2.0 ** -10, name  # what the split avoids
         assert max_ulps(one.bfloat16(), p.bfloat16())[0] > 2.0, name
+
+
+# ---- The f32 tensor-core bodies: 3xTF32 products, emulated. ----
+
+
+def tf32(x):
+    """x (f32) rounded to tf32, 11 significant bits, to nearest with ties
+    away from zero, as `cvt.rna.tf32.f32` and the kernels' `split_tf32`:
+    half of the dropped 13 bits' range added to the magnitude bits, then
+    the 13 bits cleared."""
+    bits = x.contiguous().numpy().view(np.uint32)
+    out = (bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return torch.from_numpy(out.view(np.float32))
+
+
+def tf32_dropped(x):
+    """x (f32) with its low 13 bits cleared: a tf32 operand as the tensor
+    cores read an f32 register."""
+    bits = x.contiguous().numpy().view(np.uint32) & np.uint32(0xFFFFE000)
+    return torch.from_numpy(bits.view(np.float32))
+
+
+def split_tf32(x):
+    """x as the kernels' products take it: big = tf32(x), and small = x −
+    big (exact in f32) handed over whole, the tensor cores reading it
+    without its low 13 bits."""
+    big = tf32(x)
+    return big, tf32_dropped(x - big)
+
+
+def split_bf16_parts(x):
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def whole_product(eq, a, b):
+    return torch.einsum(eq, a, b)
+
+
+def tf32x3_product(eq, a, b):
+    """a·b as the f32 tensor-core bodies form it (mma_tf32x3): big·small +
+    small·big, then big·big; small·small left out."""
+    (ab, as_), (bb, bs) = split_tf32(a), split_tf32(b)
+    return (torch.einsum(eq, ab, bs) + torch.einsum(eq, as_, bb)
+            + torch.einsum(eq, ab, bb))
+
+
+def tf32x1_product(eq, a, b):
+    """One TF32 product: each operand rounded once."""
+    return torch.einsum(eq, tf32(a), tf32(b))
+
+
+def bf16x3_product(eq, a, b):
+    """The cheaper split: hi + lo bf16 parts (16 bits), hi·lo + lo·hi +
+    hi·hi."""
+    (ah, al), (bh, bl) = split_bf16_parts(a), split_bf16_parts(b)
+    return (torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
+            + torch.einsum(eq, ah, bh))
+
+
+def emulate_f32_kernel(q, k, v, slot_valid, q_valid, g, segments, rate,
+                       product, kernel_delta, seed=12345):
+    """The plain forward and backward, step for step, with every product
+    (q·kᵀ, σᵀv; v·gᵀ, p̃ g, ds k, dsᵀq) formed by `product`. With
+    `kernel_delta` the backward forms D = v · dv from dv's f32 sums and
+    scales dq and dk after their products, as the kernels do; without it,
+    D = rowsum(σ · dσ) and the scale goes into ds, as the plain version
+    does. → (out, (dq, dk, dv)) in f32, before any cast; g None skips the
+    backward."""
+    h, kn, dk = q.shape
+    n, s = kn // segments, k.shape[1] // segments
+    scale = 1.0 / math.sqrt(dk)
+    qb, vb = (x.reshape(h, segments, n, dk).float() for x in (q, v))
+    kb = k.reshape(h, segments, s, dk).float()
+    sv = slot_valid.reshape(segments, s)
+    _, factor = _softmax_and_factor(q, k, slot_valid, q_valid, segments,
+                                    rate, seed)
+    scores = product("hknd,hksd->hkns", qb, kb) * scale
+    scores = scores.masked_fill(~sv[None, :, None, :], -1e30)
+    sigma = torch.softmax(scores, dim=-1)
+    p = sigma * factor
+    out = product("hkns,hknd->hksd", p, vb).reshape(h, segments * s, dk)
+    if g is None:
+        return out, None
+    gb = g.reshape(h, segments, s, dk).float()
+    live = sv.float()[None, :, None, :]
+    dv = product("hkns,hksd->hknd", p, gb)
+    dsig = product("hknd,hksd->hkns", vb, gb) * factor
+    if kernel_delta:
+        ds = sigma * (dsig - (vb * dv).sum(dim=-1, keepdim=True)) * live
+        dq = product("hkns,hksd->hknd", ds, kb) * scale
+        dkey = product("hkns,hknd->hksd", ds, qb) * scale
+    else:
+        ds = sigma * (dsig - (sigma * dsig).sum(dim=-1, keepdim=True))
+        ds = ds * live * scale
+        dq = product("hkns,hksd->hknd", ds, kb)
+        dkey = product("hkns,hknd->hksd", ds, qb)
+    return out, (dq.reshape(q.shape), dkey.reshape(k.shape),
+                 dv.reshape(v.shape))
+
+
+def cli_inputs(segments, s, seed, n=1024, n_valid=1000):
+    """Seeded f32 inputs and output gradient at the training CLI's widths
+    (h=4, dk=96, S slots a bag, ~10 % dead), with n rows a bag, n_valid of
+    them valid (the CLI's bags have 10240, ~10000 valid: the sums here
+    are 10x shorter)."""
+    rng = np.random.default_rng(seed)
+    h, dk = 4, 96
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((h, segments * m, dk))
+                                   .astype(np.float32))
+                  for m in (n, s, n, s))
+    slot_valid = torch.from_numpy(rng.random(segments * s) > 0.1)
+    q_valid = (torch.arange(n) < n_valid).repeat(segments)
+    return (q, k, v, slot_valid, q_valid), g
+
+
+@pytest.mark.parametrize("segments", [1, 4])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_f32_emulation_kept_whole_is_the_plain_version(segments, rate):
+    """With every operand kept whole (and the plain version's D and
+    scale), the emulation of the f32 tensor-core bodies is
+    `packed_inverted_sparse_attention` and its backward, bit for bit."""
+    inputs, g = cli_inputs(segments, 500, 31)
+    out, grads = emulate_f32_kernel(*inputs, g, segments, rate,
+                                    whole_product, kernel_delta=False)
+    kw = dict(dropout_rate=rate, dropout_seed=12345)
+    assert torch.equal(out, packed_inverted_sparse_attention(
+        *inputs, segments, **kw))
+    want = packed_inverted_sparse_attention_bwd(*inputs, g, segments, **kw)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("segments, s", [(1, 500), (4, 500), (4, 1000)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_f32_3xtf32_products_stay_within_the_f32_tolerance(segments, s,
+                                                            rate):
+    """The f32 tensor-core bodies form every product as 3xTF32, with D =
+    v · dv from dv's f32 sums. Emulated at the training CLI's widths (h=4,
+    dk=96; serial S=500, packed ×4 at S=500 and S=1000), with and without
+    dropout, out, dq, dk and dv stay within 2^-17 of max |plain| (1.1e-6 to
+    1.8e-6), 50x inside the kernels' f32 tolerance of 1e-4 and inside the
+    1e-5 that the card's tests hold f32 to. One TF32 product (each operand
+    rounded once) moves them by 4.6e-4-8.6e-4, past 1e-4; hi + lo bf16
+    parts in three products (twice the tensor cores' rate) hold 1e-4
+    (5.2e-6-1.6e-5) but not 1e-5."""
+    inputs, g = cli_inputs(segments, s, 41)
+    kw = dict(dropout_rate=rate, dropout_seed=12345)
+    want = (packed_inverted_sparse_attention(*inputs, segments, **kw),
+            *packed_inverted_sparse_attention_bwd(*inputs, g, segments, **kw))
+
+    def errors(product):
+        out, grads = emulate_f32_kernel(*inputs, g, segments, rate, product,
+                                        kernel_delta=True)
+        return [_rel(got, w) for got, w in zip((out, *grads), want)]
+
+    assert max(errors(tf32x3_product)) <= 2.0 ** -17
+    assert min(errors(tf32x1_product)) > 1e-4  # what the split avoids
+    bf16 = errors(bf16x3_product)
+    assert 1e-5 < max(bf16) <= 1e-4  # the cheaper split, not taken
+
+
+def test_tf32_rounding_and_split():
+    """tf32 keeps 11 significant bits, rounding to nearest with ties away
+    from zero; big + small, as the tensor cores read them, is x within
+    2^-21 |x|."""
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.14159265])
+    assert tf32(x).tolist()[:5] == [1.0, 1.0 + 2.0 ** -10,
+                                    1.0 + 2 * 2.0 ** -10,
+                                    -(1.0 + 2.0 ** -10), 1.0]
+    rng = np.random.default_rng(5)
+    y = torch.from_numpy(rng.standard_normal(10000).astype(np.float32))
+    big, small = split_tf32(y)
+    for part in (big, small):
+        assert not (part.numpy().view(np.uint32) & 0x1FFF).any()
+    assert float(((big + small - y).abs() / y.abs()).max()) <= 2.0 ** -21
+
+
+def mma_m16n8k8(a_frag, b_frag):
+    """m16n8k8's product from its fragments, lane by lane (g = lane / 4,
+    t = lane % 4): a_frag (32, 4) at (g, t), (g + 8, t), (g, t + 4),
+    (g + 8, t + 4); b_frag (32, 2) at (k = t, n = g), (t + 4, g). → the
+    16 x 8 result."""
+    a, b = np.zeros((16, 8), np.int64), np.zeros((8, 8), np.int64)
+    for lane in range(32):
+        gi, t = lane // 4, lane % 4
+        for r, (row, col) in enumerate(((gi, t), (gi + 8, t), (gi, t + 4),
+                                        (gi + 8, t + 4))):
+            a[row, col] = a_frag[lane, r]
+        b[t, gi], b[t + 4, gi] = b_frag[lane]
+    return a @ b
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_c_fragment_relabelled_as_a_fragment_leaves_the_product(seed):
+    """mma_c_rows_f32: a 16 x 8 tile c held as m16n8's C fragment (lane
+    (g, t) has columns 2t, 2t + 1 of rows g, g + 8) enters the next product
+    as the A fragment with columns 2t, 2t + 1 taken as k = t, t + 4, and x's
+    rows 2t, 2t + 1 loaded as B's rows t, t + 4. Relabelling the summed
+    index on both operands leaves c · x unchanged (integers: exact)."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(-50, 50, (16, 8))
+    x = rng.integers(-50, 50, (8, 8))
+    a_frag, b_frag = np.zeros((32, 4), np.int64), np.zeros((32, 2), np.int64)
+    for lane in range(32):
+        gi, t = lane // 4, lane % 4
+        c_frag = (c[gi, 2 * t], c[gi, 2 * t + 1], c[gi + 8, 2 * t],
+                  c[gi + 8, 2 * t + 1])
+        a_frag[lane] = (c_frag[0], c_frag[2], c_frag[1], c_frag[3])
+        b_frag[lane] = (x[2 * t, gi], x[2 * t + 1, gi])
+    np.testing.assert_array_equal(mma_m16n8k8(a_frag, b_frag), c @ x)
+    # without the relabelling of x's rows the product is another one
+    plain_b = np.array([(x[lane % 4, lane // 4], x[lane % 4 + 4, lane // 4])
+                        for lane in range(32)])
+    assert not np.array_equal(mma_m16n8k8(a_frag, plain_b), c @ x)
