@@ -80,7 +80,10 @@ per kernel, all at once), then:
      parser, a spawned pool's start); checks: best epoch, AUCs in [0, 1]
      for each class, finite losses, K1/K2 launches ≥ depth × steps ×
      epochs, only the best and last epochs' files left, the best `.pth`
-     loads strictly;
+     loads strictly; the Camelyon16 tree has reference.csv and label masks
+     for its tumour test slides, so (a)'s tests score the challenge FROC,
+     each score equal to `froc_for_slides` recomputed from the detections
+     the run built;
   10a. K1 and K2 (f32, the CLI's dtype) on the inputs the four runs gave
      them, kept from the first call at each shape (rows, slots, heads,
      dk, segments, dropout rate): serial and packed Camelyon16 buckets at
@@ -112,12 +115,34 @@ per kernel, all at once), then:
      at the ViT-B and ViT-L shapes on those runs' own inputs, beside SDPA;
      (d) DINO ViT-S/16 at 256² input (the position grid resized to 16²),
      f32, GPU vs CPU; (e) `hubconf.load_dino_resnet50` from a written
-     `.pth`, f32, GPU vs CPU.
+     `.pth`, f32, GPU vs CPU;
+  12. evaluation and visualization: (a) phase 5b's SLIDE_GRID² slide
+     carried down to an 8x level, with an ASAP polygon, through the
+     Camelyon16 tiler CLI at its defaults (8 workers, 256², q75, -t 20):
+     the kept tiles equal the fixture's tissue, tile_label.csv the polygon,
+     tiles/s; the nested layout (-m 0 1) on a small slide, and the tiler's
+     cost a grid tile in one process and in 8; (b) the splitter, n-shot and
+     reverser CLIs on that tree; (c) the ROI CLI's `main` over the bag,
+     SimCLR ResNet-18 at its defaults (f32, d=512, 4 heads, Λ=200, depth
+     5: K1 f32 at dk=128) and DINO ViT-S/16 on the bag's first
+     ROI_DINO_TILES tiles (d=384, 6 heads: K5 f32, K1 f32 at dk=64):
+     embed and classify seconds, K1 (depth) and K5 (12 a batch)
+     launches, the PNG read back (the thumbnail's size, its green pixels
+     the mask's boundary band), a 300-tile subset GPU vs CPU in f32; (d)
+     K1 f32 at dk=128 and 64 and K5 f32 on the inputs those runs gave
+     them (error, two launches bitwise equal, one-call and back-to-back
+     times, the bound; ptxas for K1's f32 tensor-core body at dk=128);
+     (e) the ROI's scores as detections against the fixture's mask, and
+     compute_evaluation_mask and EvalMaskCache (cold, warm in memory,
+     warm from the npz) on a Camelyon16 level-5-sized label mask, its ITCs
+     and score equal to an ArrayMaskReader's; (g) DSMIL (512-d, C=2,
+     10000 rows padded to 10240) GPU vs CPU in f32; whether matplotlib
+     imports.
 
 Each path of the main path (serve, whole slide, eval, extraction, train,
 each training-CLI run, the SimCLR slide CLI and requests, the SimCLR and
-MAE extraction CLI runs and the ViT-L batch) runs with the launch counts
-set to 0 just before it and read just after.
+MAE extraction CLI runs and the ViT-L batch, each ROI run) runs with the
+launch counts set to 0 just before it and read just after.
 Every phase asserts; any failure exits non-zero. The line before the last
 is the kernels' JSON record, the last line the device record. It exits
 non-zero at once without a CUDA device.
@@ -568,12 +593,12 @@ def phase_serve(cfg, dev, kernels):
     return milnet, serve_launches
 
 
-def write_slide(path, grid, seed, background=SLIDE_BACKGROUND):
+def write_slide(path, grid, seed, background=SLIDE_BACKGROUND, levels=1):
     """A JPEG-tiled pyramid from the port's writer: textured tissue tiles
     (smooth stain-like waves plus noise, 16 patterns, each tile one of
     them) and flat background tiles, `background` of them, at random;
-    level 1 is level 0 taken every second pixel. Returns the tissue
-    (col, row) positions in row-scan order."""
+    level i (1 ≤ i ≤ `levels`) is level 0 taken every 2^i-th pixel.
+    Returns the tissue (col, row) positions in row-scan order."""
     import numpy as np
 
     from snuffy_tpu_torch import native
@@ -596,8 +621,9 @@ def write_slide(path, grid, seed, background=SLIDE_BACKGROUND):
             if is_tissue[r, c]:
                 level0[r * tile:(r + 1) * tile, c * tile:(c + 1) * tile] = (
                     patterns[pick[r, c]])
-    native.write_tiled_tiff(path, [level0, level0[::2, ::2]], tile=tile,
-                            jpeg_quality=SLIDE_QUALITY)
+    native.write_tiled_tiff(path, [level0] + [
+        level0[::2 ** i, ::2 ** i] for i in range(1, levels + 1)], tile=tile,
+        jpeg_quality=SLIDE_QUALITY)
     return [(c, r) for r in range(grid) for c in range(grid)
             if is_tissue[r, c]]
 
@@ -1429,6 +1455,86 @@ def measure_load(root, dataset, labelled_test):
         "s (three a run)")
 
 
+def write_cli_froc_fixture(root, sizes):
+    """Phase 10's Camelyon16 test slides get reference.csv and, for the
+    tumour ones, label masks (six pages, 0.243 µm at level 0, level 0 as
+    wide as the bags' positions reach at 512 px a patch; one file linked
+    under each tumour slide's name): a tumour over the first rows' first
+    patches, a second one and an ITC. Returns (reference path, masks dir,
+    slide → type)."""
+    import os
+
+    import numpy as np
+
+    base = os.path.join(root, "datasets", "camelyon16")
+    masks = os.path.join(base, "masks")
+    os.makedirs(masks)
+    types = {f"test_{i}": ("tumor" if i % 2 else "normal")
+             for i in range(len(sizes))}
+    reference = os.path.join(base, "reference.csv")
+    with open(reference, "w") as f:
+        f.write("image,type\n" + "".join(f"{s}.tif,{t.title()}\n"
+                                         for s, t in types.items()))
+    rows = -(-max(sizes) // 100)
+    lab5 = np.zeros((rows * 16, 100 * 16), np.uint8)     # 512 px / 32
+    lab5[:40, :500] = 2
+    lab5[150:230, 900:1300] = 2
+    lab5[300:302, 1500:1502] = 2
+    first = None
+    for slide, t in types.items():
+        path = os.path.join(masks, f"{slide}_mask.tif")
+        if t != "tumor":
+            continue
+        if first is None:
+            write_label_pyramid(path, lab5, 32, 6)
+            first = path
+        else:
+            os.link(first, path)
+    return reference, masks, types
+
+
+@contextlib.contextmanager
+def froc_calls(calls):
+    """Inside it, eval.froc.froc_for_slides keeps each call's detections,
+    types and score in `calls`."""
+    from snuffy_tpu_torch.eval import froc
+
+    real = froc.froc_for_slides
+
+    def kept(dets, mask_for, types, *a, **k):
+        out = real(dets, mask_for, types, *a, **k)
+        calls.append((dets, types, out[0]))
+        return out
+
+    froc.froc_for_slides = kept
+    try:
+        yield calls
+    finally:
+        froc.froc_for_slides = real
+
+
+def check_cli_froc(label, summary, calls, masks, types):
+    """The FROC the run's test evaluations scored, each equal to
+    froc_for_slides recomputed from the detections the run built."""
+    import os
+
+    from snuffy_tpu_torch.eval import froc
+
+    if len(calls) != 2:
+        raise AssertionError(f"{label}: {len(calls)} FROC calls, not 2")
+    for tag, (dets, got_types, score) in zip(("best", "last"), calls):
+        got = summary[f"test_{tag}"][f"epoch_test_{tag}_challenge_froc_score"]
+        again, _, _ = froc.froc_for_slides(
+            dets, lambda s: os.path.join(masks, f"{s}_mask.tif"), types, 5)
+        if got_types != types or not got == score == again or not (
+                0.0 <= got <= 1.0):
+            raise AssertionError(f"{label}: test_{tag} FROC {got}, "
+                                 f"recomputed {again}")
+        n = sum(len(d) for d in dets.values())
+        log(f"    test_{tag}_challenge_froc_score {got:.6f} from {n} "
+            "detections: equal to froc_for_slides recomputed from them")
+
+
 def phase_cli(dev, fa, kernels):
     """The port's training CLI on the card, in a temporary working
     directory: (a) the Camelyon16 recipe in f32, serial and packed steps of
@@ -1467,10 +1573,13 @@ def phase_cli(dev, fa, kernels):
             tcga_bytes += write_cli_tree(root, "tcga", CLI_SPLITS[2:], 22,
                                          labelled_test=False)
             write_musk1(root, 23)
+            reference, masks, froc_types = write_cli_froc_fixture(
+                root, CLI_SPLITS[2][1])
             log(f"  trees written in {time.perf_counter() - t0:.2f} s: "
                 f"camelyon16 {csv_bytes / 2 ** 20:.1f} MiB of CSV, tcga "
                 "(its train and valid bags linked) and a musk1 pickle of "
-                f"{MUSK1_BAGS} bags")
+                f"{MUSK1_BAGS} bags; reference.csv and the test slides' "
+                "masks")
             measure_load(root, "camelyon16", labelled_test=True)
             musk_train = [len(f) for f in load_mil_data(
                 "musk1", 166, 10, 0, 0.2)[0][1]]
@@ -1497,13 +1606,19 @@ def phase_cli(dev, fa, kernels):
             for label, tag, argv, c, nbytes, sizes in runs:
                 argv = argv + [f"--wandb_run={tag}"]
                 torch.cuda.synchronize()
-                with capture_calls(fa, captured.setdefault(label, {})):
+                scored = []
+                with capture_calls(fa, captured.setdefault(label, {})), \
+                        froc_calls(scored):
                     kernels.reset_launches()
                     summary = train_cli(argv)
                     torch.cuda.synchronize()
                     got = kernels.launch_counts()
                 check_cli_run(label, argv, summary, c, nbytes, sizes, got,
                               kernels)
+                if "--dataset=camelyon16" in argv:
+                    check_cli_froc(label, summary, scored, masks, froc_types)
+                elif scored:
+                    raise AssertionError(f"{label}: scored a FROC")
                 for name, n in got.items():
                     counts[name] = counts.get(name, 0) + n
         finally:
@@ -2042,6 +2157,541 @@ def phase_resnet50(dev):
                  f_gpu.cpu(), f_cpu, CONV_TOL)
 
 
+# ---------------------------------------------------------------- phase 12
+
+# The ROI fixture: phase 5b's SLIDE_GRID² slide carried down to an 8x
+# level (the ROI's --thumb_level 3), named as a Camelyon16 test slide; an
+# ASAP polygon over grid columns ROI_COLS and rows ROI_ROWS, inset 64 px
+# from their edges; the nested layout on a NESTED_GRID² slide.
+ROI_SLIDE, ROI_COLS, ROI_ROWS, NESTED_GRID = "test_001", (30, 60), (20, 40), 24
+# A Camelyon16 slide's level-5 mask (≈ 97792 × 221184 px at level 0 over
+# 32), and the scanners' 0.243 µm level-0 spacing.
+FROC_MASK_SHAPE, FROC_SPACING_UM = (3056, 6912), 0.243
+ROI_SUBSET = 300
+# The DINO ROI run embeds the bag's first ROI_DINO_TILES tiles: its JPEG
+# decode and resize run in the CLI's one process at ≈ 110 tiles/s on an
+# H100 host (PERF.md), and the whole bag would take ≈ 68 s of the run.
+ROI_DINO_TILES = 2500
+
+
+def write_roi_polygon(path):
+    """The ASAP XML of phase 12's polygon; returns the (col, row) grid
+    tiles it covers."""
+    (c0, c1), (r0, r1) = ROI_COLS, ROI_ROWS
+    x0, x1, y0, y1 = 256 * c0 + 64, 256 * c1 - 64, 256 * r0 + 64, 256 * r1 - 64
+    coords = "".join(f'<Coordinate Order="{i}" X="{x}" Y="{y}"/>'
+                     for i, (x, y) in enumerate(((x0, y0), (x1, y0),
+                                                 (x1, y1), (x0, y1))))
+    with open(path, "w") as f:
+        f.write('<ASAP_Annotations><Annotations><Annotation Name="_0" '
+                'Type="Polygon" PartOfGroup="Tumor"><Coordinates>'
+                f"{coords}</Coordinates></Annotation></Annotations>"
+                "</ASAP_Annotations>")
+    return {(c, r) for c in range(c0, c1) for r in range(r0, r1)}
+
+
+def write_label_pyramid(path, lab_top, factor, pages, spacing_um=0.243):
+    """A label TIFF whose page `pages - 1` is `lab_top` and page 0 is it
+    blown up by `factor` (nearest), each page half the one before."""
+    import numpy as np
+
+    from snuffy_tpu_torch import native
+
+    lab0 = np.repeat(np.repeat(lab_top, factor, axis=0), factor, axis=1)
+    native.write_tiled_tiff_gray(
+        path, [lab0[::2 ** i, ::2 ** i] for i in range(pages)], tile=512,
+        spacing_um=spacing_um)
+    return lab0
+
+
+def roi_mask_at_level3(grid):
+    """The ROI fixture's tumour labels at the 8x level (grid·32 px a
+    side): the polygon's block, a disc, a thin bar and an ITC-sized
+    speck, over a background of label 1 in one corner."""
+    import numpy as np
+
+    side = grid * 32
+    lab = np.zeros((side, side), np.uint8)
+    lab[:200, :200] = 1
+    (c0, c1), (r0, r1) = ROI_COLS, ROI_ROWS
+    lab[32 * r0 + 8:32 * r1 - 8, 32 * c0 + 8:32 * c1 - 8] = 2
+    yy, xx = np.mgrid[0:side, 0:side]
+    lab[(yy - 2200) ** 2 + (xx - 900) ** 2 <= 260 ** 2] = 2
+    lab[2800:2830, 1800:2600] = 2
+    lab[500:503, 2900:2903] = 2
+    return lab
+
+
+def contour_band(tumor):
+    """The band mask_contour draws, by scipy's morphology (an independent
+    implementation): the 3x3 gradient (no erosion from outside the image),
+    dilated by 3x3."""
+    import numpy as np
+    import scipy.ndimage as ndi
+
+    m = tumor > 0
+    box = np.ones((3, 3), bool)
+    grad = ndi.binary_dilation(m, box) & ~ndi.binary_erosion(
+        m, box, border_value=1)
+    return ndi.binary_dilation(grad, box)
+
+
+def phase_tile_and_split(root):
+    """12a-b: the Camelyon16 tiler CLI at its defaults on the ROI fixture
+    and the nested layout on a small slide, then the splitter, n-shot and
+    reverser CLIs. Returns (bag dir after the split, fixture paths)."""
+    import csv
+    import os
+
+    import numpy as np
+
+    from snuffy_tpu_torch import deepzoom_tiler_camelyon16 as tiler_cli
+    from snuffy_tpu_torch.data.splits import n_shot_subset
+    from snuffy_tpu_torch.datasets.camelyon16 import (
+        train_validation_test_reverse_camelyon as reverse_cli,
+    )
+    from snuffy_tpu_torch.datasets.camelyon16 import (
+        train_validation_test_splitter_camelyon as split_cli,
+    )
+
+    log(f"== phase 12a: the Camelyon16 tiler CLI at its defaults (-j 8, "
+        f"256², q75, -t 20) on phase 5b's {SLIDE_GRID}x{SLIDE_GRID} slide "
+        "carried down to 8x, with an ASAP polygon")
+    base = os.path.join(root, "datasets", "camelyon16")
+    for d in ("1_tumor", "0_normal", "annotations", "masks"):
+        os.makedirs(os.path.join(base, d))
+    slide = os.path.join(base, "1_tumor", f"{ROI_SLIDE}.tif")
+    t0 = time.perf_counter()
+    tissue = write_slide(slide, SLIDE_GRID, seed=31, levels=3)
+    covered = write_roi_polygon(os.path.join(base, "annotations",
+                                             f"{ROI_SLIDE}.xml"))
+    lab3 = roi_mask_at_level3(SLIDE_GRID)
+    write_label_pyramid(os.path.join(base, "masks",
+                                     f"{ROI_SLIDE}_mask.tif"), lab3, 8, 4)
+    log(f"  fixture: {len(tissue)} tissue tiles of {SLIDE_GRID ** 2}, "
+        f"levels 1x-8x, {os.path.getsize(slide) / 2 ** 20:.1f} MiB, and a "
+        f"4-page label mask; written in {time.perf_counter() - t0:.2f} s")
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        t0 = time.perf_counter()
+        tiler_cli.main([])
+        tile_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    bag = os.path.join(base, "single", "1_tumor", ROI_SLIDE)
+    names = sorted(os.listdir(bag))
+    dz_level = int(np.ceil(np.log2(256 * SLIDE_GRID)))
+    want = sorted(f"{c}_{r}-{dz_level}.jpeg" for c, r in tissue)
+    log(f"  tiled {len(names)} of {SLIDE_GRID ** 2} grid tiles in "
+        f"{tile_s:.3f} s: {len(names) / tile_s:.1f} kept tiles/s, "
+        f"{SLIDE_GRID ** 2 / tile_s:.1f} grid tiles/s (8 worker processes, "
+        "host clock)")
+    if names != want:
+        raise AssertionError(f"kept {len(names)} tiles, not the fixture's "
+                             f"{len(want)} tissue tiles")
+    with open(os.path.join(base, "tile_label.csv"), newline="") as f:
+        labels = {row[0]: int(row[1]) for row in csv.reader(f)}
+    expect = {f"{ROI_SLIDE}_{c}_{r}": int((c, r) in covered)
+              for c, r in tissue}
+    if labels != expect:
+        raise AssertionError("tile_label.csv does not match the polygon")
+    log(f"  tile_label.csv: {len(labels)} rows, {sum(labels.values())} "
+        "tumour tiles, those the polygon covers")
+
+    nested = os.path.join(root, "datasets", "nested")
+    os.makedirs(os.path.join(nested, "1_tumor"))
+    small = write_slide(os.path.join(nested, "1_tumor", "tumor_009.tif"),
+                        NESTED_GRID, seed=32)
+    os.chdir(root)
+    try:
+        t0 = time.perf_counter()
+        tiler_cli.main(["-d", "nested", "-m", "0", "1"])
+        nested_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    nbag = os.path.join(nested, "single", "1_tumor", "tumor_009")
+    subs = [d for d in os.listdir(nbag)
+            if os.path.isdir(os.path.join(nbag, d))]
+    lows = [f for f in os.listdir(nbag) if f.endswith(".jpeg")]
+    highs = sum(len(os.listdir(os.path.join(nbag, d))) for d in subs)
+    for d in subs:
+        c, r = (int(v) for v in d.split("-")[0].split("_"))
+        for f in os.listdir(os.path.join(nbag, d)):
+            hc, hr = (int(v) for v in f.split("-")[0].split("_"))
+            if (hc // 2, hr // 2) != (c, r):
+                raise AssertionError(f"{d}/{f} is not under its low patch")
+    # a tissue tile stays under its low patch where that patch (the 2x2
+    # tiles it covers, at half size) is not background
+    parents = {tuple(int(v) for v in f.split("-")[0].split("_"))
+               for f in lows}
+    want_high = [t for t in small if (t[0] // 2, t[1] // 2) in parents]
+    if not subs or highs != len(want_high):
+        raise AssertionError(f"nested: {highs} high tiles in {len(subs)} "
+                             f"folders, not {len(want_high)}")
+    log(f"  nested (-m 0 1) on a {NESTED_GRID}x{NESTED_GRID} slide: "
+        f"{len(lows)} low patches, {len(subs)} folders holding {highs} "
+        f"high patches (the {len(small)} tissue tiles under a kept low "
+        f"patch), {nested_s:.3f} s")
+    # the tiler's cost a grid tile, in one process and in 8 spawned ones
+    from snuffy_tpu_torch.tiling.deepzoom import TilerConfig, tile_slide
+
+    for workers in (0, 8):
+        cfg = TilerConfig(tile_size=256, objective_power=20, base_mag=20,
+                          background_threshold=20, workers=workers)
+        t0 = time.perf_counter()
+        tile_slide(os.path.join(nested, "1_tumor", "tumor_009.tif"),
+                   os.path.join(root, f"tiles_{workers}"), cfg)
+        dt = time.perf_counter() - t0
+        log(f"  tile_slide on its {NESTED_GRID ** 2} grid tiles, "
+            f"{'in one process' if not workers else '8 spawned workers'}: "
+            f"{dt:.4f} s, {1e3 * dt / NESTED_GRID ** 2:.3f} ms a grid tile")
+
+    log("== phase 12b: the splitter, n-shot and reverser CLIs on that tree")
+    for i in range(1, 5):      # four small normal bags beside the slide
+        d = os.path.join(base, "single", "0_normal", f"normal_{i:03}")
+        os.makedirs(d)
+        for name in names[3 * i:3 * i + 3]:
+            os.link(os.path.join(bag, name), os.path.join(d, name))
+    with open(os.path.join(base, "reference.csv"), "w") as f:
+        f.write("image,type\n" + "".join(f"normal_{i:03}.tif,Normal\n"
+                                         for i in range(1, 5))
+                + f"{ROI_SLIDE}.tif,Tumor\n")
+    os.chdir(base)
+    try:
+        rows = split_cli.main([])
+        fold = os.path.join("single", "fold1")
+        shot = n_shot_subset(os.path.join(fold, "train"),
+                             os.path.join(fold, "train_2shot"), 2, seed=0)
+        moved = reverse_cli.main([])
+        restored = sorted(os.listdir(os.path.join("single", "1_tumor",
+                                                  ROI_SLIDE)))
+        rows = split_cli.main([])
+    finally:
+        os.chdir(cwd)
+    split = {r["name"]: r["split"] for r in rows}
+    if (split[ROI_SLIDE] != "test" or moved != 5 or restored != names
+            or shot != 6):
+        raise AssertionError(f"split {split}, moved back {moved}, n-shot "
+                             f"{shot}")
+    log(f"  fold1: {split}; n-shot kept {shot} patches; the reverser moved "
+        f"{moved} slides back, the bag intact; split again")
+    bag = os.path.join(base, "single", "fold1", "test", "1_tumor", ROI_SLIDE)
+    return bag, base, tissue, lab3
+
+
+def write_aggregator(path, cfg):
+    """A seeded MILNet of `cfg` saved as a reference `.pth`."""
+    import torch
+
+    from snuffy_tpu_torch.models.snuffy import build_milnet
+
+    torch.save(build_milnet(cfg, seed=3, device=torch.device("cpu"))
+               .state_dict(), path)
+
+
+def roi_argv(bag_glob, base, weights, out, device, extra=()):
+    import os
+
+    return ["--aggregator_weights", weights, "--bags_path", bag_glob,
+            "--slides_path", os.path.join(base, "1_tumor"),
+            "--masks_path", os.path.join(base, "masks"), "--output", out,
+            "--device", device, *extra]
+
+
+def phase_roi(root, bag, base, lab3, fa, kernels, dev):
+    """12c: the ROI CLI's `main` over the tiled bag, SimCLR ResNet-18 at
+    its defaults (4 heads) and DINO ViT-S/16; K1's and K5's first call at
+    each shape kept; the PNG read back; a 300-tile subset on the card
+    against the CPU. Returns (launches, kept K1 calls, kept K5 calls, the
+    SimCLR record)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from snuffy_tpu_torch import roi
+    from snuffy_tpu_torch.configs import SnuffyModelConfig
+    from snuffy_tpu_torch.viz.heatmap import mask_contour
+    from snuffy_tpu_torch.viz.png import read_png
+
+    defaults = roi.get_args_parser().parse_args(
+        ["--aggregator_weights", "-", "--bags_path", "-"])
+    runs = (("SimCLR ResNet-18", [], 4, 512, None),
+            ("DINO ViT-S/16", ["--embedder", "DINO", "--backbone",
+                               "vit_small", "--feats_size", "384"], 6, 384,
+             ROI_DINO_TILES))
+    log(f"== phase 12c: the ROI CLI (python -m snuffy_tpu_torch.roi) over "
+        f"the tiled bag, f32, depth {defaults.depth}, Lambda "
+        f"{defaults.big_lambda}, thumbnail level {defaults.thumb_level}")
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    k1_calls, k5_calls, first = {}, {}, None
+    def subset_of(tiles):
+        """A bag directory of the bag's first `tiles` tiles (links)."""
+        d = os.path.join(root, f"first_{tiles}", ROI_SLIDE)
+        os.makedirs(d)
+        for name in sorted(os.listdir(bag))[:tiles]:
+            os.symlink(os.path.join(bag, name), os.path.join(d, name))
+        return os.path.join(root, f"first_{tiles}", "*")
+
+    small = subset_of(ROI_SUBSET)
+    thumb = lab3 == 2
+    want_band = contour_band(thumb)
+    for label, flags, heads, d, tiles in runs:
+        weights = os.path.join(root, f"milnet_{d}.pth")
+        cfg = SnuffyModelConfig(
+            feats_size=d, num_heads=heads, big_lambda=defaults.big_lambda,
+            random_patch_share=defaults.random_patch_share,
+            depth=defaults.depth)
+        write_aggregator(weights, cfg)
+        extra = flags + ["--num_heads", str(heads)]
+        out = os.path.join(root, f"roi_{d}")
+        torch.cuda.synchronize()
+        with capture_calls(fa, k1_calls), dense_calls(k5_calls):
+            kernels.reset_launches()
+            (rec,) = roi.main(roi_argv(subset_of(tiles) if tiles else bag,
+                                       base, weights, out, "cuda", extra))
+            torch.cuda.synchronize()
+            got = kernels.launch_counts()
+        n = len(rec["scores"])
+        batches = math.ceil(n / defaults.batch_size)
+        want_k5 = 12 * batches if "DINO" in label else 0
+        which = " (the bag's first)" if tiles else ""
+        log(f"  {label} (d={d}, {heads} heads, dk={d // heads}): {n} tiles"
+            f"{which}, "
+            f"embed_s {rec['embed_s']:.4f} ({n / rec['embed_s']:.1f} "
+            f"tiles/s, JPEG decode included) classify_s "
+            f"{rec['classify_s']:.4f} per bag; bag score "
+            f"{rec['bag_score']:.6f}; launches {got}")
+        if (got[kernels.FWD.name] != cfg.depth or got[kernels.BWD.name]
+                or got[kernels.DENSE.name] != want_k5):
+            raise AssertionError(f"{label}: launches {got}, not K1 "
+                                 f"{cfg.depth} and K5 {want_k5}")
+        for k, v in got.items():
+            launches[k] += v
+        scores = np.append(rec["scores"], rec["bag_score"])
+        if not (np.isfinite(scores).all() and (scores >= 0).all()
+                and (scores <= 1).all()):
+            raise AssertionError(f"{label}: scores not finite in [0, 1]")
+        img = read_png(rec["png"])
+        green = (img[..., :3] == (0, 255, 0)).all(-1)
+        if img.shape != thumb.shape + (4,) or not (img[..., 3] == 255).all():
+            raise AssertionError(f"{label}: PNG {img.shape}, not the "
+                                 f"thumbnail's {thumb.shape}")
+        if not (np.array_equal(green, want_band)
+                and np.array_equal(green, mask_contour(thumb))):
+            raise AssertionError(f"{label}: the green contour is not the "
+                                 "mask's boundary band")
+        log(f"    PNG {img.shape[1]}x{img.shape[0]} RGBA read back: "
+            f"{int(green.sum())} green pixels, all on the mask's boundary "
+            "band (scipy's morphology)")
+        first = first or rec
+
+        # the same models, card against CPU, on a 300-tile subset
+        (gpu,) = roi.main(roi_argv(small, base, weights, out + "_gpu",
+                                   "cuda", extra))
+        (cpu,) = roi.main(roi_argv(small, base, weights, out + "_cpu",
+                                   "cpu", extra))
+        check_scores(f"{label}, {ROI_SUBSET} tiles: instance scores GPU vs "
+                     "CPU", gpu["scores"], cpu["scores"], SCORE_TOL)
+        check_scores(f"{label}: bag score GPU vs CPU", [gpu["bag_score"]],
+                     [cpu["bag_score"]], SCORE_TOL)
+    return launches, k1_calls, k5_calls, first
+
+
+def phase_roi_kernels(fa, plain, plain_bwd, kernels, k1_calls, k5_calls):
+    """12d: K1 (f32 at dk=128 and dk=64) and K5 (f32) on the inputs the
+    ROI runs gave them: error against the tolerance, two launches bitwise
+    equal, one-call and back-to-back times beside the bound; ptxas's
+    registers and spills for K1's f32 tensor-core body at dk=128."""
+    import torch
+
+    from snuffy_tpu_torch.ops.dense_attention import (
+        dense_attention_reference,
+        fused_self_attention,
+    )
+
+    log("== phase 12d: K1 and K5 against their plain versions on the inputs "
+        "the ROI runs gave them")
+    built = kernels.load_kernel(kernels.FWD.name)
+    lines = [line for line in ptxas_summary(built.log)
+             if "tf32" in line and "Li128]" in line]
+    if built.log and not lines:
+        raise AssertionError("no ptxas line for K1's f32 tensor-core body at "
+                             "dk=128")
+    for line in lines or ["(built before this run: no ptxas output)"]:
+        log(f"    ptxas {line}")
+    k1_err = 0.0
+    dks = sorted(key[3] for key in k1_calls)
+    if dks != [64, 128]:
+        raise AssertionError(f"the ROI runs gave K1 dk {dks}, not 64 and 128")
+    for (h, kn, ks, dk, seg, rate), call in sorted(k1_calls.items()):
+        err, _ = check_cli_call(fa, plain, plain_bwd, call, seg, rate, True)
+        k1_err = max(k1_err, err)
+    (shape,) = [s for s in k5_calls if s != "errors"]
+    q, k, v, n_valid = k5_calls[shape]
+    with torch.inference_mode():
+        got = fused_self_attention(q, k, v, n_valid)
+        k5_err = check_kernel(f"K5 f32 {tuple(q.shape)} out", got,
+                              dense_attention_reference(q, k, v, n_valid),
+                              DENSE_TOL["float32"])
+        if not torch.equal(fused_self_attention(q, k, v, n_valid), got):
+            raise AssertionError("K5: two launches on the same inputs differ")
+    time_dense(f"the ROI's ViT-S/16 batch {q.shape[0] // 6}", q, k, v,
+               n_valid)
+    return k1_err, k5_err
+
+
+def phase_froc(roi_record, base, lab3):
+    """12e: the ROI's instance scores as detections against the fixture's
+    mask; then compute_evaluation_mask and EvalMaskCache (cold, warm in
+    memory, warm from the npz) on a Camelyon16 level-5-sized label mask,
+    its ITC set and score against an ArrayMaskReader of the same array."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from snuffy_tpu_torch.eval import froc
+
+    log("== phase 12e: FROC")
+    path = os.path.join(base, "masks", f"{ROI_SLIDE}_mask.tif")
+    dets = {ROI_SLIDE: [
+        (float(p), 256 * int(pos.split("_")[0]) + 128,
+         256 * int(pos.split("_")[1]) + 128)
+        for p, pos in zip(roi_record["scores"], roi_record["positions"])]}
+    types = {ROI_SLIDE: "tumor"}
+    t0 = time.perf_counter()
+    score, fps, sens = froc.froc_for_slides(dets, lambda s: path, types, 5)
+    froc_s = time.perf_counter() - t0
+    arr = froc.ArrayMaskReader({5: froc.MaskLevel(
+        lab3[::4, ::4], 32.0, FROC_SPACING_UM)})
+    want = froc.froc_for_slides(dets, lambda s: arr, types, 5)
+    if (score, fps, sens) != want or not 0.0 <= score <= 1.0:
+        raise AssertionError(f"ROI FROC {score} from the TIFF, {want[0]} "
+                             "from the array")
+    log(f"  the ROI's {len(dets[ROI_SLIDE])} instance scores as detections "
+        f"(tile centres at level 0) against the fixture's mask, level 5: "
+        f"score {score:.6f}, {len(fps)} curve points, {froc_s:.4f} s; the "
+        "same from an ArrayMaskReader")
+
+    h, w = FROC_MASK_SHAPE
+    rng = np.random.default_rng(41)
+    lab = np.zeros((h, w), np.uint8)
+    lab[rng.random((h, w)) < 0.002] = 1
+    yy, xx = np.ogrid[0:h, 0:w]
+    for cy, cx, ry, rx in ((500, 900, 160, 220), (1800, 3000, 90, 60),
+                           (2600, 5800, 240, 310), (1200, 6100, 40, 45),
+                           (2900, 400, 120, 80)):
+        lab[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1] = 2
+    lab[700:703, 4500:4503] = 2                        # an ITC
+    lab[2200:2202, 1500:1502] = 2                      # an ITC
+    # the page is the file's level 0 at the level-5 spacing (0.243 µm x 32)
+    with tempfile.TemporaryDirectory() as tmp:
+        mpath = os.path.join(tmp, "tumor_level5_mask.tif")
+        from snuffy_tpu_torch import native
+
+        native.write_tiled_tiff_gray(mpath, [lab], tile=512,
+                                     spacing_um=FROC_SPACING_UM * 32)
+        reader = froc.NativeMaskReader(mpath)
+        t0 = time.perf_counter()
+        ev, itcs = froc.compute_evaluation_mask(reader, 0, False)
+        plain_s = time.perf_counter() - t0
+        ref = froc.ArrayMaskReader({5: froc.MaskLevel(lab, 32.0,
+                                                      FROC_SPACING_UM)})
+        ev_a, itcs_a = froc.compute_evaluation_mask(ref, 5, False)
+        if not (np.array_equal(ev, ev_a) and itcs == itcs_a and itcs):
+            raise AssertionError("the level-5 mask's evaluation mask or ITCs "
+                                 "differ from the ArrayMaskReader's")
+        cache_dir = os.path.join(tmp, "cache")
+        cache = froc.EvalMaskCache(cache_dir)
+        times = []
+        for c in (cache, cache, froc.EvalMaskCache(cache_dir)):
+            t0 = time.perf_counter()
+            entry = c.get(mpath, 0, False)
+            times.append(time.perf_counter() - t0)
+            if not (np.array_equal(entry[0], ev) and entry[1] == itcs):
+                raise AssertionError("EvalMaskCache served another mask")
+        # detections at mask pixels: level-0 coordinates of the array
+        # (level 5, downsample 32), the file's own of its page
+        px = [(0.9, 900, 500), (0.7, 3000, 1800), (0.5, 1, 1),
+              (0.3, 4501, 701), (0.2, 6000, 2600)]
+        s_file = froc.froc_for_slides({"m": px}, lambda s: mpath,
+                                      {"m": "tumor"}, 0, mask_cache=cache)
+        s_arr = froc.froc_for_slides(
+            {"m": [(p, 32.0 * x, 32.0 * y) for p, x, y in px]},
+            lambda s: ref, {"m": "tumor"}, 5)
+        if s_file != s_arr:
+            raise AssertionError(f"level-5 mask: score {s_file[0]} from the "
+                                 f"TIFF, {s_arr[0]} from the array")
+        npz = len(os.listdir(cache_dir))
+        reader.close()
+    log(f"  a {w}x{h} level-5 label mask (spacing {FROC_SPACING_UM} um at "
+        f"level 0; {int(ev.max())} regions, {len(itcs)} ITCs): "
+        f"compute_evaluation_mask {plain_s:.4f} s; EvalMaskCache cold "
+        f"{times[0]:.4f} s, warm in memory {times[1]:.6f} s, warm from the "
+        f"npz {times[2]:.4f} s ({npz} npz); ITCs and score "
+        f"{s_file[0]:.6f} equal the ArrayMaskReader's (host clock)")
+
+
+def phase_dsmil(dev):
+    """12g: the port's DSMIL MILNet (feats 512, C=2, 10000 rows padded to
+    10240) on the card against the CPU, f32."""
+    import copy
+
+    import torch
+
+    from snuffy_tpu_torch.models.dsmil import build_dsmil
+
+    log("== phase 12g: DSMIL MILNet (512-d, C=2, 10000 rows in 10240), f32, "
+        "GPU vs CPU")
+    cpu = build_dsmil(512, 2, seed=5, device=torch.device("cpu"))
+    gpu = copy.deepcopy(cpu).to(dev)
+    gen = torch.Generator().manual_seed(6)
+    feats = torch.randn((10240, 512), generator=gen)
+    mask = torch.arange(10240) < 10000
+    feats[10000:] = 0
+    with torch.inference_mode():
+        want = cpu(feats, mask)
+        got = gpu(feats.to(dev), mask.to(dev))
+        torch.cuda.synchronize()
+    for name, g, w in zip(("instance logits", "bag logits", "attention"),
+                          got, want):
+        check_kernel(f"DSMIL {name} (relative to max |CPU|)", g.cpu(), w,
+                     1e-5)
+    if not (got[2][10000:] == 0).all():
+        raise AssertionError("DSMIL: padded rows got attention")
+
+
+def report_matplotlib():
+    try:
+        import matplotlib
+    except ImportError as e:
+        log(f"  matplotlib: not importable ({e}); plot_froc is the one "
+            "caller")
+        return
+    log(f"  matplotlib {matplotlib.__version__} imports (plot_froc's "
+        "lazy import)")
+
+
+def phase_eval_viz(fa, plain, plain_bwd, kernels, dev):
+    """Phase 12: tile, split, ROI heat maps, their kernels, FROC and DSMIL.
+    Returns (launches of the ROI runs, K1's and K5's worst errors)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        bag, base, tissue, lab3 = phase_tile_and_split(root)
+        launches, k1_calls, k5_calls, rec = phase_roi(root, bag, base, lab3,
+                                                      fa, kernels, dev)
+        k1_err, k5_err = phase_roi_kernels(fa, plain, plain_bwd, kernels,
+                                           k1_calls, k5_calls)
+        del k1_calls, k5_calls
+        phase_froc(rec, base, lab3)
+    phase_dsmil(dev)
+    report_matplotlib()
+    return launches, k1_err, k5_err
+
+
 def build_kernels(kernels):
     """Build every kernel at once, one nvcc each; print ptxas's lines."""
     with concurrent.futures.ThreadPoolExecutor(len(kernels.KERNELS)) as pool:
@@ -2155,26 +2805,31 @@ def main() -> int:
     embedders_launches, k5_vitl_err = phase_extract_embedders(dev, kernels)
     phase_vit_grid(dev)
     phase_resnet50(dev)
+    roi_launches, k1_roi_err, k5_roi_err = phase_eval_viz(
+        fa, packed_inverted_sparse_attention,
+        packed_inverted_sparse_attention_bwd, kernels, dev)
 
     log(f"  main-path kernel launches: serve {serve_launches}, whole slide "
         f"{slide_launches}, eval {eval_launches}, extraction "
         f"{extract_launches}, train {train_launches}, training CLI "
         f"{cli_launches}, SimCLR serve (slide CLI and requests) "
-        f"{simclr_launches}, SimCLR/MAE extraction {embedders_launches}")
+        f"{simclr_launches}, SimCLR/MAE extraction {embedders_launches}, "
+        f"ROI heat maps {roi_launches}")
     log(f"  K1 at dk=128, one bag: kernel {k1_dk128_record[0]:.4f} ms "
         f"(device {k1_dk128_record[4]:.4f}), bound {k1_dk128_record[2]:.4f} "
         f"ms ({k1_dk128_record[3]})")
     paths = (serve_launches, slide_launches, eval_launches, extract_launches,
              train_launches, cli_launches, simclr_launches,
-             embedders_launches)
+             embedders_launches, roi_launches)
     no_library = None  # no one PyTorch call computes the slot sums σᵀv
     records = []
     for kernel, err, (ms, plain_ms, bound, bound_by, library_ms) in (
-            (kernels.FWD, max(fwd_err, k1_cli_err, k1_dk128_err),
-             (*fwd_record, no_library)),
+            (kernels.FWD, max(fwd_err, k1_cli_err, k1_dk128_err,
+                              k1_roi_err), (*fwd_record, no_library)),
             (kernels.BWD, max(bwd_err, k2_cli_err),
              (*bwd_record, no_library)),
-            (kernels.DENSE, max(dense_err, k5_vitl_err), dense_record)):
+            (kernels.DENSE, max(dense_err, k5_vitl_err, k5_roi_err),
+             dense_record)):
         records.append({
             "name": kernel.name,
             "route": "cuda",

@@ -5,6 +5,9 @@
   milnet_state_dict(params)     flax MILNet params → reference-keyed numpy
                                 state dict (the map of
                                 snuffy_tpu/embed/torch_export.py:28-59)
+  dsmil_from_jax(params, ...)   flax DSMIL MILNet params → port DSMIL
+                                MILNet, loaded strict through
+                                `dsmil_state_dict` (the reference names)
   vit_from_jax(params)          flax ViT params (± adapter) → DINO-keyed
                                 numpy state dict (the inverse of
                                 snuffy_tpu/embed/torch_import.py:import_vit)
@@ -75,6 +78,43 @@ def milnet_from_jax(params: dict, cfg: SnuffyModelConfig,
     sd = {k: torch.from_numpy(v) for k, v in milnet_state_dict(params).items()}
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def dsmil_state_dict(params: dict) -> Dict[str, np.ndarray]:
+    """flax DSMIL MILNet tree → the reference dsmil.py names: q1/q2 →
+    `b_classifier.q.0`/`.q.2` (`b_classifier.q` without q2), v →
+    `b_classifier.v.1`, the Conv1d kernel (C, C, V) as it is."""
+    def dense(tree, name):
+        sd[f"{name}.weight"] = _f32(np.asarray(tree["kernel"]).T)
+        sd[f"{name}.bias"] = _f32(tree["bias"])
+
+    sd: Dict[str, np.ndarray] = {}
+    dense(params["i_classifier"]["fc"], "i_classifier.fc.0")
+    bc = params["b_classifier"]
+    if "q2" in bc:
+        dense(bc["q1"], "b_classifier.q.0")
+        dense(bc["q2"], "b_classifier.q.2")
+    else:
+        dense(bc["q1"], "b_classifier.q")
+    if "v" in bc:
+        dense(bc["v"], "b_classifier.v.1")
+    sd["b_classifier.fcc.weight"] = _f32(bc["fcc_kernel"])
+    sd["b_classifier.fcc.bias"] = _f32(bc["fcc_bias"])
+    return sd
+
+
+def dsmil_from_jax(params: dict, feats_size: int, num_classes: int = 1,
+                   nonlinear: bool = True, passing_v: bool = False,
+                   device: Optional[torch.device] = None):
+    """A port DSMIL MILNet in eval mode on `device` (the card unless the
+    caller passes another) holding the flax parameters."""
+    from snuffy_tpu_torch.models.dsmil import MILNet as DsmilNet
+
+    model = DsmilNet(feats_size, num_classes, nonlinear=nonlinear,
+                     passing_v=passing_v)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           dsmil_state_dict(params).items()}, strict=True)
+    return model.to(device or torch.device("cuda")).eval()
 
 
 def _vit_blocks(sd: Dict[str, np.ndarray], params: dict) -> None:

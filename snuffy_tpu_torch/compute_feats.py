@@ -112,21 +112,31 @@ def class_labels_of(fold_root: str) -> dict:
     return {c: i for i, c in enumerate(names)}
 
 
-def main(argv=None):
-    args = get_args_parser().parse_args(argv)
-    validate_args(args)
-    device = resolve_device(args.device)
+def build_and_load_embedder(args, device: torch.device):
+    """The embedder the flags name, on `device`, with `args.weights`
+    overlaid (the root compute_feats.py's `build_and_load_embedder`; also
+    the ROI CLI's). `compute_dtype` and `transform` default to f32 and
+    none when `args` lacks them."""
     embedder = build_embedder(
         args.embedder, args.backbone, num_classes=args.num_classes,
         patch_size=args.patch_size, use_adapter=args.use_adapter,
         adapter_ffn_num=args.ffn_num,
         adapter_ffn_scalar=args.adapter_ffn_scalar,
-        norm_layer=args.norm_layer, compute_dtype=args.compute_dtype,
-        imagenet_norm=bool(args.transform), device=device,
+        norm_layer=args.norm_layer,
+        compute_dtype=getattr(args, "compute_dtype", "float32"),
+        imagenet_norm=bool(getattr(args, "transform", 0)), device=device,
     )
     if args.weights:
         load_embedder_weights(embedder.backbone, args.weights, args.embedder,
                               args.backbone, args.norm_layer)
+    return embedder
+
+
+def main(argv=None):
+    args = get_args_parser().parse_args(argv)
+    validate_args(args)
+    device = resolve_device(args.device)
+    embedder = build_and_load_embedder(args, device)
 
     dataset_path = os.path.join(args.datasets_path, args.dataset)
     version = (f"{args.embedder}"

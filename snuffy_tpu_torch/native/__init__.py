@@ -1,10 +1,12 @@
 """ctypes binding of the slide reader and JPEG codec (`slide_reader.cpp`).
 
 The port's copy of the slide half of `snuffy_tpu/native`, with the same
-names and return shapes: `NativeSlide` (levels, `read_region`, the grid
-block reads `read_grid` and `read_grid_scaled`, `scaled_grid_ok`),
-`write_tiled_tiff`, plus `write_jpeg`, `decode_jpeg`, `edge_energy` and
-the bag loaders' CSV parser `parse_bag_csv_fast`.
+names and return shapes: `NativeSlide` (levels, `spacing_um`,
+`read_region`, the grid block reads `read_grid` and `read_grid_scaled`,
+`scaled_grid_ok`, and a mask's label plane: `read_label_region`,
+`page_spacing_um`), `write_tiled_tiff` and `write_tiled_tiff_gray`, plus
+`write_jpeg`, `decode_jpeg`, `edge_energy` and the bag loaders' CSV
+parser `parse_bag_csv_fast`.
 It is host code (no kernel): g++ builds it at first use into
 `build/snuffy_tpu_torch/libslide_reader-<hash>.so` at the repository
 root, never beside the source; the hash covers the source, its header,
@@ -121,7 +123,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         ("slide_level_dimensions", None,
          [p, i, ctypes.POINTER(u32), ctypes.POINTER(u32)]),
         ("slide_level_downsample", ctypes.c_double, [p, i]),
+        ("slide_spacing_um", ctypes.c_double, [p]),
+        ("slide_page_spacing_um", ctypes.c_double, [p, i]),
         ("slide_read_region", i, [p, i, u32, u32, u32, u32, u8p]),
+        ("slide_read_label_region", i, [p, i, u32, u32, u32, u32, u8p]),
         ("slide_read_grid", i, [p, i, u32, u32, u32, u32, u8p, f32p]),
         ("slide_grid_jpeg_scaled_ok", i, [p, i, u32]),
         ("slide_read_grid_jpeg_scaled", i,
@@ -130,6 +135,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         ("tile_edge_energy_rgb", f32, [u8p, u32]),
         ("tiff_write_tiled_rgb", i,
          [ctypes.c_char_p, u8p, u32, u32, u32, i, i]),
+        ("tiff_write_tiled_gray", i,
+         [ctypes.c_char_p, u8p, u32, u32, u32, i, ctypes.c_double]),
         ("jpeg_write_rgb", i, [ctypes.c_char_p, u8p, i, i, i]),
         ("jpeg_decode_rgb", i,
          [ctypes.c_char_p, u8p, u32, u32, ctypes.POINTER(u32),
@@ -163,10 +170,11 @@ def _f32(a: np.ndarray):
 
 class NativeSlide:
     """Pyramidal TIFF reader: level_count, level_dimensions,
-    level_downsample, RGB read_region, and the grid block reads of the
-    streaming slide path."""
+    level_downsample, spacing_um, RGB read_region, the grid block reads of
+    the streaming slide path, and a mask's label plane."""
 
     def __init__(self, path: str):
+        self.path = path
         self._lib = get_lib()
         self._h = self._lib.slide_open(path.encode())
         if not self._h:
@@ -191,6 +199,18 @@ class NativeSlide:
         self._check_level(level)
         return float(self._lib.slide_level_downsample(self._h, level))
 
+    @property
+    def spacing_um(self) -> float:
+        """Level-0 µm per pixel from the first page's resolution tags (0
+        when it has none)."""
+        return float(self._lib.slide_spacing_um(self._h))
+
+    def page_spacing_um(self, level: int) -> float:
+        """µm per pixel from that page's own resolution tags (0 when it has
+        none)."""
+        self._check_level(level)
+        return float(self._lib.slide_page_spacing_um(self._h, level))
+
     def read_region(self, level: int, x: int, y: int, w: int, h: int
                     ) -> np.ndarray:
         self._check_level(level)
@@ -198,6 +218,18 @@ class NativeSlide:
         rc = self._lib.slide_read_region(self._h, level, x, y, w, h, _u8(out))
         if rc != 0:
             raise IOError(f"slide_read_region failed rc={rc}")
+        return out
+
+    def read_label_region(self, level: int, x: int, y: int, w: int, h: int
+                          ) -> np.ndarray:
+        """An (h, w) uint8 region of a label mask: the class id, which a
+        gray page holds in its one sample and an RGB page in red."""
+        self._check_level(level)
+        out = np.zeros((h, w), np.uint8)
+        rc = self._lib.slide_read_label_region(self._h, level, x, y, w, h,
+                                               _u8(out))
+        if rc != 0:
+            raise IOError(f"slide_read_label_region failed rc={rc}")
         return out
 
     def read_grid(self, level: int, read: int, n_cols: int, n_rows: int,
@@ -289,6 +321,30 @@ def write_tiled_tiff(path: str, levels: Sequence[np.ndarray], tile: int = 256,
                                       jpeg_quality)
         if rc != 0:
             raise IOError(f"tiff_write_tiled_rgb failed rc={rc}")
+
+
+def write_tiled_tiff_gray(path: str, levels: Sequence[np.ndarray],
+                          tile: int = 64, spacing_um: float = 0.0) -> None:
+    """A multi-page single-channel label TIFF from (H, W) uint8 levels,
+    level 0 first: lossless and tiled, as Camelyon16's mask TIFFs are.
+    With spacing_um > 0 each page carries resolution tags of spacing_um ×
+    (that page's own downsample)."""
+    lib = get_lib()
+    w0 = None
+    for i, arr in enumerate(levels):
+        arr = np.ascontiguousarray(arr, np.uint8)
+        if arr.ndim != 2:
+            raise ValueError(f"a gray level is (H, W), not {arr.shape}")
+        if w0 is None:
+            w0 = arr.shape[1]
+        res_per_cm = 0.0
+        if spacing_um > 0:
+            res_per_cm = 10_000.0 / (spacing_um * (w0 / arr.shape[1]))
+        rc = lib.tiff_write_tiled_gray(path.encode(), _u8(arr), arr.shape[1],
+                                       arr.shape[0], tile, 1 if i else 0,
+                                       res_per_cm)
+        if rc != 0:
+            raise IOError(f"tiff_write_tiled_gray failed rc={rc}")
 
 
 def write_jpeg(path: str, rgb: np.ndarray, quality: int = 75) -> None:

@@ -8,9 +8,11 @@
 // through libjpeg's scaled IDCT (slide_read_grid_jpeg_scaled); write tiled
 // TIFFs and JPEGs for fixtures; and decode a JPEG file as the extraction
 // pipeline reads its tiles (jpeg_decode_rgb, in place of PIL); and parse
-// a bag's feature CSV (parse_float_csv, the training loaders' parser). The
-// label reader and the gray writer are not copied: no path of the port
-// calls them.
+// a bag's feature CSV (parse_float_csv, the training loaders' parser); and
+// the label-plane half: read a mask's class ids (slide_read_label_region),
+// each page's spacing from its resolution tags (slide_page_spacing_um),
+// and write lossless single-channel label TIFFs (tiff_write_tiled_gray),
+// which the FROC masks, the ROI contours and the mask fixtures use.
 //
 // libtiff and libjpeg (ABI 62) are declared in codec_abi.h, not included
 // from their headers, which a machine may lack.
@@ -151,6 +153,34 @@ int slide_read_region(void* handle, int level, uint32_t x, uint32_t y,
     }
   }
   return 0;
+}
+
+// Label masks store the class id in the red channel; convenience single-
+// channel read (ASAP getUCharPatch equivalent).
+int slide_read_label_region(void* handle, int level, uint32_t x, uint32_t y,
+                            uint32_t w, uint32_t h, uint8_t* out) {
+  std::vector<uint8_t> rgb((size_t)w * h * 3);
+  int rc = slide_read_region(handle, level, x, y, w, h, rgb.data());
+  if (rc != 0) return rc;
+  for (size_t i = 0; i < (size_t)w * h; ++i) out[i] = rgb[i * 3];
+  return 0;
+}
+
+// Per-page spacing in µm/px from that page's resolution tags (0 when the
+// page has none), as ASAP exposes getSpacing per level.
+double slide_page_spacing_um(void* handle, int level) {
+  auto* s = (SlideHandle*)handle;
+  if (!TIFFSetDirectory(s->tif, level)) return 0.0;
+  float xres = 0.f;
+  uint16_t unit = RESUNIT_INCH;
+  double out = 0.0;
+  if (TIFFGetField(s->tif, TIFFTAG_XRESOLUTION, &xres) && xres > 0.f) {
+    TIFFGetFieldDefaulted(s->tif, TIFFTAG_RESOLUTIONUNIT, &unit);
+    double um_per_unit = (unit == RESUNIT_CENTIMETER) ? 10000.0 : 25400.0;
+    out = um_per_unit / xres;
+  }
+  TIFFSetDirectory(s->tif, 0);
+  return out;
 }
 
 void slide_close(void* handle) {
@@ -319,6 +349,49 @@ int tiff_write_tiled_rgb(const char* path, const uint8_t* rgb, uint32_t w,
         const uint8_t* src = rgb + ((size_t)(ty + ry) * w + tx) * 3;
         uint32_t count = (tx + tile <= w) ? tile : (w - tx);
         memcpy(buf.data() + (size_t)ry * tile * 3, src, (size_t)count * 3);
+      }
+      if (TIFFWriteTile(tif, buf.data(), tx, ty, 0, 0) < 0) {
+        TIFFClose(tif);
+        return -2;
+      }
+    }
+  }
+  TIFFWriteDirectory(tif);
+  TIFFClose(tif);
+  return 0;
+}
+
+// Write one single-channel (label/mask) tiled-TIFF directory. Lossless
+// (labels must survive byte-exact). `res_per_cm` > 0 writes per-page
+// X/YResolution tags in RESUNIT_CENTIMETER, as Camelyon16's mask TIFFs
+// carry per-page spacing tags. data is (h, w).
+int tiff_write_tiled_gray(const char* path, const uint8_t* gray, uint32_t w,
+                          uint32_t h, uint32_t tile, int append,
+                          double res_per_cm) {
+  TIFF* tif = TIFFOpen(path, append ? "a" : "w");
+  if (!tif) return -1;
+  TIFFSetField(tif, TIFFTAG_IMAGEWIDTH, w);
+  TIFFSetField(tif, TIFFTAG_IMAGELENGTH, h);
+  TIFFSetField(tif, TIFFTAG_SAMPLESPERPIXEL, 1);
+  TIFFSetField(tif, TIFFTAG_BITSPERSAMPLE, 8);
+  TIFFSetField(tif, TIFFTAG_PHOTOMETRIC, PHOTOMETRIC_MINISBLACK);
+  TIFFSetField(tif, TIFFTAG_PLANARCONFIG, PLANARCONFIG_CONTIG);
+  TIFFSetField(tif, TIFFTAG_TILEWIDTH, tile);
+  TIFFSetField(tif, TIFFTAG_TILELENGTH, tile);
+  TIFFSetField(tif, TIFFTAG_COMPRESSION, COMPRESSION_NONE);
+  if (res_per_cm > 0) {
+    TIFFSetField(tif, TIFFTAG_XRESOLUTION, (float)res_per_cm);
+    TIFFSetField(tif, TIFFTAG_YRESOLUTION, (float)res_per_cm);
+    TIFFSetField(tif, TIFFTAG_RESOLUTIONUNIT, RESUNIT_CENTIMETER);
+  }
+  std::vector<uint8_t> buf((size_t)tile * tile);
+  for (uint32_t ty = 0; ty < h; ty += tile) {
+    for (uint32_t tx = 0; tx < w; tx += tile) {
+      std::fill(buf.begin(), buf.end(), 0);
+      for (uint32_t ry = 0; ry < tile && ty + ry < h; ++ry) {
+        const uint8_t* src = gray + (size_t)(ty + ry) * w + tx;
+        uint32_t count = (tx + tile <= w) ? tile : (w - tx);
+        memcpy(buf.data() + (size_t)ry * tile, src, count);
       }
       if (TIFFWriteTile(tif, buf.data(), tx, ty, 0, 0) < 0) {
         TIFFClose(tif);

@@ -15,19 +15,23 @@ slide CLI's `--aggregator_weights` read), `{epoch}_single_weight_parameter
 where the JAX runner writes one flax msgpack. The metrics rows and
 `summary.json` carry the JAX runner's keys; the summary adds `timings`,
 each epoch's wall time split into train, valid, metrics (ROC, accuracy,
-ECE) and checkpoint seconds, and the tests' (test, metrics), plus
+ECE) and checkpoint seconds, and the tests' (test, metrics, froc), plus
 `load_s` where the CLI sets it.
 
-The Camelyon16 FROC of the test split (`_camelyon16_froc`) needs
-`eval/froc.py`, which is not ported: where the JAX runner would compute
-it, `evaluate` raises NotImplementedError.
+The Camelyon16 FROC of the test split (`_camelyon16_froc`) is scored
+where the JAX runner scores it: instance scores above the feature
+threshold become level-0 detections at patch centres, held against the
+masks by `eval/froc.froc_for_slides`; `reference.csv` is read with the
+csv module.
 """
 
 from __future__ import annotations
 
 import contextlib
+import csv
 import json
 import os
+import re
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -195,6 +199,7 @@ class Runner:
         epoch: int,
         prefix: str,
         predefined_thresholds: Optional[list] = None,
+        predefined_feats_thresholds: Optional[list] = None,
     ) -> dict:
         labels, feats = data[0], data[1]
         with self._timed("test" if "test" in prefix else "valid"):
@@ -232,8 +237,9 @@ class Runner:
                 predictions=scores,
             )
 
-        # The CAMELYON16 FROC of the test split (train.py:336-349, 392-410),
-        # under the JAX runner's gate.
+        # The CAMELYON16 FROC of the test split (train.py:336-349, 392-410):
+        # instance scores above the optimal feat threshold become level-0
+        # detections at patch centers.
         slide_names = data[4] if len(data) > 4 else None
         if (
             "test" in prefix
@@ -243,14 +249,54 @@ class Runner:
             and os.path.isdir(self.cfg.camelyon16_mask_path)
             and os.path.exists(self.cfg.camelyon16_reference)
         ):
-            raise NotImplementedError(
-                "the Camelyon16 FROC needs eval/froc.py, which the port "
-                "does not have yet (ROADMAP.md Queue 1 item 7); "
-                f"{self.cfg.camelyon16_mask_path} and "
-                f"{self.cfg.camelyon16_reference} exist, so the JAX runner "
-                "would score it"
+            feat_th = (
+                predefined_feats_thresholds[0]
+                if predefined_feats_thresholds
+                else res.get(f"{prefix}_feat_thresholds_optimal", [0.5])[0]
             )
+            with self._timed("froc"):
+                res[f"{prefix}_challenge_froc_score"] = self._camelyon16_froc(
+                    data, ins_list, order, feat_th
+                )
         return res
+
+    def _camelyon16_froc(self, data, ins_list, order, feat_threshold):
+        """Build per-slide detections and score them against the official
+        masks (reference train.py:347-349 detection construction:
+        x = col·512 + 256, y = row·512 + 256 at WSI level 0)."""
+        from snuffy_tpu_torch.eval.froc import froc_for_slides
+
+        positions, names = data[3], data[4]
+        detections, types = {}, {}
+        with open(self.cfg.camelyon16_reference, newline="") as f:
+            type_by_image = {
+                os.path.splitext(str(r["image"]))[0]: str(r["type"]).lower()
+                for r in csv.DictReader(f)
+            }
+        for j, bag_idx in enumerate(order):
+            slide = names[bag_idx]
+            scores_j = np.asarray(ins_list[j]).reshape(-1)
+            dets = []
+            for pos_str, prob in zip(positions[bag_idx], scores_j):
+                if prob <= feat_threshold:
+                    continue
+                m = re.search(r"[^\d]*(\d+)[^\d]*(\d+)", str(pos_str))
+                if not m:
+                    continue
+                col, row = int(m.group(1)), int(m.group(2))
+                dets.append((float(prob), col * 512 + 256, row * 512 + 256))
+            detections[slide] = dets
+            types[slide] = type_by_image.get(slide, "tumor")
+
+        score, _, _ = froc_for_slides(
+            detections,
+            lambda s: os.path.join(
+                self.cfg.camelyon16_mask_path, f"{s}_mask.tif"
+            ),
+            types,
+            evaluation_mask_level=5,
+        )
+        return score
 
     # ----------------------------------------------------------- checkpoints
 
@@ -350,6 +396,7 @@ class Runner:
                 epoch,
                 f"epoch_test_{tag}",
                 predefined_thresholds=th.get("thresholds_optimal"),
+                predefined_feats_thresholds=th.get("feats_thresholds_optimal"),
             )
             self.logger.log(test_res)
             summary[f"test_{tag}"] = test_res

@@ -341,3 +341,56 @@ def test_build_embedder_takes_the_jax_arguments_and_defaults():
         [(p.name, p.default, p.kind) for p in ours.values()][:len(theirs)]
     assert list(ours)[len(theirs):] == ["imagenet_norm", "device"]
     assert registry.EMBEDDER_FEAT_DIMS == jax_registry.EMBEDDER_FEAT_DIMS
+
+
+def test_evaluation_copies_match():
+    """The constants the FROC, the splits, the MIL pickles and the heat
+    maps copy from the JAX package (and matplotlib's jet segments)."""
+    import matplotlib._cm
+
+    from snuffy_tpu.data import mil_pickle as jax_mil
+    from snuffy_tpu.data import splits as jax_splits
+    from snuffy_tpu.eval import froc as jax_froc
+    from snuffy_tpu.viz import heatmap as jax_heatmap
+    from snuffy_tpu_torch.data import mil_pickle, splits
+    from snuffy_tpu_torch.eval import froc
+    from snuffy_tpu_torch.viz import heatmap
+
+    for name in ("TUMOR_LABEL", "DILATION_DISTANCE_UM", "ITC_DIAMETER_UM",
+                 "TARGET_FPS"):
+        assert getattr(froc, name) == getattr(jax_froc, name), name
+    np.testing.assert_array_equal(froc.EIGHT_CONNECTED,
+                                  jax_froc.EIGHT_CONNECTED)
+    assert heatmap._POS_RE.pattern == jax_heatmap._POS_RE.pattern
+    assert splits.SPLIT_NAMES == jax_splits.SPLIT_NAMES
+    assert mil_pickle.MIL_DATASET_REGISTRY == jax_mil.MIL_DATASET_REGISTRY
+    assert mil_pickle.MIL_FILE_STEMS == jax_mil.MIL_FILE_STEMS
+    assert mil_pickle.MIL_FOLDER_NAMES == jax_mil.MIL_FOLDER_NAMES
+    assert {k: tuple(map(tuple, v)) for k, v in heatmap.JET_DATA.items()} \
+        == {k: tuple(map(tuple, v))
+            for k, v in matplotlib._cm._jet_data.items()}
+
+
+def test_tiler_grid_and_levels_match(tmp_path):
+    """`_grid`'s read size and grid, and `pick_read_level`'s level and
+    residual, at pyramids whose level ratio is not whole."""
+    class Slide:
+        def __init__(self, dims):
+            self.dims = dims
+            self.level_count = len(dims)
+
+        def level_dimensions(self, level):
+            return self.dims[level]
+
+        def level_downsample(self, level):
+            return self.dims[0][0] / self.dims[level][0]
+
+    for dims in ([(1536, 1536), (512, 512)], [(3001, 3999), (1500, 1999),
+                                               (750, 999)]):
+        s = Slide(dims)
+        for target in (1.0, 2.0, 4.0, 8.0):
+            level, residual = deepzoom.pick_read_level(s, target)
+            assert (level, residual) == jax_deepzoom.pick_read_level(s,
+                                                                     target)
+            assert deepzoom._grid(s, level, residual, 256) == \
+                jax_deepzoom._grid(s, level, residual, 256)

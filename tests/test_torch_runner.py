@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from snuffy_tpu import native as jax_native
 from snuffy_tpu.configs import MILTrainConfig as JaxMILTrainConfig
 from snuffy_tpu.configs import OptimizerConfig as JaxOptimizerConfig
 from snuffy_tpu.configs import SnuffyModelConfig as JaxSnuffyModelConfig
@@ -27,7 +28,7 @@ from snuffy_tpu.train.runner import Runner as JaxRunner
 from snuffy_tpu.train.schedules import make_epoch_schedule
 from snuffy_tpu.train.trainer import SnuffyTrainer as JaxTrainer
 from snuffy_tpu.utils.logging import MetricsLogger as JaxMetricsLogger
-from snuffy_tpu_torch import configs
+from snuffy_tpu_torch import configs, native
 from snuffy_tpu_torch.bridge import load_reference_pth, milnet_state_dict
 from snuffy_tpu_torch.models.snuffy import build_milnet
 from snuffy_tpu_torch.train.runner import Runner
@@ -214,28 +215,115 @@ def test_checkpoint_round_trips_as_a_reference_pth(tmp_path):
         "thresholds_7.txt"]
 
 
-def test_the_froc_gate_raises_where_jax_would_score(tmp_path):
+def write_masks(masks, names, width=12288, height=1024):
+    """Camelyon16-style mask pyramids (levels 0-5, spacing 0.243 µm) with
+    a tumour over the patches at columns 0-5 of row 0 (x < 3072, y < 512
+    at level 0) and an ITC-sized speck further along."""
+    arr = np.zeros((height, width), np.uint8)
+    arr[:512, :3072] = 2
+    arr[700:704, 9000:9004] = 2
+    levels = [arr]
+    for _ in range(5):
+        levels.append(levels[-1][::2, ::2].copy())
+    for name in names:
+        native.write_tiled_tiff_gray(str(masks / f"{name}_mask.tif"), levels,
+                                     tile=256, spacing_um=0.243)
+
+
+def test_the_froc_gate_raises_where_jax_would_score(tmp_path, monkeypatch):
+    """The name is kept from the port that raised here. Where the JAX
+    runner scores the Camelyon16 FROC (the test split, masks and
+    reference.csv present), the port's `evaluate` scores it too, and
+    `_camelyon16_froc` gives the JAX runner's score on the same instance
+    scores, order and threshold; without the masks the gate stays closed,
+    as in the JAX runner."""
+    from types import SimpleNamespace
+
+    monkeypatch.setattr(jax_native, "NativeSlide", native.NativeSlide)
+    monkeypatch.setattr(jax_native, "available", lambda: True)
     masks = tmp_path / "masks"
     masks.mkdir()
+    names = ["test_000", "test_001", "test_002", "test_003"]
+    write_masks(masks, names[1::2])
     reference = tmp_path / "reference.csv"
-    reference.write_text("image,type\ntest_001,tumor\n")
-    cfg = dataclasses.replace(
-        to_port(jax_config(tmp_path, "port", 1, 1)),
+    reference.write_text("image,type\ntest_000.tif,Normal\n"
+                         "test_001.tif,Tumor\ntest_002.tif,normal\n"
+                         "test_003.tif,tumor\n")
+    jcfg = dataclasses.replace(
+        jax_config(tmp_path, "port", 1, 1),
         camelyon16_mask_path=str(masks), camelyon16_reference=str(reference))
+    cfg = to_port(jcfg)
     labels, feats, ins, _ = split(np.random.default_rng(1), 4, 1, 16,
                                   instance_labels=True)
     positions = [[f"{j}_0" for j in range(len(f))] for f in feats]
-    names = [f"test_00{i}" for i in range(4)]
     data = (labels, feats, ins, positions, names)
     runner = Runner(cfg, SnuffyTrainer(cfg, "cpu"), data, data, data)
-    runner.evaluate(data, 1, "epoch_valid")        # not the test split
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        runner.evaluate(data, 1, "epoch_test_best")
+    assert not any("froc" in k
+                   for k in runner.evaluate(data, 1, "epoch_valid"))
+    seen = []
+    real = runner._camelyon16_froc
+    runner._camelyon16_froc = lambda *a: seen.append(a) or real(*a)
+    res = runner.evaluate(data, 1, "epoch_test_best")
+    (call,) = seen
+    want = JaxRunner._camelyon16_froc(SimpleNamespace(cfg=jcfg), *call)
+    assert res["epoch_test_best_challenge_froc_score"] == want
+    assert call[3] == res["epoch_test_best_feat_thresholds_optimal"][0]
+    # a predefined threshold (the saved best epoch's) is the one used
+    seen.clear()
+    res = runner.evaluate(data, 1, "epoch_test_best",
+                          predefined_feats_thresholds=[0.25])
+    assert seen[0][3] == 0.25
+    assert res["epoch_test_best_challenge_froc_score"] == \
+        JaxRunner._camelyon16_froc(SimpleNamespace(cfg=jcfg), *seen[0])
     # without the masks the gate stays closed, as in the JAX runner
     runner.cfg = dataclasses.replace(cfg, camelyon16_mask_path=str(
         tmp_path / "absent"))
-    assert "epoch_test_best_feat_aucs" in runner.evaluate(
-        data, 1, "epoch_test_best")
+    res = runner.evaluate(data, 1, "epoch_test_best")
+    assert "epoch_test_best_feat_aucs" in res
+    assert "epoch_test_best_challenge_froc_score" not in res
+
+
+def test_camelyon16_froc_from_runner(tmp_path):
+    """tests/test_runner_froc.py's case on the port: detections from
+    instance scores and positions, scored against a mask TIFF on disk."""
+    masks = tmp_path / "masks"
+    masks.mkdir()
+    arr = np.zeros((2048, 2048), np.uint8)
+    arr[:1200, :1200] = 2
+    native.write_tiled_tiff_gray(str(masks / "tumor_001_mask.tif"),
+                                 [arr] + [arr[::2 ** k, ::2 ** k].copy()
+                                          for k in range(1, 6)], tile=64)
+    ref_csv = tmp_path / "reference.csv"
+    ref_csv.write_text("image,type\ntumor_001.tif,tumor\n"
+                       "normal_001.tif,normal\n")
+    cfg = configs.MILTrainConfig(
+        model=configs.SnuffyModelConfig(feats_size=8, num_heads=2,
+                                        big_lambda=4),
+        dataset="camelyon16",
+        camelyon16_mask_path=str(masks),
+        camelyon16_reference=str(ref_csv),
+        save_path=str(tmp_path / "runs"),
+    )
+    dummy = ([np.array([1.0])], [np.zeros((4, 8), np.float32)], None, None)
+    runner = Runner(cfg, SnuffyTrainer(cfg, "cpu"), dummy, dummy, dummy)
+    # two bags: the tumour slide with one hit and one miss, the normal
+    # slide with one false positive
+    data = (
+        [np.array([1.0]), np.array([0.0])],
+        [np.zeros((2, 8), np.float32), np.zeros((1, 8), np.float32)],
+        [[1, 0], [0]],
+        [["0_0", "2_2"], ["1_1"]],          # positions col_row
+        ["tumor_001", "normal_001"],
+    )
+    ins_list = [np.array([0.9, 0.8]), np.array([0.6])]
+    order = np.array([0, 1])
+    # patch (0, 0)'s centre (256, 256) lies in the 1200 px tumour: the
+    # region is found and the curve reaches sensitivity 1
+    score = runner._camelyon16_froc(data, ins_list, order, feat_threshold=0.5)
+    assert 0.0 < score <= 1.0
+    # with the threshold above every score nothing is detected
+    assert runner._camelyon16_froc(data, ins_list, order,
+                                   feat_threshold=0.95) == 0.0
 
 
 def test_packed_multiclass_step_with_a_dummy_bag_stays_finite(monkeypatch):

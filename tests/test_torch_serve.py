@@ -128,7 +128,7 @@ def test_package_imports_with_jax_blocked():
         import importlib, pkgutil, sys
         # the card's machine has none of these; PIL only inside workers
         BLOCKED = ("jax", "jaxlib", "flax", "optax", "snuffy_tpu", "pandas",
-                   "sklearn", "PIL", "cv2")
+                   "sklearn", "PIL", "cv2", "matplotlib")
 
         class Block:
             def find_spec(self, name, path=None, target=None):
@@ -157,7 +157,19 @@ def test_package_imports_with_jax_blocked():
                 "eval.metrics", "data.mil_pickle", "utils.logging",
                 "train.runner", "train.cli", "train.__main__",
                 "models.resnet", "models.mae", "models.pos_embed",
-                "embed.torch_import", "hubconf", "utils.tables"):
+                "embed.torch_import", "hubconf", "utils.tables",
+                "tiling.deepzoom", "deepzoom_tiler_camelyon16",
+                "deepzoom_tiler_tcga_lung_cancer", "data.splits",
+                "datasets.camelyon16.n_shot_dataset_maker",
+                "datasets.camelyon16.train_validation_test_reverse_camelyon",
+                "datasets.camelyon16.train_validation_test_splitter_camelyon",
+                "datasets.mil_dataset.mil_cross_validation",
+                "datasets.tcga.fold_generator",
+                "datasets.tcga.n_shot_dataset_maker_tcga",
+                "datasets.tcga.train_validation_test_reverse_tcga",
+                "datasets.tcga.train_validation_test_splitter_tcga",
+                "eval.froc", "froc", "models.dsmil", "snuffy",
+                "snuffy_multiclass", "viz.png", "viz.heatmap", "roi"):
         assert f"snuffy_tpu_torch.{new}" in names.split()
 
 

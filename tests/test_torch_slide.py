@@ -311,11 +311,23 @@ def test_area_resize_is_cv2_inter_area(ratio):
 
 
 def test_area_resize_refuses_other_ratios():
-    tile = np.zeros((384, 384, 3), np.uint8)
+    """Fractional and rectangular shrinks take cv2's area taps (they were
+    refused before the tiler needed them); a growing axis, which cv2
+    interpolates linearly, is the ratio still refused."""
+    import cv2
+
+    tile = np.random.default_rng(5).integers(0, 256, (384, 384, 3),
+                                             dtype=np.uint8)
+    np.testing.assert_array_equal(
+        area_resize(tile, 256),
+        cv2.resize(tile, (256, 256), interpolation=cv2.INTER_AREA))  # 1.5
+    np.testing.assert_array_equal(
+        area_resize(tile[:256, :128], 64),
+        cv2.resize(tile[:256, :128], (64, 64), interpolation=cv2.INTER_AREA))
     with pytest.raises(ValueError):
-        area_resize(tile, 256)   # 1.5
+        area_resize(tile, 512)
     with pytest.raises(ValueError):
-        area_resize(np.zeros((256, 128, 3), np.uint8), 64)
+        area_resize(tile, 128, 400)
     np.testing.assert_array_equal(area_resize(tile, 384), tile)
 
 
