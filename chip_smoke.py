@@ -30,10 +30,14 @@ per kernel, all at once), then:
   4. dense-attention kernel vs plain: f32 and bf16 at the shapes of the
      TPU probes P1-P3 (z=1536, n=197, dk=64: a ViT-S/16 batch of 256) and
      P4 (z=384, n=785, dk=64), at the extraction batch (z=768, n=785), and
-     ragged (n_valid < n, dk=32); errors against the stated tolerance,
-     median times of one call by CUDA events and the device time of a call
-     by torch.profiler, the bound, and scaled_dot_product_attention as the
-     library yardstick, timed both ways;
+     ragged (n_valid < n, dk=32); the body the dispatch takes (f32: the
+     one-pass 3xTF32 body; bf16: wgmma), checked against the kernel names
+     torch.profiler records; errors against the stated tolerance, median
+     times of one call by CUDA events, the device time of a call by
+     torch.profiler and of 20 calls back to back, the bound of the body
+     (f32 over 3xTF32's 165 TFLOP/s, 67 beside it), and
+     scaled_dot_product_attention as the library yardstick, timed the
+     same ways;
   5. serve: ViT-S/16 + MILNet (d=384, 4 heads, Λ=512, ρ=0.5, depth 2,
      bf16) from seeded weights answer requests of 10000, 2500 and 300
      uint8 224² tiles, 12 dense-attention launches a 256-tile batch; a
@@ -131,7 +135,8 @@ per kernel, all at once), then:
      the mask's boundary band), a 300-tile subset GPU vs CPU in f32; (d)
      K1 f32 at dk=128 and 64 and K5 f32 on the inputs those runs gave
      them (error, two launches bitwise equal, one-call and back-to-back
-     times, the bound; ptxas for K1's f32 tensor-core body at dk=128);
+     times, the bound; ptxas for K1's f32 tensor-core body at dk=128; K5's
+     body checked against the kernel names torch.profiler records);
      (e) the ROI's scores as detections against the fixture's mask, and
      compute_evaluation_mask and EvalMaskCache (cold, warm in memory,
      warm from the npz) on a Camelyon16 level-5-sized label mask, its ITCs
@@ -307,12 +312,13 @@ def check_kernel(label, got, ref, tol) -> float:
 def traced_body(fa, kernel, kernel_times) -> str:
     """The body (fa.BODIES) whose passes torch.profiler recorded for
     `kernel`: the f32 tensor-core body's are named *_tf32_kernel, the bf16
-    one's *_tc_kernel, the CUDA-core body's plain *_kernel."""
+    one's *_tc_kernel (the dense kernel's *_wgmma_kernel), the CUDA-core
+    body's plain *_kernel."""
     names = [key for key, _ in kernel_times
              if any(p in key for p in kernel.passes[:2])]
     if any("_tf32_kernel" in key for key in names):
         return fa.BODIES[0]
-    if any("_tc_kernel" in key for key in names):
+    if any("_tc_kernel" in key or "_wgmma_kernel" in key for key in names):
         return fa.BODIES[1]
     return fa.BODIES[2]
 
@@ -457,18 +463,16 @@ def phase_backward(fa, plain_bwd, dev):
     return worst, record
 
 
-def phase_dense(dev):
+def phase_dense(fa, dev):
     import torch
 
+    from snuffy_tpu_torch.ops import kernels
     from snuffy_tpu_torch.ops.dense_attention import (
         dense_attention_reference,
         fused_self_attention,
     )
     from snuffy_tpu_torch.tools.profile_serve import device_profile
-    from snuffy_tpu_torch.tools.profile_vit_attention import (
-        dense_bound_ms,
-        sdpa,
-    )
+    from snuffy_tpu_torch.tools.profile_vit_attention import dense_work, sdpa
 
     log("== phase 4: dense-attention kernel vs plain PyTorch")
     gen = torch.Generator(dev).manual_seed(7)
@@ -482,8 +486,9 @@ def phase_dense(dev):
                 got = fused_self_attention(q, k, v, n_valid)
                 ref = dense_attention_reference(q, k, v, n_valid)
                 torch.cuda.synchronize()
+                body = fa.kernel_body(q, k, v, got)
                 log(f"  {name:8s} {label} z={z} n={n} n_valid={n_valid} "
-                    f"dk={dk}:")
+                    f"dk={dk}: {body}")
                 worst = max(worst, check_kernel("out", got, ref,
                                                 DENSE_TOL[name]))
 
@@ -496,13 +501,18 @@ def phase_dense(dev):
                 ms, lib_ms = time_ms(kernel), time_ms(library)
                 plain_ms = time_ms(
                     lambda: dense_attention_reference(q, k, v, n_valid))
-                # device ms per call (torch.profiler)
-                device, lib_device = (device_profile(f)[0]
-                                      for f in (kernel, library))
-            bound, by = dense_bound_ms(z, n, n_valid, dk, dtype)
-            log(f"    kernel {ms:.4f} ms (device {device:.4f})  plain "
-                f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms (device "
-                f"{lib_device:.4f})  bound {bound:.4f} ms ({by})")
+                # device ms per call (torch.profiler), and 20 calls b2b
+                device, _, kernel_times = device_profile(kernel)
+                lib_device = device_profile(library)[0]
+                b2b, lib_b2b = (back_to_back_ms(f) for f in (kernel, library))
+            check_body(fa, kernels.DENSE, kernel_times, body)
+            bound, by, note = kernel_bound(
+                fa, body, *dense_work(z, n, n_valid, dk, dtype))
+            log(f"    kernel {ms:.4f} ms (device {device:.4f}, b2b "
+                f"{b2b:.4f})  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms "
+                f"(device {lib_device:.4f}, b2b {lib_b2b:.4f})  bound "
+                f"{bound:.4f} ms ({by}; {note}; {100 * bound / b2b:.1f} % "
+                "of b2b)")
             if (name, label) == ("bfloat16", "S/8 extract"):
                 record = (ms, plain_ms, bound, by, lib_ms)
             del q, k, v, got, ref
@@ -1934,20 +1944,54 @@ def dense_calls(keep, check=False):
         da._dense_cuda = launch
 
 
-def time_dense(label, q, k, v, n_valid):
-    """K5 on these inputs: one call, plain, SDPA (one call and device) and
-    the kernel's device time (20 calls back to back between CUDA events),
-    beside the bound."""
+def traced_in_fresh_process(q, k, v, n_valid) -> list:
+    """[(device kernel, ms)] that torch.profiler records for K5 on these
+    inputs, traced in a fresh Python process: late in a run this process's
+    profiler has recorded no device time (at phase 12d, as at phase 11)."""
+    import os
+    import subprocess
+    import tempfile
+
     import torch
 
+    code = ("import json, sys, torch\n"
+            "from snuffy_tpu_torch.ops.dense_attention import "
+            "fused_self_attention\n"
+            "from snuffy_tpu_torch.tools.profile_serve import device_profile\n"
+            "d = torch.load(sys.argv[1])\n"
+            "q, k, v = (d[x].cuda() for x in 'qkv')\n"
+            "with torch.inference_mode():\n"
+            "    kernels = device_profile(\n"
+            "        lambda: fused_self_attention(q, k, v, d['n_valid']))[2]\n"
+            "print(json.dumps(kernels))\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "qkv.pt")
+        torch.save({"q": q.cpu(), "k": k.cpu(), "v": v.cpu(),
+                    "n_valid": n_valid}, path)
+        proc = subprocess.run(
+            [sys.executable, "-c", code, path], capture_output=True,
+            text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"the traced K5 call failed:\n{proc.stderr}")
+    return [tuple(x) for x in json.loads(proc.stdout.strip().splitlines()[-1])]
+
+
+def time_dense(label, q, k, v, n_valid, trace=False):
+    """K5 on these inputs: one call, plain, SDPA (one call and device) and
+    the kernel's device time (20 calls back to back between CUDA events),
+    beside the bound of the body the dispatch takes; with `trace`, that
+    body is checked against the kernel names torch.profiler records for
+    the same inputs in a fresh process."""
+    import torch
+
+    from snuffy_tpu_torch.ops import fused_attention as fa
+    from snuffy_tpu_torch.ops import kernels
     from snuffy_tpu_torch.ops.dense_attention import (
         dense_attention_reference,
         fused_self_attention,
     )
-    from snuffy_tpu_torch.tools.profile_vit_attention import (
-        dense_bound_ms,
-        sdpa,
-    )
+    from snuffy_tpu_torch.tools.profile_vit_attention import dense_work, sdpa
 
     def kernel():
         return fused_self_attention(q, k, v, n_valid)
@@ -1956,17 +2000,24 @@ def time_dense(label, q, k, v, n_valid):
         return sdpa(q, k, v, n_valid)
 
     with torch.inference_mode():
+        body = fa.kernel_body(q, k, v, kernel())
         ms, lib_ms = time_ms(kernel), time_ms(library)
         plain_ms = time_ms(lambda: dense_attention_reference(q, k, v,
                                                              n_valid))
         device, lib_device = (back_to_back_ms(f) for f in (kernel, library))
+    if trace:
+        check_body(fa, kernels.DENSE, traced_in_fresh_process(q, k, v, n_valid),
+                   body)
     z, n, dk = q.shape
-    bound, by = dense_bound_ms(z, n, n_valid, dk, q.dtype)
+    bound, by, note = kernel_bound(fa, body, *dense_work(z, n, n_valid, dk,
+                                                         q.dtype))
     log(f"    K5 at {label} (z={z}, n={n}, dk={dk}, "
-        f"{str(q.dtype).removeprefix('torch.')}, the run's own inputs): "
+        f"{str(q.dtype).removeprefix('torch.')}, the run's own inputs; "
+        f"{body}{', traced' if trace else ''}): "
         f"kernel {ms:.4f} ms (device, back to back, {device:.4f})  plain "
         f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms (device, back to back, "
-        f"{lib_device:.4f})  bound {bound:.4f} ms ({by})")
+        f"{lib_device:.4f})  bound {bound:.4f} ms ({by}; {note}; "
+        f"{100 * bound / device:.1f} % of b2b)")
 
 
 def phase_extract_embedders(dev, kernels):
@@ -2538,7 +2589,7 @@ def phase_roi_kernels(fa, plain, plain_bwd, kernels, k1_calls, k5_calls):
         if not torch.equal(fused_self_attention(q, k, v, n_valid), got):
             raise AssertionError("K5: two launches on the same inputs differ")
     time_dense(f"the ROI's ViT-S/16 batch {q.shape[0] // 6}", q, k, v,
-               n_valid)
+               n_valid, trace=True)
     return k1_err, k5_err
 
 
@@ -2780,7 +2831,7 @@ def main() -> int:
         fa, packed_inverted_sparse_attention, dev)
     bwd_err, bwd_record = phase_backward(
         fa, packed_inverted_sparse_attention_bwd, dev)
-    dense_err, dense_record = phase_dense(dev)
+    dense_err, dense_record = phase_dense(fa, dev)
 
     cfg = SnuffyModelConfig(
         feats_size=384, num_classes=1, num_heads=4, big_lambda=512,

@@ -19,19 +19,29 @@
 // What bounds it on the H100: at ViT-S/16 (n=197, z=1536, dk=64, bf16) the
 // bytes, 4 * z * n * dk * 2 B = 155 MB over 3.35 TB/s = 46 us; at ViT-S/8
 // (n=785, z=768) the operations, 4 * z * n * n_valid * dk = 121 GFLOP over
-// the 989.4 TFLOP/s bf16 tensor-core peak = 122 us. The TPU kernel holds a
-// whole (bz, n_pad, n_pad) f32 score block in VMEM and pads n to 128. An SM
-// has 227 KB of shared memory and blocks run in no order, so here a block
-// owns query rows of one z and sweeps the keys twice:
+// the 989.4 TFLOP/s bf16 tensor-core peak = 122 us. In f32 (the ROI CLI's
+// ViTs, extraction with --compute_dtype float32) the operations over
+// 3xTF32's 495 / 3 = 165 TFLOP/s and the bytes weigh about the same: 46
+// us at z=768, n=197. The TPU kernel holds a whole (bz, n_pad, n_pad) f32
+// score block in VMEM and pads n to 128. An SM has 227 KB of shared memory
+// and blocks run in no order, so here a block owns query rows of one z and
+// walks the keys in tiles of 64. In bf16 it sweeps them twice:
 //   sweep 1 keeps an online max and sum for each row;
 //   sweep 2 recomputes the scores, forms p exactly as the reference does
 //     (divided by the final sum, rounded to T) and accumulates p . v in
 //     registers.
 // Two sweeps cost 3 tile products where a one-pass kernel needs 2 (and
 // twice the exponentials), and buy the reference's rounding of p: rounded
-// against a running max instead, p flips large outputs by a bf16 ulp. The
+// against a running max instead, p flips large outputs by a bf16 ulp. In
+// f32 that reason is gone: the reference rounds p to f32, which is no
+// rounding, so a one-pass (online) softmax, whose p . v sums are rescaled
+// by 2^(m_old - m_new) when a row's max moves and divided by the sum once
+// at the end, computes the reference's function within f32 rounding (a
+// CPU emulation holds it to 1e-5 of max |plain|,
+// tests/test_torch_dense_attention.py). The f32 body takes one pass. The
 // scores never reach device memory, nothing is padded in device memory,
-// and the ragged edges of n and dk are masked here. Two bodies:
+// and the ragged edges of n and dk are masked here. Three bodies, by dtype
+// and dk (and 16-byte aligned bases, which TMA and cp.async need):
 //   bf16, dk <= 128, dk % 8 == 0 (the ViTs): two warpgroups of 64 query
 //     rows; thread 0 keeps K/V tiles of 64 keys in flight by TMA
 //     (mbarriers, a ring of 4 stages; when n <= 256 one block owns the
@@ -47,9 +57,15 @@
 //     exit. Bound in practice, far above the bound above, by the
 //     exponentials (2 a score) and by the wgmma pipeline, which ptxas
 //     still serialises in part (its C7513 note) behind the softmax.
-//   f32, or other dk: 256 threads, every product on CUDA cores in f32
+//   f32, dk <= 128, dk % 4 == 0 (dense_attention_tf32_kernel): one pass,
+//     8 warps of 16 query rows, K/V tiles double-buffered by cp.async,
+//     every product on the tensor cores as 3xTF32 (mma.sync m16n8k8, the
+//     machinery of the sparse kernels' f32 bodies,
+//     sparse_attention_common.cuh); details at the kernel.
+//   otherwise (f32 or bf16 with dk > 128, dk not a multiple of 4 or 8, an
+//     unaligned base): 256 threads, every product on CUDA cores in f32
 //     (float4 shared-memory reads, 16 FMAs a read), 4 rows x 4 dims a
-//     thread for each 64 dims of dk.
+//     thread for each 64 dims of dk, two sweeps.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -67,7 +83,7 @@ using namespace snuffy;
 constexpr int kTile = 64;             // query rows per block, keys per tile
 constexpr int kPStride = kTile + 4;   // row stride of the p tile
 
-// ---- The CUDA-core body: f32, or dk > 128. ----
+// ---- The CUDA-core body: every call the tensor-core bodies do not take. ----
 
 template <typename T>
 __device__ __forceinline__ float round_as(float x);
@@ -553,6 +569,160 @@ dense_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---- The f32 tensor-core body: f32, dk <= 128, dk % 4 == 0. ----
+//
+// One pass over the keys (the header says why f32 may). 8 warps a block
+// (kF32Threads, which tile_async_f32 loads with) own 128 query rows of one
+// z, 16 a warp; a warp with no row only helps load. K and V stream through
+// two stages of 64-key tiles by cp.async: the copy of tile c + 1 runs
+// while tile c is multiplied. A warp takes each tile in two halves of 32
+// keys: its 16 x 32 scores s = q . k^T (mma_rows_f32: q's and k's
+// fragments by ldmatrix, split as they leave shared memory), masked and
+// scaled into the log2 domain; the online max moves and the sums are
+// rescaled; then p . v, each C fragment of p relabelled into an A
+// fragment against its 8 rows of v (mma_c_rows_f32). Every product is
+// 3xTF32 (split_tf32: big.small + small.big + big.big); a score sums 16
+// dims at a time in fresh registers, p . v one half tile at a time
+// (add_part), because the tensor cores' f32 sums truncate. 8-key columns
+// past n are neither multiplied nor summed. At dk <= 64 two blocks share
+// an SM (104 KB of shared memory each, at most 128 registers a thread),
+// so one block's loads overlap the other's products. Two designs ran
+// slower on the card (PERF.md §6): q's fragments split once and held
+// in registers for the row tile (more registers than two blocks an SM
+// allow), and K and V held whole in shared memory for all of a z's rows
+// (one block a z at n <= 256, one block an SM).
+
+constexpr int kTfRows = 2 * kRows;  // query rows of a block, 16 a warp
+constexpr int kTfHalf = kKeys / 2;  // keys of a half tile
+
+// Shared memory: 128 q rows (two 64-row tiles), then two stages of a k
+// tile and a v tile.
+template <int DKP>
+constexpr size_t tf32_smem() {
+  return (size_t)6 * tf_tile_bytes<DKP>();
+}
+
+// Grid: z * row_blocks blocks, the 128-row blocks of one z adjacent (they
+// read the same k and v from L2).
+template <int DKP>
+__global__ void __launch_bounds__(kF32Threads, DKP <= 64 ? 2 : 1)
+dense_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ out, int n,
+                            int n_valid, int dk, int row_blocks, float scale_log2) {
+  constexpr int kS = tf_stride<DKP>();
+  constexpr int kTileF = kRows * kS;  // floats of a 64-row tile
+  extern __shared__ uint4 smem_tf[];
+  float* qs = reinterpret_cast<float*>(smem_tf);  // 128 rows
+  float* kv = qs + 2 * kTileF;                    // stage b: k at 2b tiles, v after it
+
+  const int zi = blockIdx.x / row_blocks;
+  const int r0 = (blockIdx.x - zi * row_blocks) * kTfRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const size_t base = (size_t)zi * n * dk;
+  const float* kz = k + base;
+  const float* vz = v + base;
+  const int tiles = (n + kKeys - 1) / kKeys;
+  const bool live = r0 + 16 * warp < n;  // the warp has a query row
+
+  tile_async_f32<DKP>(qs, q + base, r0, n, dk);
+  tile_async_f32<DKP>(qs + kTileF, q + base, r0 + kRows, n, dk);
+  tile_async_f32<DKP>(kv, kz, 0, n, dk);
+  tile_async_f32<DKP>(kv + kTileF, vz, 0, n, dk);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // rows g (h = 0) and g + 8 (h = 1): the running max of s * scale * log2 e,
+  // this thread's share of the sum of 2^(. - max), and out's unscaled sums
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.0f, 0.0f};
+  float acc[DKP / 8][4], part[DKP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DKP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = part[j][e] = 0.0f;
+
+  for (int c = 0; c < tiles; ++c) {
+    const int st = c & 1;
+    if (c + 1 < tiles) {  // the next tile loads while this one is used
+      float* next = kv + 2 * (st ^ 1) * kTileF;
+      tile_async_f32<DKP>(next, kz, (c + 1) * kKeys, n, dk);
+      tile_async_f32<DKP>(next + kTileF, vz, (c + 1) * kKeys, n, dk);
+      cp_async_commit();
+    }
+    for (int c0 = c * kKeys; live && c0 < min(n, (c + 1) * kKeys); c0 += kTfHalf) {
+      const float* ks = kv + 2 * st * kTileF + (c0 - c * kKeys) * kS;
+      const int cols = min(4, (n - c0 + 7) / 8);  // 8-key columns with a key
+      float sc[4][4];
+      mma_rows_f32<DKP, 4>(sc, qs, 16 * warp, ks, 0, lane, cols);
+      // the reference's mask: -1e30 from n_valid on (2^(-1e30 - m) is 0
+      // as e^(-1e30 - m) is), nothing past n
+      float cmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = c0 + 8 * j + 2 * t + (e & 1);
+          const float x =
+              key < n_valid ? sc[j][e] * scale_log2 : (key < n ? kNegBig : -INFINITY);
+          sc[j][e] = x;
+          cmax[e >> 1] = fmaxf(cmax[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 1));
+        cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 2));
+        // key c0 exists, so the new max is finite; 2^-inf = 0 at key 0
+        const float m_new = fmaxf(m_run[h], cmax[h]);
+        alpha[h] = fast_exp2(m_run[h] - m_new);
+        m_run[h] = m_new;
+        l_run[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] = fast_exp2(sc[j][e] - m_run[e >> 1]);
+          l_run[e >> 1] += sc[j][e];
+        }
+#pragma unroll
+      for (int j = 0; j < DKP / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+      const float* vs = ks + kTileF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < cols) mma_c_rows_f32<DKP>(part, sc[j], vs + 8 * j * kS, lane);
+      add_part<DKP>(acc, part);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  if (!live) return;
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_run[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv_l = 1.0f / l;
+    const int row = r0 + 16 * warp + g + 8 * h;
+    if (row >= n) continue;
+    float* orow = out + base + (size_t)row * dk;
+#pragma unroll
+    for (int j = 0; j < DKP / 8; ++j) {
+      const int d = 8 * j + 2 * t;  // dk % 4 == 0: d < dk puts d + 1 there too
+      if (d < dk)
+        *reinterpret_cast<float2*>(orow + d) =
+            make_float2(acc[j][2 * h] * inv_l, acc[j][2 * h + 1] * inv_l);
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled, from the driver through the runtime (nothing
 // more to link).
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -625,16 +795,36 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+template <int DKP>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* out, int z,
+                        int n, int n_valid, int dk, float scale, cudaStream_t stream) {
+  static std::atomic<uint64_t> ready{0};
+  cudaError_t err = allow_smem(dense_attention_tf32_kernel<DKP>, tf32_smem<DKP>(), ready);
+  if (err != cudaSuccess) return err;
+  const int row_blocks = (n + kTfRows - 1) / kTfRows;
+  dense_attention_tf32_kernel<DKP><<<z * row_blocks, kF32Threads, tf32_smem<DKP>(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), n, n_valid, dk, row_blocks, scale * kLog2e);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* out,
                          int z, int n, int n_valid, int dk, float scale,
                          cudaStream_t stream) {
-  // TMA wants 16-byte aligned rows and bases
-  const bool tma = dk % 8 == 0 &&
-                   (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                    reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
-                           16 == 0;
-  if (sizeof(T) == 2 && dk <= 128 && tma) {
+  // TMA and cp.async move 16 bytes: whole 16-byte chunks a row (dk % 8 ==
+  // 0 in bf16, dk % 4 == 0 in f32) and 16-byte aligned bases
+  const bool tc = dk <= 128 && dk % (16 / sizeof(T)) == 0 &&
+                  (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                   reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
+                          16 == 0;
+  if (tc && sizeof(T) == 4) {
+    if (dk <= 32) return launch_tf32<32>(q, k, v, out, z, n, n_valid, dk, scale, stream);
+    if (dk <= 64) return launch_tf32<64>(q, k, v, out, z, n, n_valid, dk, scale, stream);
+    if (dk <= 96) return launch_tf32<96>(q, k, v, out, z, n, n_valid, dk, scale, stream);
+    return launch_tf32<128>(q, k, v, out, z, n, n_valid, dk, scale, stream);
+  }
+  if (tc) {
     if (dk <= 64) return launch_wgmma<64>(q, k, v, out, z, n, n_valid, dk, scale, stream);
     return launch_wgmma<128>(q, k, v, out, z, n, n_valid, dk, scale, stream);
   }

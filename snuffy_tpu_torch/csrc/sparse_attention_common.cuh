@@ -3,7 +3,8 @@
 // dropout hash of the TPU kernel, tile loads, the 64 x 64 score tile, the
 // sum of N splits, and the tensor-core tiles and products of their bf16
 // and f32 bodies. dense_attention.cu takes the block size, the type
-// conversions and the 16-lane reductions from here.
+// conversions and the 16-lane reductions from here, and its f32 body the
+// f32 tiles and products.
 
 #pragma once
 
@@ -272,10 +273,12 @@ __device__ __forceinline__ void ldsm_x4_split(uint32_t (&big)[4], uint32_t (&sma
 // b0 + 8 NB - 1 of the tile b: c[j][e] pairs row g + 8 (e >> 1) of a with
 // row b0 + 8j + 2t + (e & 1) of b. Per 8 dims, A and B are loaded and
 // split first, then each term runs over the NB products in turn; every 16
-// dims are summed in fresh registers and added to c.
+// dims are summed in fresh registers and added to c. Only the first
+// `cols` groups of 8 b rows are multiplied (the rest of c stays 0).
 template <int DKP, int NB>
 __device__ __forceinline__ void mma_rows_f32(float (&c)[NB][4], const float* as, int a0,
-                                             const float* bs, int b0, int lane) {
+                                             const float* bs, int b0, int lane,
+                                             int cols = NB) {
   constexpr int kS = tf_stride<DKP>();
 #pragma unroll
   for (int j = 0; j < NB; ++j)
@@ -295,16 +298,17 @@ __device__ __forceinline__ void mma_rows_f32(float (&c)[NB][4], const float* as,
       // 8-15, 8-15} x dims 8kk + {0-3, 4-7, 0-3, 4-7}
       uint32_t bb[NB / 2][4], bs_[NB / 2][4];
 #pragma unroll
-      for (int jp = 0; jp < NB / 2; ++jp) ldsm_x4_split(bb[jp], bs_[jp], bp + 16 * jp * kS + 8 * kk);
+      for (int jp = 0; jp < NB / 2; ++jp)
+        if (2 * jp < cols) ldsm_x4_split(bb[jp], bs_[jp], bp + 16 * jp * kS + 8 * kk);
 #pragma unroll
       for (int j = 0; j < NB; ++j)
-        mma_tf32(d[j], ab, bs_[j >> 1][2 * (j & 1)], bs_[j >> 1][2 * (j & 1) + 1]);
+        if (j < cols) mma_tf32(d[j], ab, bs_[j >> 1][2 * (j & 1)], bs_[j >> 1][2 * (j & 1) + 1]);
 #pragma unroll
       for (int j = 0; j < NB; ++j)
-        mma_tf32(d[j], as_, bb[j >> 1][2 * (j & 1)], bb[j >> 1][2 * (j & 1) + 1]);
+        if (j < cols) mma_tf32(d[j], as_, bb[j >> 1][2 * (j & 1)], bb[j >> 1][2 * (j & 1) + 1]);
 #pragma unroll
       for (int j = 0; j < NB; ++j)
-        mma_tf32(d[j], ab, bb[j >> 1][2 * (j & 1)], bb[j >> 1][2 * (j & 1) + 1]);
+        if (j < cols) mma_tf32(d[j], ab, bb[j >> 1][2 * (j & 1)], bb[j >> 1][2 * (j & 1) + 1]);
     }
 #pragma unroll
     for (int j = 0; j < NB; ++j)

@@ -51,8 +51,20 @@ def read_rows(path: str):
         return list(csv.DictReader(f))
 
 
+def check_plot_backend() -> None:
+    """`--plot` draws with matplotlib: refuse it before any work where
+    matplotlib cannot be imported, instead of failing after the scoring."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        raise SystemExit(f"--plot needs matplotlib, which cannot be imported "
+                         f"here ({e}); run without --plot") from e
+
+
 def main(argv=None):
     args = get_args_parser().parse_args(argv)
+    if args.plot:
+        check_plot_backend()
     detections, types = {}, {}
     for row in read_rows(args.reference):
         image = os.path.splitext(str(row["image"]))[0]

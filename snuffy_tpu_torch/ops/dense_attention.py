@@ -15,6 +15,13 @@ tensors its forward launches the kernel or raises; for CPU tensors it runs
 (one recompute), as the JAX `custom_vjp` does: the TPU kernel has no
 backward kernel.
 
+The kernel has three bodies, picked per call by the rule of
+`kernels.kernel_body` (q, k, v and out are the tensors whose bases count):
+  f32, dk ≤ 128, dk % 4 == 0    tensor cores, one pass (online softmax),
+                                every product as 3xTF32
+  bf16, dk ≤ 128, dk % 8 == 0   tensor cores (wgmma, TMA), two sweeps
+  anything else (dk > 128, dk % 4 ≠ 0, an unaligned base)   CUDA cores
+
 `n_valid = 0` raises. The JAX kernel pads n to 128 and its softmax then
 averages over the padded zeros too, while its einsum reference averages
 over n: the two disagree there, and the port follows neither.

@@ -36,7 +36,17 @@ from typing import Optional
 
 import torch
 
-from snuffy_tpu_torch.ops.kernels import BWD, DTYPES, FWD, MAX_DK, launch
+# BODIES and kernel_body live in the registry (the dense kernel shares the
+# rule); callers of this module name them from here too
+from snuffy_tpu_torch.ops.kernels import (  # noqa: F401
+    BODIES,
+    BWD,
+    DTYPES,
+    FWD,
+    MAX_DK,
+    kernel_body,
+    launch,
+)
 from snuffy_tpu_torch.ops.sparse_attention import (
     packed_inverted_sparse_attention,
     packed_inverted_sparse_attention_bwd,
@@ -112,22 +122,6 @@ def launched_passes(kernel, n: int, s: int, folded_heads: int) -> tuple:
     split."""
     split = slot_splits(n, s, folded_heads) > 1
     return kernel.passes if split else kernel.passes[:2]
-
-
-BODIES = ("f32 tensor cores (3xTF32)", "bf16 tensor cores", "CUDA cores")
-
-
-def kernel_body(*tensors: torch.Tensor) -> str:
-    """The body (one of BODIES) that the kernels' dispatch takes for a call
-    on these tensors (q first; the rest those whose bases the kernel
-    reads or writes): the rule of `launch_dtype` in
-    `csrc/sparse_attention_{fwd,bwd}.cu`."""
-    q = tensors[0]
-    dk = q.shape[-1]
-    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
-    if dk <= 128 and aligned and dk % (16 // q.element_size()) == 0:
-        return BODIES[0] if q.dtype == torch.float32 else BODIES[1]
-    return BODIES[2]
 
 
 def _fwd_cuda(q, k, v, slot_valid, q_valid, segments, rate, seed):

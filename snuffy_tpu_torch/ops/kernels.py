@@ -54,8 +54,27 @@ DENSE = Kernel(
     "dense_attention", "snuffy_tpu_torch/csrc/dense_attention.cu",
     "snuffy_tpu/ops/experimental/dense_attention.py:40",
     (_P,) * 4 + (_I,) * 5 + (_F, _P),
+    passes=("dense_attention",),
 )
 KERNELS = (FWD, BWD, DENSE)
+
+# The bodies of every kernel: the device kernels' names end in
+# _tf32_kernel, _tc_kernel (the dense kernel's _wgmma_kernel) and _kernel.
+BODIES = ("f32 tensor cores (3xTF32)", "bf16 tensor cores", "CUDA cores")
+
+
+def kernel_body(*tensors: torch.Tensor) -> str:
+    """The body (one of BODIES) that a kernel's dispatch takes for a call
+    on these tensors (q first; the rest those whose bases the kernel
+    reads or writes): the rule of `launch_dtype` in every `csrc/*.cu`.
+    dk ≤ 128 in whole 16-byte chunks a row (dk % 4 == 0 in f32, % 8 == 0
+    in bf16) with 16-byte aligned bases takes the tensor cores."""
+    q = tensors[0]
+    dk = q.shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    if dk <= 128 and aligned and dk % (16 // q.element_size()) == 0:
+        return BODIES[0] if q.dtype == torch.float32 else BODIES[1]
+    return BODIES[2]
 
 
 def reset_launches() -> None:

@@ -26,6 +26,7 @@ streaming slide path. Prints one JSON line per slide, its timings and
 
 from __future__ import annotations
 
+import argparse
 import glob
 import json
 
@@ -44,9 +45,43 @@ NORM_LAYER = "instance"
 
 
 def get_args_parser():
-    from predict_slide import get_args_parser as root_parser
-
-    p = root_parser()
+    """The root `predict_slide.py`'s flags (names, defaults, types and
+    choices; tests/test_torch_copies.py holds them to it), the root
+    script's help rewritten for the port, then the port's own flags."""
+    p = argparse.ArgumentParser("Snuffy end-to-end slide inference")
+    p.add_argument("--slide", required=True,
+                   help="slide TIF path or glob (batch serving)")
+    p.add_argument("--embedder", default="SimCLR", type=str)
+    p.add_argument("--backbone", default="resnet18", type=str)
+    p.add_argument("--embedder_weights", default=None, type=str)
+    p.add_argument("--aggregator_weights", default=None, type=str)
+    p.add_argument("--feats_size", default=512, type=int)
+    p.add_argument("--num_classes", default=1, type=int)
+    p.add_argument("--num_heads", default=4, type=int)
+    p.add_argument("--big_lambda", default=200, type=int)
+    p.add_argument("--random_patch_share", default=0.0, type=float)
+    p.add_argument("--depth", default=1, type=int)
+    p.add_argument("--tile_size", default=256, type=int)
+    p.add_argument("--embed_size", default=224, type=int)
+    p.add_argument("--embed_batch", default=256, type=int)
+    p.add_argument("--background_t", default=15.0, type=float)
+    p.add_argument("--objective", default=40.0, type=float)
+    p.add_argument("--base_mag", default=20.0, type=float)
+    p.add_argument("--workers", default=8, type=int)
+    p.add_argument("--transform", default=0, type=int,
+                   help="1 → ImageNet normalisation inside the embedder (the "
+                        "reference's intent; the root CLI accepts the flag "
+                        "and leaves the images as they are), 0 → none")
+    p.add_argument("--bf16", default=1, type=int)
+    p.add_argument("--prefetch", default=None, type=int, choices=[0, 1],
+                   help="read the next block of grid rows in a thread while "
+                        "the current one uploads and embeds: unset or 1 = "
+                        "on, 0 = off")
+    p.add_argument("--scaled_decode", default=None, type=int, choices=[0, 1],
+                   help="decode JPEG tiles straight at embed_size by "
+                        "libjpeg's M/8 scaled IDCT where the level allows "
+                        "it: unset or 1 = when eligible, 0 = never (decode "
+                        "at tile_size, resize on the device)")
     p.add_argument("--device", default="cuda", type=str,
                    help="torch device; cuda raises when no GPU is present")
     p.add_argument("--patch_size", default=16, type=int)
@@ -54,20 +89,6 @@ def get_args_parser():
     p.add_argument("--ffn_num", default=64, type=int,
                    help="adapter bottleneck width")
     p.add_argument("--adapter_ffn_scalar", default=4.0, type=float)
-    helps = {
-        "transform": "1 → ImageNet normalisation inside the embedder (the "
-                     "reference's intent; the root CLI accepts the flag and "
-                     "leaves the images as they are), 0 → none",
-        "prefetch": "read the next block of grid rows in a thread while "
-                    "the current one uploads and embeds: unset or 1 = on, "
-                    "0 = off",
-        "scaled_decode": "decode JPEG tiles straight at embed_size by "
-                         "libjpeg's M/8 scaled IDCT where the level allows "
-                         "it: unset or 1 = when eligible, 0 = never (decode "
-                         "at tile_size, resize on the device)",
-    }
-    for action in p._actions:
-        action.help = helps.get(action.dest, action.help)
     return p
 
 

@@ -47,12 +47,17 @@ HEADS = 6
 EXTRACT_BATCH = 128
 
 
+def dense_work(z, n, n_valid, dk, dtype):
+    """(bytes, FLOPs) of one dense attention call: q, k, v read and out
+    written once; q·kᵀ over the n_valid live keys and p·v, multiply-adds
+    × 2."""
+    return 4 * z * n * dk * dtype.itemsize, 4 * z * n * n_valid * dk
+
+
 def dense_bound_ms(z, n, n_valid, dk, dtype):
     """(least time on the card in ms, "bytes" or "operations") for one
-    dense attention call: q, k, v read and out written once; q·kᵀ over the
-    n_valid live keys and p·v, multiply-adds × 2."""
-    nbytes = 4 * z * n * dk * dtype.itemsize
-    flops = 4 * z * n * n_valid * dk
+    dense attention call (`dense_work`) over the dtype's peak."""
+    nbytes, flops = dense_work(z, n, n_valid, dk, dtype)
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")

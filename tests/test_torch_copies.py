@@ -8,6 +8,8 @@ on a synthetic slide.
 
 import dataclasses
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -21,6 +23,8 @@ from snuffy_tpu_torch import configs
 from snuffy_tpu_torch.bridge import milnet_state_dict
 from snuffy_tpu_torch.data import bucketing
 from snuffy_tpu_torch.tiling import deepzoom
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def defaults(cls):
@@ -285,6 +289,44 @@ def test_train_flags_are_the_root_flags():
     ours = flags(cli.get_args_parser())
     assert ours.pop("device")[1] == "cuda"
     assert ours == flags(root_cli.get_args_parser())
+
+
+def test_slide_cli_flags_are_the_root_flags(monkeypatch):
+    """The port's slide CLI builds its parser with the root script out of
+    reach (`predict_slide` blocked), and its flags are the root's, plus
+    the port's own."""
+    from snuffy_tpu_torch import predict_slide as port_cli
+
+    def flags(parser):
+        return {a.dest: (a.option_strings, a.default, a.type, a.choices,
+                         a.nargs, a.required, type(a).__name__)
+                for a in parser._actions if a.dest != "help"}
+
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "predict_slide", None)
+        ours = flags(port_cli.get_args_parser())
+    import predict_slide as root_cli
+
+    assert ours.pop("device")[1] == "cuda"
+    own = {name: ours.pop(name)[1] for name in
+           ("patch_size", "use_adapter", "ffn_num", "adapter_ffn_scalar")}
+    assert own == dict(patch_size=16, use_adapter=0, ffn_num=64,
+                       adapter_ffn_scalar=4.0)
+    assert ours == flags(root_cli.get_args_parser())
+
+
+def test_slide_cli_runs_without_the_repository_root(tmp_path):
+    """`python -m snuffy_tpu_torch.predict_slide --help` from a directory
+    that holds the package and no root script: the port's CLI needs no
+    file of the repository outside its package."""
+    os.symlink(os.path.join(REPO, "snuffy_tpu_torch"),
+               tmp_path / "snuffy_tpu_torch")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-m", "snuffy_tpu_torch.predict_slide", "--help"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "--slide" in out.stdout and "--scaled_decode" in out.stdout
 
 
 @pytest.mark.parametrize("module", ["models.pos_embed", "utils.tables"])

@@ -13,6 +13,7 @@ bytes equal to pandas'.
 """
 
 import os
+import sys
 
 import numpy as np
 import pandas as pd
@@ -263,6 +264,27 @@ def test_froc_cli_matches_the_root_cli(tmp_path, jax_uses_the_port_reader,
         open(tmp_path / "jax.csv", "rb").read()
     assert os.path.getsize(tmp_path / "froc.png") > 0
     assert f"Score: {got}" in capsys.readouterr().out
+
+
+def test_froc_cli_refuses_plot_without_matplotlib(tmp_path, monkeypatch):
+    """With matplotlib out of reach, `--plot` exits non-zero at once, with
+    the cause named: no mask read, nothing scored, no `--result` written."""
+    args = write_cli_inputs(tmp_path)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+
+    def no_work(*a, **k):
+        raise AssertionError("the CLI read a mask or scored before "
+                             "refusing --plot")
+
+    monkeypatch.setattr(froc_cli, "froc_for_slides", no_work)
+    monkeypatch.setattr(froc_cli, "read_rows", no_work)
+    monkeypatch.setattr(native, "NativeSlide", no_work)
+    result = tmp_path / "port.csv"
+    with pytest.raises(SystemExit) as e:
+        froc_cli.main(args + ["--result", str(result), "--plot",
+                              str(tmp_path / "froc.png")])
+    assert e.value.code not in (None, 0) and "matplotlib" in str(e.value.code)
+    assert not result.exists() and not (tmp_path / "froc.png").exists()
 
 
 def test_froc_cli_has_the_root_flags():
