@@ -29,8 +29,9 @@ per kernel, all at once), then:
      torch.profiler;
   4. dense-attention kernel vs plain: f32 and bf16 at the shapes of the
      TPU probes P1-P3 (z=1536, n=197, dk=64: a ViT-S/16 batch of 256) and
-     P4 (z=384, n=785, dk=64), at the extraction batch (z=768, n=785), and
-     ragged (n_valid < n, dk=32); the body the dispatch takes (f32: the
+     P4 (z=384, n=785, dk=64), at the DINO crops (ViT-S/16 at batch 64:
+     z=768, n=197 and z=3072, n=37), at the extraction batch (z=768,
+     n=785), and ragged (n_valid < n, dk=32); the body the dispatch takes (f32: the
      one-pass 3xTF32 body; bf16: wgmma), checked against the kernel names
      torch.profiler records; errors against the stated tolerance, median
      times of one call by CUDA events, the device time of a call by
@@ -143,11 +144,36 @@ per kernel, all at once), then:
      and score equal to an ArrayMaskReader's; (g) DSMIL (512-d, C=2,
      10000 rows padded to 10240) GPU vs CPU in f32; whether matplotlib
      imports.
+  13. DINO-adapter pretraining, run right after phase 4 (its step
+     profile needs torch.profiler's device times): (a) decode of 64
+     JPEGs in one thread, the batcher's 8 threads and a spawned pool;
+     `main_dino_adapter.main` at its defaults (ViT-S/16 + adapter, bf16,
+     out_dim 65536, 2×224 + 8×96 crops, batch 64, AdamW) on 128
+     generated 224² q75 JPEGs, 2 epochs of 2 steps with validation:
+     finite losses and two log rows, the frozen backbone bit for bit,
+     adapters and head moved, the last layer frozen through epoch 0 and
+     moved in epoch 1, the teacher neither the student nor its start, K5
+     launches ≥ 12 blocks × 3 calls × steps; seconds a step by stage,
+     peak memory; (b) `compute_feats.main` (DINO ViT-S/16 + adapter, f32)
+     on 32 of the JPEGs with `--weights <out>/checkpoint.pth`: every
+     layer matched, the CSVs equal to the trained teacher's features;
+     (c) 2 steps at `--patch_size 8 --batch_size_per_gpu 16` (K5 at
+     n=785, 145), peak memory; a warm step's split, a torch.profiler
+     breakdown (device busy by kind, idle share, top kernels) and the
+     plain attention backward timed apart at the step's two shapes, its
+     share of the step; (d) one f32 step (4 images, 2 locals, dropouts
+     off) on the card and on the CPU from the same weights; (e) K5 on the
+     inputs (a)-(d) gave it, the first call at each shape: f32
+     within DENSE_TOL, bf16 (real activations) within one ulp of max
+     |plain| (2^-7) as in phase 11, two launches bitwise equal, the body
+     against the profiler's names, one-call and b2b times beside plain,
+     SDPA and the bound.
 
 Each path of the main path (serve, whole slide, eval, extraction, train,
 each training-CLI run, the SimCLR slide CLI and requests, the SimCLR and
-MAE extraction CLI runs and the ViT-L batch, each ROI run) runs with the
-launch counts set to 0 just before it and read just after.
+MAE extraction CLI runs and the ViT-L batch, each ROI run, the DINO
+CLI's two runs and its checkpoint's extraction) runs with the launch
+counts set to 0 just before it and read just after.
 Every phase asserts; any failure exits non-zero. The line before the last
 is the kernels' JSON record, the last line the device record. It exits
 non-zero at once without a CUDA device.
@@ -188,6 +214,8 @@ KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 DENSE_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
 # (label, z, n, n_valid, dk); the JSON record is the extraction batch, bf16
 DENSE_CASES = (("P1-P3", 1536, 197, 197, 64), ("P4", 384, 785, 785, 64),
+               ("DINO global", 768, 197, 197, 64),
+               ("DINO local", 3072, 37, 37, 64),
                ("S/8 extract", 768, 785, 785, 64),
                ("ragged", 96, 300, 280, 32))
 # ViT embeddings, f32: GPU (kernel) vs CPU (plain), absolute.
@@ -1889,8 +1917,9 @@ def max_ulps(got, want) -> float:
 
 @contextlib.contextmanager
 def dense_calls(keep, check=False):
-    """Inside it, the dense-attention wrapper keeps the inputs of its first
-    call at each shape in `keep` and, with `check`, holds every bf16
+    """Inside it, the dense-attention wrapper keeps the inputs (detached
+    copies) of its first call at each shape in `keep` and, with `check`,
+    holds every bf16
     launch's output to the plain version within one bf16 ulp of max
     |plain|, 2^-7 (KERNEL_TOL's bf16 bound: phase 4's 2^-8 holds only
     where the largest output sits at the top of its binade). Where a
@@ -1908,7 +1937,8 @@ def dense_calls(keep, check=False):
     def kept(q, k, v, n_valid):
         out = launch(q, k, v, n_valid)
         if tuple(q.shape) not in keep:
-            keep[tuple(q.shape)] = tuple(t.clone() for t in (q, k, v)) + (
+            keep[tuple(q.shape)] = tuple(t.detach().clone()
+                                         for t in (q, k, v)) + (
                 n_valid,)
         if check:
             ref = da.dense_attention_reference(q, k, v, n_valid)
@@ -2743,6 +2773,500 @@ def phase_eval_viz(fa, plain, plain_bwd, kernels, dev):
     return launches, k1_err, k5_err
 
 
+# ---------------------------------------------------------------- phase 13
+
+# Phase 13: the DINO-adapter CLI at its defaults on DINO_IMAGES 224² q75
+# JPEGs (two classes; two full batches of 64), 2 epochs of 2 steps.
+DINO_IMAGES = 128
+DINO_ARGV = ("--epochs", "2", "--max_steps_per_epoch", "2",
+             "--freeze_last_layer", "1", "--warmup_epochs", "1")
+# (d) GPU vs CPU, one f32 step: loss and centre relative to their max,
+# parameters within Adam's 2·lr and 99 % within 1e-4 (as phase 9).
+DINO_GPU_CPU_TOL = 1e-4
+DINO_GPU_CPU_LR = 1e-4
+# (e): K5's (z, n, dk) at the DINO crops: bf16 (a, c) at ViT-S/16's
+# globals and locals at batch 64 and S/8's at batch 16; f32 (b, d) at the
+# extraction batch of 32 tiles and (d)'s 4 images
+DINO_K5_SHAPES = {(768, 197, 64), (3072, 37, 64), (192, 785, 64),
+                  (768, 145, 64), (192, 197, 64), (48, 197, 64), (48, 37, 64)}
+
+
+def write_image_folder(root, count, size, seed):
+    """`count` size² q75 JPEGs in two class folders: smooth seeded
+    gradients with noise, as tissue tiles compress."""
+    import os
+
+    import numpy as np
+
+    from snuffy_tpu_torch import native
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    for i in range(count):
+        cls = os.path.join(root, ("normal", "tumor")[i % 2])
+        os.makedirs(cls, exist_ok=True)
+        a, b, c = rng.uniform(0.2, 1.0, 3)
+        base = np.stack([a * yy + (1 - a) * xx, b * xx, c * (1 - yy)], -1)
+        img = np.clip(255 * (0.6 * base + 0.4 * rng.random(base.shape)), 0,
+                      255).astype(np.uint8)
+        native.write_jpeg(os.path.join(cls, f"{i:04d}.jpeg"), img, 75)
+    return root
+
+
+def decode_ways(paths, size):
+    """Seconds to decode `paths`: one thread, the batcher's 8 threads, and
+    a spawned pool of 8 (its start apart)."""
+    import multiprocessing as mp
+
+    from snuffy_tpu_torch.ssl.data import ImageBatcher, decode
+
+    t0 = time.perf_counter()
+    one = [decode(p, size) for p in paths]
+    t1 = time.perf_counter()
+    batcher = ImageBatcher(paths, len(paths), size, num_workers=8)
+    threads = batcher.decode_batch(paths)
+    t2 = time.perf_counter()
+    batcher.close()
+    pool = mp.get_context("spawn").Pool(8)
+    try:
+        pool.starmap(decode, [(paths[0], size)] * 8)
+        t3 = time.perf_counter()
+        spawned = pool.starmap(decode, [(p, size) for p in paths])
+        t4 = time.perf_counter()
+    finally:
+        pool.close()
+        pool.join()
+    import numpy as np
+
+    if not (np.array_equal(np.stack(one), threads)
+            and np.array_equal(np.stack(one), np.stack(spawned))):
+        raise AssertionError("the three decodes disagree")
+    return t1 - t0, t2 - t1, t4 - t3, t3 - t2
+
+
+def dino_state_dicts(path):
+    import torch
+
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def check_dino_run(init, ckpt0, final):
+    """(a)'s checks on the student/teacher state dicts: the frozen
+    backbone bit for bit, adapters and head moved, the last layer frozen
+    through epoch 0 and moved in epoch 1, the teacher neither the student
+    nor its start."""
+    import torch
+
+    s0, s1, s2 = init["student"], ckpt0["student"], final["student"]
+    frozen = [k for k in s0 if k.startswith("backbone.")
+              and "adaptmlp" not in k]
+    moved = [k for k in frozen if not torch.equal(s0[k], s2[k])]
+    if moved or not frozen:
+        raise AssertionError(f"frozen backbone tensors moved: {moved[:3]}")
+    for group in ("adaptmlp", "head.mlp"):
+        if not any(not torch.equal(s0[k], s2[k]) for k in s0 if group in k):
+            raise AssertionError(f"no {group} tensor moved")
+    v = "head.last_layer.weight_v"
+    if not torch.equal(s0[v], s1[v]) or torch.equal(s1[v], s2[v]):
+        raise AssertionError("last_layer: not frozen through epoch 0, or "
+                             "not moved in epoch 1")
+    t0, t2 = init["teacher"], final["teacher"]
+    ad = [k for k in s0 if "adaptmlp" in k]
+    if all(torch.equal(t2[k], s2[k]) for k in ad):
+        raise AssertionError("the teacher's adapters equal the student's")
+    if all(torch.equal(t2[k], t0[k]) for k in ad):
+        raise AssertionError("the teacher's adapters did not move")
+    log(f"    frozen backbone: {len(frozen)} tensors bit for bit; adapters, "
+        "head moved; last_layer frozen through epoch 0, moved in epoch 1; "
+        "teacher ≠ student, ≠ its start")
+
+
+def classify_kernel(name: str) -> str:
+    import re
+
+    if "dense_attention" in name:
+        return "K5"
+    if re.search(r"gemm|cutlass|xmma|cublas|matmul|sm90_", name, re.I):
+        return "GEMM"
+    if re.search(r"elementwise|vectorized|unrolled|reduce|softmax|norm|"
+                 r"index|gather|scatter|copy|fill|cat|where", name, re.I):
+        return "elementwise/reductions"
+    return "other"
+
+
+def profile_dino_step(trainer, state, batch, dev):
+    """Warm steps of the CLI's trainer: their host-clock split (augment,
+    forward, backward, update; device synchronised between them), then
+    one augment + step under torch.profiler (device busy by kind, the
+    idle share against the un-profiled wall); then the plain attention
+    backward (K5's gradient) timed apart, 20 calls back to back, at the
+    step's two shapes, and its share of the step's device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from snuffy_tpu_torch.ops.dense_attention import dense_attention_reference
+    from snuffy_tpu_torch.ssl.augment import dino_multicrop_batch
+
+    gen = torch.Generator(dev).manual_seed(5)
+    imgs = torch.from_numpy(batch).to(dev)
+
+    def augment():
+        return dino_multicrop_batch(imgs, gen)
+
+    def step(timings=None):
+        g, loc = augment()
+        if timings is not None:
+            torch.cuda.synchronize()
+            timings["augment_s"] = timings.get("augment_s", 0.0) + (
+                time.perf_counter() - timings.pop("t0"))
+        return trainer.step(state, g, loc, 1e-5, 0.04, 0.996, 0.04, False,
+                            gen, timings)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    reps, split = 3, {}
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        split["t0"] = time.perf_counter()
+        step(split)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / reps
+    log(f"    a warm step (mean of {reps}): {wall:.2f} ms wall: " + ", ".join(
+        f"{k.removesuffix('_s')} {1e3 * v / reps:.2f} ms"
+        for k, v in split.items()))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        augment()                        # the profiler's own start-up
+    busy_of = {}
+    for label, fn in (("augment", augment), ("augment + step", step)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kinds = {}
+        for e in prof.key_averages():
+            if (e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)):
+                us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+                kind = classify_kernel(e.key)
+                kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
+        busy = sum(kinds.values())
+        if busy <= 0:
+            raise AssertionError("the profiler recorded no device time")
+        busy_of[label] = busy
+        log(f"    profile, {label}: device busy {busy:.3f} ms; " +
+            ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f} %)"
+                      for k, v in sorted(kinds.items(), key=lambda r: -r[1])))
+        top = sorted(((getattr(e, "self_device_time_total", 0) / 1e3,
+                       e.count, e.key) for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
+                     reverse=True)[:8]
+        for ms, count, name in top:
+            log(f"      {ms:8.3f} ms  {count:4d}x  {name[:110]}")
+    log(f"    device idle over the warm step's {wall:.2f} ms wall: "
+        f"{100 * (1 - busy_of['augment + step'] / wall):.1f} %")
+    b = batch.shape[0]
+    heads = trainer.backbone.blocks[0].attn.num_heads
+    dk = trainer.backbone.embed_dim // heads
+    blocks = len(trainer.backbone.blocks)
+    total = 0.0
+    for label, z, n in (("globals", 2 * b * heads, 197),
+                        ("locals", trainer.n_local * b * heads, 37)):
+        q, k, v = (torch.randn((z, n, dk), device=dev, dtype=torch.bfloat16,
+                               requires_grad=True) for _ in range(3))
+        g = torch.randn((z, n, dk), device=dev, dtype=torch.bfloat16)
+
+        def backward():
+            return torch.autograd.grad(
+                dense_attention_reference(q, k, v, n), (q, k, v), g)
+
+        ms = back_to_back_ms(backward)
+        total += ms * blocks
+        log(f"    plain attention backward at the {label} (z={z}, n={n}, "
+            f"dk={dk}, bf16): {ms:.4f} ms b2b (recompute + gradient), × "
+            f"{blocks} blocks = {ms * blocks:.3f} ms a step")
+    step_busy = busy_of["augment + step"] - busy_of["augment"]
+    log(f"    plain attention backward: {total:.3f} ms of the step's "
+        f"{step_busy:.3f} ms device busy ({100 * total / step_busy:.1f} %)")
+
+
+def phase_dino(dev, fa, kernels):
+    """13: DINO-adapter pretraining through its CLI (module docstring);
+    returns (launches of the main-path runs (a)-(c), K5's largest error
+    over (e))."""
+    import glob
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from snuffy_tpu_torch import compute_feats
+    from snuffy_tpu_torch import main_dino_adapter as cli
+    from snuffy_tpu_torch.embed.pipeline import decode_batch, embed_tiles
+    from snuffy_tpu_torch.embed.registry import build_embedder
+    from snuffy_tpu_torch.ops.dense_attention import (
+        dense_attention_reference,
+        fused_self_attention,
+    )
+    from snuffy_tpu_torch.ssl.data import ImageBatcher, list_image_folder
+    from snuffy_tpu_torch.tools.profile_serve import device_profile
+
+    log("== phase 13: DINO-adapter pretraining (python -m "
+        "snuffy_tpu_torch.main_dino_adapter at its defaults: ViT-S/16 + "
+        "adapter 64/4.0, bf16, out_dim 65536, 2x224 + 8x96 crops, batch 64, "
+        "AdamW)")
+    t_phase = time.perf_counter()
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    calls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_image_folder(os.path.join(tmp, "imgs"), DINO_IMAGES,
+                                  224, 13)
+        paths, _ = list_image_folder(data)
+        one, threads, spawned, start = decode_ways(paths[:64], 224)
+        log(f"  (a) decode of 64 224² JPEGs: one thread {one:.3f} s, 8 "
+            f"threads (the batcher) {threads:.3f} s, a spawned pool of 8 "
+            f"{spawned:.3f} s after its {start:.3f} s start")
+        out = os.path.join(tmp, "out")
+        argv = ["--data_path", data, "--valid_data_path", data,
+                "--output_dir", out, *DINO_ARGV]
+        args = cli.get_args_parser().parse_args(argv)
+        start_state = cli.build_trainer(args, torch.device("cpu")
+                                        ).init_state(args.seed)
+        init = {"student": start_state.student.state_dict(),
+                "teacher": start_state.teacher.state_dict()}
+        timings = {}
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with dense_calls(calls):
+            state = cli.main(argv, timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_a = kernels.launch_counts()
+        peak_a = torch.cuda.max_memory_allocated()
+        with open(os.path.join(out, "log.txt")) as f:
+            rows = [json.loads(line) for line in f]
+        if len(rows) != 2 or rows[-1]["val_loss"] is None or not all(
+                math.isfinite(r["train_loss"]) and math.isfinite(
+                    r["val_loss"]) for r in rows):
+            raise AssertionError(f"log.txt rows {rows}")
+        check_dino_run(init, dino_state_dicts(
+            os.path.join(out, "checkpoint0000.pth")),
+            dino_state_dicts(os.path.join(out, "checkpoint.pth")))
+        steps = timings["steps"]
+        depth = len(state.student.backbone.blocks)
+        dim = state.student.backbone.embed_dim
+        want = depth * 3 * steps
+        if state.step != 4 or steps != 4 or run_a[kernels.DENSE.name] < want:
+            raise AssertionError(f"steps {state.step}/{steps}, K5 launches "
+                                 f"{run_a[kernels.DENSE.name]} < {want}")
+        per = {k: v / steps for k, v in timings.items() if k != "steps"}
+        log(f"  (a) 2 epochs x 2 steps + validation in {wall:.2f} s; losses "
+            f"{[round(r['train_loss'], 6) for r in rows]}, val "
+            f"{[round(r['val_loss'], 6) for r in rows]}; a step "
+            f"{sum(per.values()):.4f} s: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in per.items()) +
+            f" (mean of {steps}, the first with its warm-up); peak "
+            f"{peak_a / 2**30:.2f} GiB; K5 launches "
+            f"{run_a[kernels.DENSE.name]} (≥ {want}: {depth} blocks × (2 "
+            "student "
+            "+ 1 teacher calls) × steps, plus validation)")
+        for k, v in run_a.items():
+            launches[k] += v
+
+        # (b) the checkpoint into the extraction CLI, f32
+        bag = os.path.join(tmp, "datasets", "dino", "single", "fold1",
+                           "train", "1_tumor", "slide_1")
+        os.makedirs(bag)
+        for i, p in enumerate(paths[:32]):
+            shutil.copy(p, os.path.join(bag, f"{i}_{i % 7}.jpeg"))
+        ckpt = os.path.join(out, "checkpoint.pth")
+        buf = io.StringIO()
+        kernels.reset_launches()
+        with contextlib.redirect_stdout(buf), dense_calls(calls):
+            rows_b = compute_feats.main([
+                "--embedder", "DINO", "--backbone", "vit_small",
+                "--patch_size", "16", "--use_adapter", "--weights", ckpt,
+                "--dataset", "dino", "--datasets_path",
+                os.path.join(tmp, "datasets"), "--embeddings_path",
+                os.path.join(tmp, "emb"), "--batch_size", "32",
+                "--num_workers", "0", "--compute_dtype", "float32"])
+        torch.cuda.synchronize()
+        run_b = kernels.launch_counts()
+        audit = [line for line in buf.getvalue().splitlines()
+                 if line.startswith("layer audit")]
+        log(f"  (b) compute_feats: {audit}")
+        if len(audit) != 1 or " 0 missing/mismatched" not in audit[0]:
+            raise AssertionError(f"the checkpoint did not load whole: {audit}")
+        (csv_path, _), = rows_b
+        with open(csv_path) as f:
+            lines = f.read().splitlines()[1:]
+        feats = torch.tensor([[float(x) for x in line.split(",")[:dim]]
+                              for line in lines])
+        emb = build_embedder("DINO", "vit_small", patch_size=16,
+                             use_adapter=True, device=dev)
+        emb.backbone.load_state_dict(
+            {k[len("backbone."):]: v for k, v in
+             state.teacher.state_dict().items() if k.startswith("backbone.")})
+        tiles = sorted(glob.glob(os.path.join(bag, "*.jpeg")))
+        want_f = torch.from_numpy(embed_tiles(emb, decode_batch(tiles, 224),
+                                              32))
+        err = float((feats - want_f).abs().max())
+        if feats.shape != (32, dim) or not err <= 1e-6 * float(
+                want_f.abs().max()):
+            raise AssertionError(f"extraction CSV vs the teacher: {err}")
+        log(f"    32 tiles' CSV features against the trained teacher's "
+            f"backbone on the same tiles (f32): max |diff| {err:.3e} (tol "
+            "1e-6 of max); K5 launches "
+            f"{run_b[kernels.DENSE.name]}")
+        for k, v in run_b.items():
+            launches[k] += v
+
+        # (c) the recipe's S/8 shapes
+        out8 = os.path.join(tmp, "out8")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with dense_calls(calls):
+            s8 = cli.main(["--data_path", data, "--output_dir", out8,
+                           "--patch_size", "8", "--batch_size_per_gpu", "16",
+                           "--epochs", "1", "--max_steps_per_epoch", "2",
+                           "--warmup_epochs", "1"])
+        torch.cuda.synchronize()
+        run_c = kernels.launch_counts()
+        if s8.step != 2 or run_c[kernels.DENSE.name] < depth * 3 * 2:
+            raise AssertionError(f"S/8: {s8.step} steps, {run_c}")
+        log(f"  (c) --patch_size 8 --batch_size_per_gpu 16, 2 steps in "
+            f"{time.perf_counter() - t0:.2f} s: peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K5 "
+            f"launches {run_c[kernels.DENSE.name]}")
+        for k, v in run_c.items():
+            launches[k] += v
+        del s8
+
+        # profile one step at the defaults (not counted: a measurement)
+        batcher = ImageBatcher(paths, 64, 224, num_workers=8)
+        batch = batcher.decode_batch(paths[:64])
+        batcher.close()
+        trainer = cli.build_trainer(args, dev)
+        profile_dino_step(trainer, trainer.init_state(0), batch, dev)
+        del trainer, state
+
+        # (d) one f32 step on the card and on the CPU
+        phase_dino_gpu_vs_cpu(cli, dev, batch[:4], calls)
+
+    # (e) K5 on this phase's own inputs
+    worst = 0.0
+    log("  (e) K5 against its plain version on the inputs (a)-(d) gave it, "
+        "the first call at each shape (each shape runs in one dtype)")
+    for shape, (q, k, v, n_valid) in sorted(calls.items()):
+        dtype = str(q.dtype).removeprefix("torch.")
+        with torch.inference_mode():
+            got = fused_self_attention(q, k, v, n_valid)
+            ref = dense_attention_reference(q, k, v, n_valid)
+            if dtype == "float32":
+                err = check_kernel(f"K5 {dtype} {shape}", got, ref,
+                                   DENSE_TOL[dtype])
+            else:
+                # real activations: one bf16 ulp of max |plain|, 2^-7
+                # (phase 11's rule for its launches: DENSE_TOL's 2^-8 is
+                # under one ulp where the largest output sits low in its
+                # binade); beside it, each side's distance from the exact
+                # result (f64, p unrounded)
+                err = check_kernel(f"K5 {dtype} {shape}", got, ref,
+                                   KERNEL_TOL[dtype])
+                scale = float(ref.float().abs().max())
+                s_ = torch.bmm(q.double(), k.double().transpose(1, 2))
+                s_ = (s_ * q.shape[-1] ** -0.5)[..., :n_valid]
+                exact = torch.bmm(torch.softmax(s_, dim=-1),
+                                  v.double()[:, :n_valid])
+                log(f"      {max_ulps(got, ref):.2f} ulps (max_ulps); "
+                    f"within DENSE_TOL's 2^-8: "
+                    f"{err / scale <= DENSE_TOL[dtype]}; from the exact "
+                    "result: kernel "
+                    f"{float((got.double() - exact).abs().max()) / scale:.3e}"
+                    ", plain "
+                    f"{float((ref.double() - exact).abs().max()) / scale:.3e}"
+                    " of max |plain|")
+                del s_, exact
+            worst = max(worst, err)
+            if not torch.equal(fused_self_attention(q, k, v, n_valid), got):
+                raise AssertionError("K5: two launches on the same inputs "
+                                     "differ")
+            body = fa.kernel_body(q, k, v, got)
+            kernel_times = device_profile(
+                lambda: fused_self_attention(q, k, v, n_valid))[2]
+        check_body(fa, kernels.DENSE, kernel_times, body)
+        time_dense(f"DINO {shape}", q, k, v, n_valid)
+    missing = DINO_K5_SHAPES - set(calls)
+    if missing:
+        raise AssertionError(f"K5 never ran at {sorted(missing)}; it ran at "
+                             f"{sorted(calls)}")
+    log(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, worst
+
+
+def phase_dino_gpu_vs_cpu(cli, dev, batch, calls):
+    """13d: one f32 step (4 images, 2 local crops, adapter dropout and
+    drop-path off, the up-projections drawn non-zero) on the card and on
+    the CPU from the same weights and crops; K5's inputs kept in
+    `calls`."""
+    import torch
+
+    from snuffy_tpu_torch.ssl.augment import dino_multicrop_batch
+
+    args = cli.get_args_parser().parse_args(
+        ["--compute_dtype", "float32", "--drop_path_rate", "0",
+         "--local_crops_number", "2"])
+    sides = []
+    for device in (torch.device("cpu"), dev):
+        trainer = cli.build_trainer(args, device)
+        state = trainer.init_state(args.seed)
+        gen = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            for blk in trainer.backbone.blocks:
+                blk.adaptmlp.dropout = 0.0
+                w = blk.adaptmlp.up_proj.weight
+                w.copy_(0.02 * torch.randn(w.shape, generator=gen))
+        state.teacher.load_state_dict(state.student.state_dict())
+        sides.append((trainer, state))
+    g, loc = dino_multicrop_batch(torch.from_numpy(batch),
+                                  torch.Generator().manual_seed(4),
+                                  n_local=2)
+    out = []
+    for (trainer, state), device in zip(sides, (torch.device("cpu"), dev)):
+        with dense_calls(calls):
+            _, loss = trainer.step(state, g.to(device), loc.to(device),
+                                   DINO_GPU_CPU_LR, 0.04, 0.996, 0.04, False)
+        out.append((float(loss), state.center.cpu(),
+                    {k: v.cpu() for k, v in
+                     state.student.state_dict().items()}))
+    (l_cpu, c_cpu, p_cpu), (l_gpu, c_gpu, p_gpu) = out
+    d_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    d_center = float((c_gpu - c_cpu).abs().max() / c_cpu.abs().max())
+    worst, share = 0.0, 1.0
+    for k, v in p_cpu.items():
+        if not v.is_floating_point():
+            continue
+        d = (p_gpu[k] - v).abs()
+        worst = max(worst, float(d.max()))
+        share = min(share, float((d <= DINO_GPU_CPU_TOL * (1 + v.abs()))
+                                 .float().mean()))
+    log(f"  (d) one f32 step, GPU vs CPU: loss {l_gpu:.6f} / {l_cpu:.6f} "
+        f"(rel {d_loss:.2e}), centre rel {d_center:.2e} (tol "
+        f"{DINO_GPU_CPU_TOL:.0e}); parameters max |diff| {worst:.3e} "
+        f"(bound 2·lr {2 * DINO_GPU_CPU_LR:.0e}), least share within 1e-4 "
+        f"{share:.4f}")
+    if not (d_loss <= DINO_GPU_CPU_TOL and d_center <= DINO_GPU_CPU_TOL
+            and worst <= 2 * DINO_GPU_CPU_LR and share >= 0.99):
+        raise AssertionError("DINO step: GPU and CPU disagree")
+
+
 def build_kernels(kernels):
     """Build every kernel at once, one nvcc each; print ptxas's lines."""
     with concurrent.futures.ThreadPoolExecutor(len(kernels.KERNELS)) as pool:
@@ -2832,6 +3356,9 @@ def main() -> int:
     bwd_err, bwd_record = phase_backward(
         fa, packed_inverted_sparse_attention_bwd, dev)
     dense_err, dense_record = phase_dense(fa, dev)
+    # early in the run: its step profile needs torch.profiler's device
+    # times, which late phases have found empty (phases 11, 12d)
+    dino_launches, k5_dino_err = phase_dino(dev, fa, kernels)
 
     cfg = SnuffyModelConfig(
         feats_size=384, num_classes=1, num_heads=4, big_lambda=512,
@@ -2865,13 +3392,13 @@ def main() -> int:
         f"{extract_launches}, train {train_launches}, training CLI "
         f"{cli_launches}, SimCLR serve (slide CLI and requests) "
         f"{simclr_launches}, SimCLR/MAE extraction {embedders_launches}, "
-        f"ROI heat maps {roi_launches}")
+        f"ROI heat maps {roi_launches}, DINO pretraining {dino_launches}")
     log(f"  K1 at dk=128, one bag: kernel {k1_dk128_record[0]:.4f} ms "
         f"(device {k1_dk128_record[4]:.4f}), bound {k1_dk128_record[2]:.4f} "
         f"ms ({k1_dk128_record[3]})")
     paths = (serve_launches, slide_launches, eval_launches, extract_launches,
              train_launches, cli_launches, simclr_launches,
-             embedders_launches, roi_launches)
+             embedders_launches, roi_launches, dino_launches)
     no_library = None  # no one PyTorch call computes the slot sums σᵀv
     records = []
     for kernel, err, (ms, plain_ms, bound, bound_by, library_ms) in (
@@ -2879,7 +3406,8 @@ def main() -> int:
                               k1_roi_err), (*fwd_record, no_library)),
             (kernels.BWD, max(bwd_err, k2_cli_err),
              (*bwd_record, no_library)),
-            (kernels.DENSE, max(dense_err, k5_vitl_err, k5_roi_err),
+            (kernels.DENSE, max(dense_err, k5_vitl_err, k5_roi_err,
+                                k5_dino_err),
              dense_record)):
         records.append({
             "name": kernel.name,

@@ -15,6 +15,11 @@
                                 numpy state dict
   mae_from_jax(params)          flax MAE params → MAE-keyed numpy state
                                 dict of the encoder
+  dino_head_state_dict(params)  flax DINOHead params (+ batch stats) →
+                                the reference's DINOHead names
+  dino_from_jax(state)          a JAX `DINOState`'s student and teacher
+                                (backbone + head, BN stats) and centre →
+                                `MultiCropWrapper` state dicts
   load_reference_pth(path)      a reference/DINO `.pth` → state dict of
                                 tensors, `module.`/`backbone.` stripped
   load_vit_weights(model, path) a DINO(-adapter) `.pth` onto a port ViT,
@@ -182,6 +187,73 @@ def mae_from_jax(params: dict) -> Dict[str, np.ndarray]:
     }
     _vit_blocks(sd, params)
     return sd
+
+
+_HEAD_LINEARS = {False: (0, 2, 4), True: (0, 3, 6)}
+
+
+def dino_head_state_dict(params: dict, bn_stats: Optional[dict] = None
+                         ) -> Dict[str, np.ndarray]:
+    """flax DINOHead params → the port's (the reference's) names:
+    `mlp_i` → `mlp.{0,2,4}` (with BatchNorm `mlp.{0,3,6}`, `bn_i` →
+    `mlp.{1,4}` with `bn_stats`' mean/var as the running statistics),
+    `last_layer_v` (in, out) → `last_layer.weight_v` (out, in),
+    `last_layer_g` (out,) → `last_layer.weight_g` (out, 1), ones where the
+    head has no g (`norm_last_layer`)."""
+    use_bn = "bn_0" in params
+    sd: Dict[str, np.ndarray] = {}
+    for i, idx in enumerate(_HEAD_LINEARS[use_bn]):
+        sd[f"mlp.{idx}.weight"] = _f32(np.asarray(
+            params[f"mlp_{i}"]["kernel"]).T)
+        sd[f"mlp.{idx}.bias"] = _f32(params[f"mlp_{i}"]["bias"])
+    if use_bn:
+        for i, idx in enumerate((1, 4)):
+            bn, stats = params[f"bn_{i}"], (bn_stats or {}).get(f"bn_{i}", {})
+            sd[f"mlp.{idx}.weight"] = _f32(bn["scale"])
+            sd[f"mlp.{idx}.bias"] = _f32(bn["bias"])
+            width = sd[f"mlp.{idx}.weight"].shape[0]
+            sd[f"mlp.{idx}.running_mean"] = _f32(
+                stats.get("mean", np.zeros(width)))
+            sd[f"mlp.{idx}.running_var"] = _f32(
+                stats.get("var", np.ones(width)))
+            sd[f"mlp.{idx}.num_batches_tracked"] = np.array(0, np.int64)
+    v = _f32(np.asarray(params["last_layer_v"]).T)
+    sd["last_layer.weight_v"] = v
+    g = params.get("last_layer_g")
+    sd["last_layer.weight_g"] = (_f32(np.asarray(g).reshape(-1, 1))
+                                 if g is not None
+                                 else np.ones((v.shape[0], 1), np.float32))
+    return sd
+
+
+def dino_student_state_dict(tree: dict, bn_stats: Optional[dict] = None
+                            ) -> Dict[str, np.ndarray]:
+    """{'backbone': flax ViT, 'head': flax DINOHead} → a
+    `MultiCropWrapper`'s names (`backbone.*` by `vit_from_jax`, `head.*`
+    by `dino_head_state_dict`)."""
+    sd = {f"backbone.{k}": v for k, v in vit_from_jax(tree["backbone"])
+          .items()}
+    sd.update({f"head.{k}": v for k, v in
+               dino_head_state_dict(tree["head"], bn_stats).items()})
+    return sd
+
+
+def dino_from_jax(state) -> Dict[str, object]:
+    """A JAX `DINOState` (or a mapping with its fields) → {'student': sd,
+    'teacher': sd, 'center': (1, out_dim) f32}: numpy state dicts that
+    load strictly into the port's student and teacher
+    (`ssl.dino.MultiCropWrapper`), BatchNorm running statistics from
+    `bn_stats`."""
+    get = (state.get if isinstance(state, dict)
+           else lambda k, d=None: getattr(state, k, d))
+    bn = get("bn_stats") or {}
+    return {
+        "student": dino_student_state_dict(get("student"),
+                                           bn.get("student")),
+        "teacher": dino_student_state_dict(get("teacher"),
+                                           bn.get("teacher")),
+        "center": _f32(get("center")),
+    }
 
 
 def resnet_from_jax(params: dict) -> Dict[str, np.ndarray]:

@@ -134,3 +134,21 @@ def replace(cfg, **kw):
 def resolve_feats_size(dataset: str, feats_size: int) -> int:
     """MIL datasets force their own feature width (reference train.py:992-999)."""
     return MIL_DATASET_FEATS_SIZE.get(dataset, feats_size)
+
+
+def bool_flag(s):
+    """Boolean CLI parser (reference dino_adapter/utils.py:206-218).
+
+    `type=bool` maps every non-empty string, "False" included, to True;
+    this parser takes on/off/true/false/0/1 and refuses anything else, so
+    `--norm_last_layer false` turns the flag off."""
+    import argparse
+
+    if isinstance(s, bool):
+        return s
+    low = str(s).lower()
+    if low in ("off", "false", "0"):
+        return False
+    if low in ("on", "true", "1"):
+        return True
+    raise argparse.ArgumentTypeError("invalid value for a boolean flag")

@@ -11,7 +11,10 @@ model non-strictly, as the JAX `merge_into` overlays a flax tree: what the
 checkpoint lacks keeps its initial value.
 
 Loading stays `weights_only`, with `argparse.Namespace` allowed: a DINO
-training checkpoint stores its arguments as one beside `teacher`.
+training checkpoint stores its arguments as one beside `teacher`. A full
+DINO training checkpoint (student and teacher, backbone and head) loads
+through `load_torch_full_checkpoint` and `import_dino_student_teacher`,
+the head filtered by `import_dino_head` as the reference filters it.
 """
 
 from __future__ import annotations
@@ -199,3 +202,106 @@ def load_embedder_weights(model: nn.Module, path: str, embedder: str,
     else:
         imported = import_vit(sd)
     return overlay_checkpoint(model, imported, sd, path)
+
+
+def load_torch_full_checkpoint(path: str) -> Dict[str, StateDict]:
+    """A full DINO training checkpoint {'student': sd, 'teacher': sd, ...}
+    → {'student': sd, 'teacher': sd} of tensors (reference
+    dino_adapter/main_dino_adapter.py:239-243). Parts absent from the
+    file are absent from the result, so a plain backbone `.pth` gives {}."""
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    out = {}
+    for part in ("student", "teacher"):
+        if isinstance(ckpt, dict) and isinstance(ckpt.get(part), dict):
+            out[part] = {k: v for k, v in ckpt[part].items()
+                         if isinstance(v, torch.Tensor)}
+    return out
+
+
+# DINOHead Sequential indices by role: the three Linears, and with
+# use_bn_in_head the two BatchNorms (GELUs between; reference
+# dino_adapter/vision_transformer_with_adapter.py:287-297).
+_HEAD_LINEARS = {False: (0, 2, 4), True: (0, 3, 6)}
+_HEAD_NORMS = (1, 4)
+
+
+def import_dino_head(sd: StateDict, template: StateDict,
+                     random_head: bool = False,
+                     norm_last_layer: bool = True) -> StateDict:
+    """DINOHead tensors ('head.' stripped) → those of a head whose state
+    dict is `template`, with the reference's full-checkpoint filtering
+    (main_dino_adapter.py:246-305), as the JAX `import_dino_head`:
+
+      * a tensor whose shape disagrees with the template's (another
+        out_dim, say) is dropped, and everything with `random_head`;
+        dropped tensors keep the model's values;
+      * the Linears and BatchNorm scales map by role between the plain
+        (`mlp.{0,2,4}`) and BatchNorm (`mlp.{0,3,6}`, `mlp.{1,4}`)
+        layouts; a BatchNorm's running statistics are not taken (they
+        restart, as the JAX import leaves them in the init's collection);
+      * a plain `last_layer.weight` counts as `weight_v` (the published
+        vit_base checkpoint, main_dino_adapter.py:253-254,283-288);
+        `weight_g` is taken only beside `weight_v` and only into a head
+        whose g trains (`norm_last_layer` False)."""
+    out: StateDict = {}
+
+    def try_set(name: str, t: torch.Tensor) -> None:
+        want = template.get(name)
+        if not random_head and want is not None and want.shape == t.shape:
+            out[name] = t
+
+    src_bn = any(k.endswith("running_mean") for k in sd)
+    dst_bn = any(k.endswith("running_mean") for k in template)
+    for src, dst in zip(_HEAD_LINEARS[src_bn], _HEAD_LINEARS[dst_bn]):
+        for p in ("weight", "bias"):
+            if f"mlp.{src}.{p}" in sd:
+                try_set(f"mlp.{dst}.{p}", sd[f"mlp.{src}.{p}"])
+    if src_bn and dst_bn:
+        for i in _HEAD_NORMS:
+            for p in ("weight", "bias"):
+                if f"mlp.{i}.{p}" in sd:
+                    try_set(f"mlp.{i}.{p}", sd[f"mlp.{i}.{p}"])
+    v = sd.get("last_layer.weight_v", sd.get("last_layer.weight"))
+    if v is not None:
+        try_set("last_layer.weight_v", v)
+    if ("last_layer.weight_g" in sd and "last_layer.weight_v" in sd
+            and not norm_last_layer):
+        try_set("last_layer.weight_g", sd["last_layer.weight_g"])
+    return out
+
+
+def import_dino_student_teacher(parts: Dict[str, StateDict],
+                                student_template: StateDict,
+                                teacher_template: StateDict,
+                                random_head: bool = False,
+                                norm_last_layer: bool = True
+                                ) -> Dict[str, StateDict]:
+    """A full checkpoint's student and teacher → for each part it holds,
+    the tensors to overlay (`backbone.*` by `import_vit`, `head.*` by
+    `import_dino_head`) onto a `MultiCropWrapper` with that state dict,
+    non-strictly (reference main_dino_adapter.py:239-311)."""
+    out = {}
+    for name, template in (("student", student_template),
+                           ("teacher", teacher_template)):
+        sd = parts.get(name)
+        if sd is None:
+            continue
+        sd = {k[len("module."):] if k.startswith("module.") else k: v
+              for k, v in sd.items()}
+        backbone = {k[len("backbone."):]: v for k, v in sd.items()
+                    if k.startswith("backbone.")}
+        head = {k[len("head."):]: v for k, v in sd.items()
+                if k.startswith("head.")}
+        imported: StateDict = {}
+        if backbone:
+            imported.update({f"backbone.{k}": v for k, v in
+                             import_vit(backbone).items()})
+        if head:
+            head_template = {k[len("head."):]: v for k, v in template.items()
+                             if k.startswith("head.")}
+            imported.update({f"head.{k}": v for k, v in import_dino_head(
+                head, head_template, random_head,
+                norm_last_layer).items()})
+        out[name] = imported
+    return out

@@ -1,8 +1,8 @@
-"""DINO Vision Transformer embedder (CLS output), in PyTorch.
+"""DINO Vision Transformer (CLS output) and the DINO head, in PyTorch.
 
-Port of `snuffy_tpu/models/vit.py` for feature extraction, with its
-optional parallel adapter; no sequence packing, output =
-LayerNorm(x)[:, 0]. Parameter names are the DINO/timm keys
+Port of `snuffy_tpu/models/vit.py`: the ViT with its optional parallel
+adapter, for extraction and for DINO-adapter pretraining, and `DINOHead`.
+Output = LayerNorm(x)[:, 0]. Parameter names are the DINO/timm keys
 (`patch_embed.proj`, `blocks.{i}.attn.qkv`, `norm1`, `mlp.fc1`, `norm`,
 `cls_token`, `pos_embed`) and the DINO-adapter ones
 (`blocks.{i}.adaptmlp.{down_proj,up_proj,scale,adapter_layer_norm_before}`),
@@ -11,19 +11,47 @@ so a published DINO state dict loads with `strict=True`.
 Images come in the JAX package's layout, (B, H, W, 3) float. The patch
 embedding is a reshape and one GEMM (the stride-p conv written out).
 Attention runs on (b·h, n, dk), the JAX MHSA layout, through the dense
-attention kernel (`ops/dense_attention.py`): its scores and softmax are
-f32 whatever the compute dtype, where the JAX MHSA rounds the scores to
-bf16 under `compute_dtype="bfloat16"`. LayerNorm eps is 1e-6 (flax's
+attention kernel (`ops/dense_attention.py`), in training too (its
+gradient goes through the plain version): its scores and softmax are f32
+whatever the compute dtype, where the JAX MHSA rounds the scores to bf16
+under `compute_dtype="bfloat16"`. LayerNorm eps is 1e-6 (flax's
 default), stats in f32.
 An input whose patch grid differs from the 224² one gets the position
 grid resized as `jax.image.resize(..., "bicubic")` resizes it
 (`interpolate_pos_encoding`): Keys' cubic with a = −0.5 (torch's bicubic
 takes −0.75), half-pixel centres, the kernel widened by the scale on a
 downscale, and the weights renormalised where taps fall off the edge.
+
+Training (`model.train()`, a `generator` on the input's device passed to
+`forward`) draws the JAX model's dropouts: `drop_rate` on the position-
+embedded tokens, the attention projection and the MLP, the adapter's own
+dropout (0.1, hard-wired in the JAX `Block`; `adapter_dropout` sets it,
+0 for parity tests) and stochastic depth (`drop_path_rate`, linearly
+spaced over the blocks, one draw a sample and residual branch).
+`attn_drop_rate` > 0 is refused: the dense kernel has no dropout on its
+probabilities.
+
+Crop packing (`forward(x, pack=k)`) folds groups of k images into one
+sequence of k·n tokens: LayerNorm, the GEMMs and the adapter run on the
+packed rows, stochastic depth draws once a segment, and the attention
+folds the k segments into the kernel's z axis. That is the JAX
+`pack_mode='blocked'`. The JAX `'masked'` mode runs one k·n attention
+with a block-diagonal −1e9 mask, whose off-block weights underflow to
+exact zeros (`snuffy_tpu/models/vit.py:345-353,102-110`; held equal by
+`tests/test_ssl.py::test_vit_pack_forward_parity`). The dense kernel takes
+no additive mask, so `'masked'` here runs the same fold; it is held to the
+JAX `'masked'` forward by the port's tests.
+
+`DINOHead` is the JAX head under the reference's torch names: a 3-layer
+MLP with exact GELU (`mlp.{0,2,4}`, or with BatchNorm `mlp.{0,3,6}` and
+`mlp.{1,4}`), L2 normalisation with +1e-12, and the weight-normed last
+layer w = v / (‖v‖ + 1e-12) · g (`last_layer.weight_v` (out, in),
+`last_layer.weight_g` (out, 1)), g held at 1 under `norm_last_layer`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Optional
@@ -33,41 +61,88 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from snuffy_tpu_torch.models.layers import LN_EPS, layer_norm, linear
+from snuffy_tpu_torch.models.layers import LN_EPS, dropout, layer_norm, linear
 from snuffy_tpu_torch.ops.dense_attention import fused_self_attention
 from snuffy_tpu_torch.ops.init import lecun_normal
 
 
+@dataclasses.dataclass(frozen=True)
+class Run:
+    """How a forward runs: `train` draws the dropouts from `generator`;
+    `segments` images are packed in each sequence."""
+
+    train: bool = False
+    generator: Optional[torch.Generator] = None
+    segments: int = 1
+
+
+EVAL = Run()
+
+
+def lora_down_init(w: torch.Tensor, generator: torch.Generator
+                   ) -> torch.Tensor:
+    """torch kaiming_normal_(a=√5) on an (out, in) weight: N(0, 1/(3·in))
+    (the JAX `lora_down_init`)."""
+    with torch.no_grad():
+        return w.normal_(0.0, (3.0 * w.shape[1]) ** -0.5, generator=generator)
+
+
+def drop_path(x: torch.Tensor, rate: float, run: Run) -> torch.Tensor:
+    """Stochastic depth on a residual branch (b, n, d): keep each sample,
+    or with packing each of its `run.segments` crops, with probability
+    1 − rate, scaled by 1/(1 − rate)."""
+    if not run.train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    b, n, d = x.shape
+    seg = run.segments
+    mask = torch.rand((b, seg, 1, 1), generator=run.generator,
+                      device=x.device) < keep
+    y = x.reshape(b, seg, n // seg, d)
+    return torch.where(mask, y / keep, torch.zeros_like(y)).reshape(b, n, d)
+
+
+def _dropout(x: torch.Tensor, rate: float, run: Run) -> torch.Tensor:
+    return dropout(x, rate, run.generator) if run.train else x
+
+
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.proj_drop = proj_drop
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, run: Run = EVAL):
         b, n, c = x.shape
         h, dk = self.num_heads, c // self.num_heads
         qkv = linear(x, self.qkv, dtype).reshape(b, n, 3, h, dk)
         qkv = qkv.permute(2, 0, 3, 1, 4).contiguous()     # (3, b, h, n, dk)
-        q, k, v = qkv.view(3, b * h, n, dk).unbind(0)
-        out = fused_self_attention(q, k, v, n)            # (b·h, n, dk)
+        # packed segments are contiguous runs of n/segments tokens: fold
+        # them into z (one attention per crop)
+        seg = run.segments
+        q, k, v = qkv.view(3, b * h * seg, n // seg, dk).unbind(0)
+        out = fused_self_attention(q, k, v, n // seg)
         out = out.reshape(b, h, n, dk).transpose(1, 2).reshape(b, n, c)
-        return linear(out, self.proj, dtype)
+        return _dropout(linear(out, self.proj, dtype), self.proj_drop, run)
 
 
 class Adapter(nn.Module):
-    """Parallel bottleneck adapter, eval mode: [LN] → down → ReLU → up →
-    × scale → [LN] (JAX `Adapter`; its dropout is off at inference). Init
-    as JAX's: down N(0, 1/(3·dim)), up and biases 0, a learnable scale 1."""
+    """Parallel bottleneck adapter: [LN] → down → ReLU → dropout → up →
+    × scale → [LN] (JAX `Adapter`; the dropout draws in training only).
+    Init as JAX's: down N(0, 1/(3·dim)), up and biases 0, a learnable
+    scale 1."""
 
     def __init__(self, dim: int, bottleneck: int = 64, scale: float = 0.1,
                  learnable_scale: bool = False,
-                 layernorm_option: str = "none"):
+                 layernorm_option: str = "none", dropout: float = 0.1):
         super().__init__()
         if layernorm_option not in ("in", "out", "none"):
             raise ValueError(f"layernorm_option {layernorm_option!r}")
         self.layernorm_option = layernorm_option
+        self.dropout = dropout
         if layernorm_option != "none":
             self.adapter_layer_norm_before = nn.LayerNorm(dim, eps=LN_EPS)
         self.down_proj = nn.Linear(dim, bottleneck)
@@ -77,20 +152,19 @@ class Adapter(nn.Module):
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         with torch.no_grad():
-            self.down_proj.weight.normal_(
-                0.0, (3.0 * self.down_proj.in_features) ** -0.5,
-                generator=gen)
+            lora_down_init(self.down_proj.weight, gen)
             for t in (self.down_proj.bias, self.up_proj.weight,
                       self.up_proj.bias):
                 t.zero_()
             if isinstance(self.scale, nn.Parameter):
                 self.scale.fill_(1.0)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, run: Run = EVAL):
         if self.layernorm_option == "in":
             x = layer_norm(x, self.adapter_layer_norm_before, dtype)
-        h = linear(F.relu(linear(x, self.down_proj, dtype)), self.up_proj,
-                   dtype)
+        h = _dropout(F.relu(linear(x, self.down_proj, dtype)), self.dropout,
+                     run)
+        h = linear(h, self.up_proj, dtype)
         # a learnable f32 scale promotes a bf16 branch to f32, as in JAX
         h = h * self.scale
         if self.layernorm_option == "out":
@@ -99,34 +173,41 @@ class Adapter(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, drop: float = 0.0):
         super().__init__()
+        self.drop = drop
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x, dtype):
-        return linear(F.gelu(linear(x, self.fc1, dtype)), self.fc2, dtype)
+    def forward(self, x, dtype, run: Run = EVAL):
+        x = _dropout(F.gelu(linear(x, self.fc1, dtype)), self.drop, run)
+        return _dropout(linear(x, self.fc2, dtype), self.drop, run)
 
 
 class Block(nn.Module):
     """Pre-norm transformer block with the optional parallel adapter, fed
-    by the post-attention sequence: x = x + attn; x + mlp(norm2(x)) +
-    adapter(x)."""
+    by the post-attention sequence: x = x + dp(attn); x + dp(mlp(norm2(x)))
+    + adapter(x), dp the block's stochastic depth."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, adapter: Optional[dict] = None):
+                 qkv_bias: bool = True, adapter: Optional[dict] = None,
+                 drop: float = 0.0, drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = Attention(dim, num_heads, qkv_bias)
+        self.attn = Attention(dim, num_heads, qkv_bias, drop)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop)
         self.adaptmlp = Adapter(dim, **adapter) if adapter else None
 
-    def forward(self, x, dtype):
-        x = x + self.attn(layer_norm(x, self.norm1, dtype), dtype)
-        out = x + self.mlp(layer_norm(x, self.norm2, dtype), dtype)
+    def forward(self, x, dtype, run: Run = EVAL):
+        x = x + drop_path(self.attn(layer_norm(x, self.norm1, dtype), dtype,
+                                    run), self.drop_path_rate, run)
+        y = drop_path(self.mlp(layer_norm(x, self.norm2, dtype), dtype, run),
+                      self.drop_path_rate, run)
+        out = x + y
         if self.adaptmlp is not None:
-            out = out + self.adaptmlp(x, dtype)
+            out = out + self.adaptmlp(x, dtype, run)
         return out
 
 
@@ -227,38 +308,67 @@ class VisionTransformer(nn.Module):
                  adapter_bottleneck: int = 64, adapter_scale: float = 0.1,
                  adapter_learnable_scale: bool = False,
                  adapter_layernorm_option: str = "none",
-                 compute_dtype: str = "float32", seed: int = 0):
+                 compute_dtype: str = "float32", seed: int = 0,
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.0, adapter_dropout: float = 0.1,
+                 pack_mode: str = "masked"):
         super().__init__()
+        if attn_drop_rate:
+            raise ValueError("attn_drop_rate > 0: the dense attention kernel "
+                             "draws no dropout on its probabilities")
+        if pack_mode not in ("masked", "blocked"):
+            raise ValueError(f"pack_mode {pack_mode!r}")
         self.embed_dim = embed_dim
         self.compute_dtype = compute_dtype
+        self.drop_rate = drop_rate
         self.patch_embed = PatchEmbed(patch_size, embed_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(
             torch.zeros(1, 1 + (224 // patch_size) ** 2, embed_dim))
         adapter = (dict(bottleneck=adapter_bottleneck, scale=adapter_scale,
                         learnable_scale=adapter_learnable_scale,
-                        layernorm_option=adapter_layernorm_option)
+                        layernorm_option=adapter_layernorm_option,
+                        dropout=adapter_dropout)
                    if use_adapter else None)
+        dpr = np.linspace(0, drop_path_rate, depth)
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, adapter)
-            for _ in range(depth))
+            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, adapter,
+                  drop_rate, float(dpr[i]))
+            for i in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
         init_weights(self, (self.cls_token, self.pos_embed),
                      torch.Generator().manual_seed(seed))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pack: int = 1,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, H, W, 3) → (B, D) f32. In train mode the dropouts draw from
+        `generator` (on x's device); `pack` > 1 packs that many images a
+        sequence (module docstring) and needs B % pack == 0."""
         dtype = (torch.bfloat16 if self.compute_dtype == "bfloat16"
                  else torch.float32)
+        run = Run(self.training, generator, pack)
         b, h_img, w_img, _ = x.shape
         x = self.patch_embed(x, dtype)
         pe = interpolate_pos_encoding(self.pos_embed, x.shape[1], w_img,
                                       h_img, self.patch_embed.patch_size)
         cls = self.cls_token.to(dtype).expand(b, -1, -1)
-        x = torch.cat([cls, x], dim=1) + pe.to(dtype)
+        x = _dropout(torch.cat([cls, x], dim=1) + pe.to(dtype),
+                     self.drop_rate, run)
+        seq = x.shape[1]
+        if pack > 1:
+            if b % pack:
+                raise ValueError(f"batch {b} not divisible by pack={pack}")
+            x = x.reshape(b // pack, pack * seq, self.embed_dim)
         for blk in self.blocks:
-            x = blk(x, dtype)
+            x = blk(x, dtype, run)
+        if pack > 1:
+            x = x.reshape(b, seq, self.embed_dim)
         # LayerNorm is per token: normalise the CLS token only.
         return layer_norm(x[:, 0], self.norm, dtype).float()
+
+
+def vit_tiny(**kw) -> VisionTransformer:
+    return VisionTransformer(embed_dim=192, depth=12, num_heads=3, **kw)
 
 
 def vit_small(**kw) -> VisionTransformer:
@@ -267,3 +377,104 @@ def vit_small(**kw) -> VisionTransformer:
 
 def vit_base(**kw) -> VisionTransformer:
     return VisionTransformer(embed_dim=768, depth=12, num_heads=12, **kw)
+
+
+def vit_large(**kw) -> VisionTransformer:
+    return VisionTransformer(embed_dim=1024, depth=24, num_heads=16, **kw)
+
+
+class BatchNorm(nn.Module):
+    """flax's `BatchNorm(momentum=0.9, epsilon=1e-5)` over the rows of (N,
+    C), under torch BatchNorm1d's names (`weight`, `bias`, `running_mean`,
+    `running_var`, `num_batches_tracked`). Training normalises with the
+    batch's mean and its biased variance E[x²] − E[x]² (clipped at 0) and
+    moves the running averages by 0.1 toward them; the running variance
+    takes the biased batch variance, where torch's takes the unbiased
+    one."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean = x.mean(dim=0)
+            var = ((x * x).mean(dim=0) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1 - m) * mean)
+                self.running_var.mul_(m).add_((1 - m) * var)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+
+
+class WeightNormLinear(nn.Module):
+    """A bias-free linear layer weight-normed by rows: w = v / (‖v_row‖ +
+    1e-12) · g. With `fixed_g`, g is 1 whatever `weight_g` holds."""
+
+    def __init__(self, in_dim: int, out_dim: int, fixed_g: bool):
+        super().__init__()
+        self.fixed_g = fixed_g
+        self.weight_g = nn.Parameter(torch.ones(out_dim, 1),
+                                     requires_grad=not fixed_g)
+        self.weight_v = nn.Parameter(torch.zeros(out_dim, in_dim))
+
+    def weight(self) -> torch.Tensor:
+        v = self.weight_v
+        w = v / (torch.linalg.vector_norm(v, dim=1, keepdim=True) + 1e-12)
+        return w if self.fixed_g else w * self.weight_g
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.weight().t()
+
+
+class DINOHead(nn.Module):
+    """3-layer MLP (optional BatchNorm) → L2 norm → weight-normed linear
+    (the JAX `DINOHead`; reference dino_adapter/
+    vision_transformer_with_adapter.py:279-314). In f32. Train mode
+    normalises the BatchNorms with batch statistics and moves their
+    running averages; eval mode uses the running averages. Init as JAX's:
+    trunc_normal(0.02) weights and `weight_v`, zero biases, g = 1."""
+
+    def __init__(self, in_dim: int, out_dim: int = 65536,
+                 hidden_dim: int = 2048, bottleneck_dim: int = 256,
+                 use_bn: bool = False, norm_last_layer: bool = True,
+                 seed: int = 0):
+        super().__init__()
+        self.use_bn = use_bn
+        self.norm_last_layer = norm_last_layer
+        layers = []
+        dims = (in_dim, hidden_dim, hidden_dim, bottleneck_dim)
+        for i in range(3):
+            layers.append(nn.Linear(dims[i], dims[i + 1]))
+            if i < 2:
+                if use_bn:
+                    layers.append(BatchNorm(dims[i + 1]))
+                layers.append(nn.GELU())
+        self.mlp = nn.Sequential(*layers)
+        self.last_layer = WeightNormLinear(bottleneck_dim, out_dim,
+                                           fixed_g=norm_last_layer)
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for t in [m.weight for m in self.mlp if isinstance(m, nn.Linear)
+                      ] + [self.last_layer.weight_v]:
+                nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+                t.mul_(0.02)
+            for m in self.mlp:
+                if isinstance(m, nn.Linear):
+                    m.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.mlp(x)
+        x = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
+        return self.last_layer(x)

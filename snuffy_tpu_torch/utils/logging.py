@@ -5,7 +5,8 @@ flat dicts whose keys become wandb sections (reference utils.py:29-56
 `to_wandb_format`: 'epoch_train_loss' → 'train/epoch/loss', per-class
 AUC lists → one key per class). `MetricsLogger` writes them to a JSONL
 file; the wandb mirror is not copied (the port sends nothing over the
-network).
+network). `truncate_log_past_epoch` keeps a resumed run's JSONL log to
+one row an epoch.
 """
 
 from __future__ import annotations
@@ -32,6 +33,38 @@ def to_wandb_format(d: dict) -> dict:
         else:
             out[new_key] = value
     return out
+
+
+def truncate_log_past_epoch(path: str, resume_epoch: int,
+                            epoch_key: str = "epoch") -> int:
+    """On resume, drop JSONL rows from epochs ≥ resume_epoch so the metric
+    stream holds each epoch exactly once (the reference's wandb-history
+    replay, reference dino_adapter/main_dino_adapter.py:383-446). Rows
+    without `epoch_key`, and lines that do not parse, are kept. Returns
+    the number of rows dropped."""
+    if not os.path.exists(path):
+        return 0
+    kept, dropped = [], 0
+    with open(path) as f:
+        for line in f:
+            if not line.strip():
+                continue
+            try:
+                row = json.loads(line)
+                if isinstance(row, dict) and epoch_key in row and (
+                    int(row[epoch_key]) >= resume_epoch
+                ):
+                    dropped += 1
+                    continue
+            except (ValueError, TypeError):
+                pass
+            kept.append(line if line.endswith("\n") else line + "\n")
+    if dropped:
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            f.writelines(kept)
+        os.replace(tmp, path)
+    return dropped
 
 
 class MetricsLogger:

@@ -3,9 +3,10 @@ RGBA, in place of `plt.imsave` (the heat maps) and PIL's PNG (the tiler's
 `-f png`).
 
 `write_png` stores each row unfiltered (filter type 0) in one zlib
-stream; `read_png` decodes what `write_png` writes (8-bit, not
-interlaced, unfiltered rows), so a run with neither PIL nor matplotlib
-can read its own images back.
+stream. `read_png` decodes any 8-bit, non-interlaced gray, RGB or RGBA
+PNG, each row under any of the five filters (none, Sub, Up, Average,
+Paeth), so a run with neither PIL nor matplotlib reads its own images
+back, and the SSL image folders' PNGs (`ssl/data.py`).
 """
 
 from __future__ import annotations
@@ -50,10 +51,50 @@ def write_png(path: str, image: np.ndarray) -> None:
         f.write(encode_png(image))
 
 
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """The Paeth predictor, element-wise on int arrays."""
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """(h, 1 + stride) filtered rows → (h, stride) bytes, by the PNG
+    specification's reconstruction of filter types 0-4 (bpp bytes a
+    pixel). Sub, Average and Paeth run along the row a pixel at a time."""
+    h, stride = raw.shape[0], raw.shape[1] - 1
+    out = np.zeros((h, stride), np.int32)
+    prior = np.zeros(stride, np.int32)
+    for y in range(h):
+        kind, line = int(raw[y, 0]), raw[y, 1:].astype(np.int32)
+        if kind == 0:
+            row = line
+        elif kind == 2:
+            row = (line + prior) & 0xFF
+        elif kind in (1, 3, 4):
+            row = line.copy()
+            for x in range(0, stride, bpp):
+                a = row[x - bpp:x] if x else np.zeros(bpp, np.int32)
+                b = prior[x:x + bpp]
+                if kind == 1:
+                    pred = a
+                elif kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = (prior[x - bpp:x] if x
+                         else np.zeros(bpp, np.int32))
+                    pred = _paeth(a, b, c)
+                row[x:x + bpp] = (row[x:x + bpp] + pred) & 0xFF
+        else:
+            raise ValueError(f"row {y}: unknown PNG filter type {kind}")
+        out[y] = prior = row
+    return out.astype(np.uint8)
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """The bytes of an 8-bit, non-interlaced, unfiltered gray, RGB or RGBA
-    PNG (what `encode_png` writes) → (H, W) or (H, W, 3|4) uint8. Other
-    kinds raise ValueError."""
+    """The bytes of an 8-bit, non-interlaced gray, RGB or RGBA PNG, rows
+    under any of the five filters → (H, W) or (H, W, 3|4) uint8. Other
+    kinds (palette, gray + alpha, 16-bit, interlaced) raise ValueError."""
     if data[:8] != SIGNATURE:
         raise ValueError("not a PNG")
     pos, idat, header = 8, [], None
@@ -78,9 +119,10 @@ def decode_png(data: bytes) -> np.ndarray:
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     raw = raw.reshape(h, 1 + w * c)
     if raw[:, 0].any():
-        raise ValueError("only unfiltered rows (filter type 0), as "
-                         "write_png writes them")
-    img = raw[:, 1:].reshape(h, w, c).copy()
+        rows = _unfilter(raw, c)
+    else:
+        rows = raw[:, 1:]
+    img = rows.reshape(h, w, c).copy()
     return img[..., 0] if c == 1 else img
 
 

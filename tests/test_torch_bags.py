@@ -2,24 +2,58 @@
 
 `native.parse_bag_csv_fast` (the port's strtof parser) is held bit for bit
 to `snuffy_tpu.native.parse_bag_csv_fast`, and refuses a bag over its row
-cap where the JAX parser returns the first rows. `load_split` is held to
+cap where the JAX parser returns the first rows. The JAX parser's library
+builds in place at first use, and parallel test processes race on that
+build: the `jax_native` fixture waits for a library that loads whichever
+process built it, and fails (never skips) if none does. `load_split` is held to
 the JAX `load_split` on the per-bag CSVs the port's `extract_dataset`
 writes, feature-only and with label/position columns: the same bags,
 rows in the same order, feats bit for bit.
 """
 
+import fcntl
 import os
+import tempfile
+import time
 
 import numpy as np
 import pandas as pd
 import pytest
 import torch
 
-from snuffy_tpu import native as jax_native
 from snuffy_tpu.data.bags import load_split as jax_load_split
 from snuffy_tpu_torch import native
 from snuffy_tpu_torch.data.bags import load_split
 from snuffy_tpu_torch.embed.pipeline import extract_dataset
+
+
+@pytest.fixture(scope="module")
+def jax_native():
+    """`snuffy_tpu.native` with its library loaded. Another process may be
+    building or writing `libsnuffy_native.so` when this one first asks,
+    and the JAX module then remembers the failure for the whole process
+    (`_build_failed`): under a lock that keeps this file's processes to
+    one build at a time, clear the flag and ask again until a complete
+    library loads, for up to 300 s."""
+    from snuffy_tpu import native as jax_mod
+
+    lock_path = os.path.join(tempfile.gettempdir(),
+                             "snuffy_tpu_native_build.lock")
+    with pytest.MonkeyPatch.context() as mp, open(lock_path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            deadline = time.monotonic() + 300.0
+            lib = jax_mod.get_lib()
+            while lib is None and time.monotonic() < deadline:
+                time.sleep(1.0)
+                mp.setattr(jax_mod, "_build_failed", False)
+                lib = jax_mod.get_lib()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+        if lib is None:
+            pytest.fail(f"snuffy_tpu.native could not build or load "
+                        f"{jax_mod._SO} within 300 s")
+        yield jax_mod
 
 
 def write(path, text):
@@ -41,7 +75,8 @@ def bits(a):
     ("no newline at the end", "0,1\n1.25,2.5\n3.75,5"),
     ("header only", "0,1,2\n"),
 ])
-def test_parse_bag_csv_fast_is_jaxs_bitwise(tmp_path, name, text):
+def test_parse_bag_csv_fast_is_jaxs_bitwise(tmp_path, jax_native, name,
+                                            text):
     if text is None:
         rng = np.random.default_rng(0)
         x = (rng.standard_normal((300, 24))
@@ -56,7 +91,8 @@ def test_parse_bag_csv_fast_is_jaxs_bitwise(tmp_path, name, text):
     np.testing.assert_array_equal(bits(got), bits(want))
 
 
-def test_parse_bag_csv_fast_refuses_a_bag_over_the_row_cap(tmp_path):
+def test_parse_bag_csv_fast_refuses_a_bag_over_the_row_cap(tmp_path,
+                                                           jax_native):
     text = "0,1\n" + "".join(f"{i},{i / 7}\n" for i in range(50))
     path = write(tmp_path / "bag.csv", text)
     assert jax_native.parse_bag_csv_fast(path, max_rows=40).shape == (40, 2)

@@ -436,3 +436,143 @@ def test_tiler_grid_and_levels_match(tmp_path):
                                                                      target)
             assert deepzoom._grid(s, level, residual, 256) == \
                 jax_deepzoom._grid(s, level, residual, 256)
+
+
+# ------------------------------------------ the DINO pretraining slice's
+
+
+def test_ssl_schedules_match():
+    from snuffy_tpu.ssl import schedules as jax_sched
+    from snuffy_tpu_torch.ssl import schedules
+
+    for args in ((1.0, 0.1, 10, 10, 2), (5e-4, 1e-6, 3, 7, 0),
+                 (0.996, 1.0, 4, 0, 0), (0.04, 0.4, 1, 5, 1, 0.01)):
+        ours, theirs = (m.cosine_iter_schedule(*args)
+                        for m in (schedules, jax_sched))
+        assert [ours(i) for i in range(60)] == [theirs(i) for i in range(60)]
+    for args in ((1.0, 0.0, 10, 2), (1e-3, 1e-6, 5, 0)):
+        ours, theirs = (m.mae_lr_schedule(*args)
+                        for m in (schedules, jax_sched))
+        assert [ours(e / 3) for e in range(40)] == [theirs(e / 3)
+                                                    for e in range(40)]
+
+
+def test_retrieval_matches():
+    from snuffy_tpu.ssl import retrieval as jax_ret
+    from snuffy_tpu_torch.ssl import retrieval
+
+    rng = np.random.default_rng(0)
+    train = rng.normal(size=(60, 8))
+    labels = rng.integers(0, 3, 60)
+    test = rng.normal(size=(15, 8))
+    np.testing.assert_array_equal(
+        retrieval.knn_classify(train, labels, test, k=7),
+        jax_ret.knn_classify(train, labels, test, k=7))
+    ours, theirs = retrieval.PCA(4, 0.5), jax_ret.PCA(4, 0.5)
+    ours.train_pca(train)
+    theirs.train_pca(train)
+    np.testing.assert_array_equal(ours.apply(test), theirs.apply(test))
+    ranks = np.array([0, 3, 9])
+    assert retrieval.compute_ap(ranks, 3) == jax_ret.compute_ap(ranks, 3)
+    positives = [{0, 1, 2}, {5, 7}]
+    assert retrieval.retrieval_map(test[:2], train, positives) == \
+        jax_ret.retrieval_map(test[:2], train, positives)
+    assert retrieval.compute_map([np.arange(10)], [{3}]) == \
+        jax_ret.compute_map([np.arange(10)], [{3}])
+
+
+def test_bool_flag_matches():
+    import argparse
+
+    for value in ("on", "OFF", "true", "False", "0", "1", True, False):
+        assert configs.bool_flag(value) == jax_configs.bool_flag(value)
+    for value in ("maybe", "", "2"):
+        for fn in (configs.bool_flag, jax_configs.bool_flag):
+            with pytest.raises(argparse.ArgumentTypeError):
+                fn(value)
+
+
+def test_truncate_log_past_epoch_matches(tmp_path):
+    from snuffy_tpu.utils import logging as jax_logging
+    from snuffy_tpu_torch.utils import logging
+
+    rows = ['{"epoch": 0, "train_loss": 1.0}', '{"epoch": 1}',
+            '{"note": "no epoch field"}', "not json at all", "",
+            '{"epoch": 2, "x": 0.8}', '{"epoch": "3"}', '{"epoch": 1.5}']
+    for name in ("port", "jax"):
+        (tmp_path / name).write_text("\n".join(rows))
+    for resume in (2, 1, 0):
+        assert logging.truncate_log_past_epoch(
+            str(tmp_path / "port"), resume) == \
+            jax_logging.truncate_log_past_epoch(str(tmp_path / "jax"),
+                                                resume)
+        assert (tmp_path / "port").read_text() == \
+            (tmp_path / "jax").read_text()
+    assert logging.truncate_log_past_epoch(str(tmp_path / "none"), 1) == 0
+
+
+def test_meters_match_on_one_process():
+    from snuffy_tpu.utils import metrics_sync as jax_ms
+    from snuffy_tpu_torch.utils import metrics_sync
+
+    values = [0.5, 2.0, 1.25, 3.0, 0.75]
+    for window in (3, 20):
+        ours = metrics_sync.SmoothedValue(window, "{median} {avg} {max}")
+        theirs = jax_ms.SmoothedValue(window, "{median} {avg} {max}")
+        for i, v in enumerate(values):
+            ours.update(v, n=i + 1)
+            theirs.update(v, n=i + 1)
+        ours.synchronize_between_processes()
+        theirs.synchronize_between_processes()
+        for attr in ("median", "avg", "global_avg", "max", "value",
+                     "count", "total"):
+            assert getattr(ours, attr) == getattr(theirs, attr), attr
+        assert str(ours) == str(theirs)
+    ml, jml = metrics_sync.MetricLogger(" | "), jax_ms.MetricLogger(" | ")
+    for v in values:
+        ml.update(loss=v, lr=v / 10)
+        jml.update(loss=v, lr=v / 10)
+    ml.synchronize_between_processes()
+    assert str(ml) == str(jml)
+    assert ml.global_averages() == jml.global_averages()
+    assert ml.loss.median == jml.loss.median
+    with pytest.raises(AttributeError):
+        ml.missing
+    row = {"epoch": 3, "train_loss": 0.5, "val_loss": None}
+    assert metrics_sync.sync_epoch_row(row, 4) == jax_ms.sync_epoch_row(
+        row, 4)
+    assert metrics_sync.global_min_int(7) == jax_ms.global_min_int(7) == 7
+
+
+def test_list_image_folder_matches(tmp_path):
+    from snuffy_tpu.ssl import data as jax_data
+    from snuffy_tpu_torch.ssl import data
+
+    for rel in ("b/x.jpeg", "a/1.png", "a/deep/2.jpg", "a/0.JPG", "c.jpeg",
+                "b/y.txt", "empty/.keep"):
+        path = tmp_path / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(b"")
+    assert data.list_image_folder(str(tmp_path)) == \
+        jax_data.list_image_folder(str(tmp_path))
+
+
+def test_dino_cli_flags_are_the_root_flags(monkeypatch):
+    """The port's DINO CLI builds its parser with the root script out of
+    reach, and its flags are the root's plus --device (`bool_flag` is the
+    port's copy: types compare by name)."""
+    from snuffy_tpu_torch import main_dino_adapter as port_cli
+
+    def flags(parser):
+        return {a.dest: (a.option_strings, a.default,
+                         getattr(a.type, "__name__", a.type), a.choices,
+                         a.nargs, a.required, type(a).__name__)
+                for a in parser._actions if a.dest != "help"}
+
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "main_dino_adapter", None)
+        ours = flags(port_cli.get_args_parser())
+    import main_dino_adapter as root_cli
+
+    assert ours.pop("device")[1] == "cuda"
+    assert ours == flags(root_cli.get_args_parser())
