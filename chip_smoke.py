@@ -167,12 +167,33 @@ per kernel, all at once), then:
      within DENSE_TOL, bf16 (real activations) within one ulp of max
      |plain| (2^-7) as in phase 11, two launches bitwise equal, the body
      against the profiler's names, one-call and b2b times beside plain,
-     SDPA and the bound.
+     SDPA and the bound;
+  14. MAE-adapter pretraining, run right after phase 13 (for the same
+     reason): (a) `main_pretrain_adapter.main` at its defaults
+     (mae_vit_base_patch16 + adapters 64/4.0, 224², mask ratio 0.75,
+     batch 64, bf16, device augment, decoder linears trained) on phase
+     13's 128 JPEGs, 2 epochs of 2 steps with validation (warmup 0):
+     finite losses and two log rows, every frozen tensor bit for bit,
+     the encoder's and decoder's adapters and the decoder linears moved,
+     the val loss down in epoch 1, the rolling and the one best
+     checkpoint (epoch 0's deleted), K5 launches ≥ (12 + 8) blocks ×
+     steps; seconds a
+     step by stage, peak memory; (c) `compute_feats.main --embedder MAE`
+     (f32) on 32 of the JPEGs with the best checkpoint: every encoder
+     layer matched, the decoder counted unused, the CSVs equal to the
+     encoder's features; (b) resume for one epoch (Adam's moments and
+     count restored); (d) one step at `--img_pack 2` and one with
+     mae_vit_large_patch16; (g) a warm step's split and profile, the
+     plain attention backward timed apart at the encoder's and decoder's
+     shapes and its share of the step; (e) one f32 step on the card and
+     on the CPU from the same weights, crops and noise; (f) K5 on the
+     inputs (a)-(e) gave it, as phase 13's (e).
 
 Each path of the main path (serve, whole slide, eval, extraction, train,
 each training-CLI run, the SimCLR slide CLI and requests, the SimCLR and
 MAE extraction CLI runs and the ViT-L batch, each ROI run, the DINO
-CLI's two runs and its checkpoint's extraction) runs with the launch
+CLI's two runs and its checkpoint's extraction, the MAE CLI's four runs
+and its checkpoint's extraction) runs with the launch
 counts set to 0 just before it and read just after.
 Every phase asserts; any failure exits non-zero. The line before the last
 is the kernels' JSON record, the last line the device record. It exits
@@ -1974,10 +1995,11 @@ def dense_calls(keep, check=False):
         da._dense_cuda = launch
 
 
-def traced_in_fresh_process(q, k, v, n_valid) -> list:
-    """[(device kernel, ms)] that torch.profiler records for K5 on these
-    inputs, traced in a fresh Python process: late in a run this process's
-    profiler has recorded no device time (at phase 12d, as at phase 11)."""
+def traced_in_fresh_process(cases) -> list:
+    """For each (q, k, v, n_valid) of `cases`, the [(device kernel, ms)]
+    that torch.profiler records for K5 on those inputs, traced in one
+    fresh Python process: late in a run this process's profiler records
+    no device time (at phases 11, 12d and 14)."""
     import os
     import subprocess
     import tempfile
@@ -1988,23 +2010,49 @@ def traced_in_fresh_process(q, k, v, n_valid) -> list:
             "from snuffy_tpu_torch.ops.dense_attention import "
             "fused_self_attention\n"
             "from snuffy_tpu_torch.tools.profile_serve import device_profile\n"
-            "d = torch.load(sys.argv[1])\n"
-            "q, k, v = (d[x].cuda() for x in 'qkv')\n"
-            "with torch.inference_mode():\n"
-            "    kernels = device_profile(\n"
-            "        lambda: fused_self_attention(q, k, v, d['n_valid']))[2]\n"
-            "print(json.dumps(kernels))\n")
+            "out = []\n"
+            "for d in torch.load(sys.argv[1]):\n"
+            "    q, k, v = (d[x].cuda() for x in 'qkv')\n"
+            "    with torch.inference_mode():\n"
+            "        out.append(device_profile(lambda: fused_self_attention(\n"
+            "            q, k, v, d['n_valid']))[2])\n"
+            "print(json.dumps(out))\n")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "qkv.pt")
-        torch.save({"q": q.cpu(), "k": k.cpu(), "v": v.cpu(),
-                    "n_valid": n_valid}, path)
+        torch.save([{"q": q.cpu(), "k": k.cpu(), "v": v.cpu(),
+                     "n_valid": n_valid} for q, k, v, n_valid in cases], path)
         proc = subprocess.run(
             [sys.executable, "-c", code, path], capture_output=True,
             text=True, timeout=300,
             cwd=os.path.dirname(os.path.abspath(__file__)))
     if proc.returncode != 0:
-        raise AssertionError(f"the traced K5 call failed:\n{proc.stderr}")
-    return [tuple(x) for x in json.loads(proc.stdout.strip().splitlines()[-1])]
+        raise AssertionError(f"the traced K5 calls failed:\n{proc.stderr}")
+    return [[tuple(x) for x in kernels] for kernels in
+            json.loads(proc.stdout.strip().splitlines()[-1])]
+
+
+def kernel_traces(cases) -> list:
+    """`traced_in_fresh_process`'s lists, taken in this process while its
+    profiler records device time; from the first case where it records
+    none, the rest in one fresh process."""
+    import torch
+
+    from snuffy_tpu_torch.ops.dense_attention import fused_self_attention
+    from snuffy_tpu_torch.tools.profile_serve import device_profile
+
+    out = []
+    for i, (q, k, v, n_valid) in enumerate(cases):
+        try:
+            with torch.inference_mode():
+                out.append(device_profile(
+                    lambda: fused_self_attention(q, k, v, n_valid))[2])
+        except RuntimeError as e:
+            if "no device time" not in str(e):
+                raise
+            log(f"    this process's profiler recorded no device time: "
+                f"the other {len(cases) - i} traces in a fresh process")
+            return out + traced_in_fresh_process(cases[i:])
+    return out
 
 
 def time_dense(label, q, k, v, n_valid, trace=False):
@@ -2036,8 +2084,8 @@ def time_dense(label, q, k, v, n_valid, trace=False):
                                                              n_valid))
         device, lib_device = (back_to_back_ms(f) for f in (kernel, library))
     if trace:
-        check_body(fa, kernels.DENSE, traced_in_fresh_process(q, k, v, n_valid),
-                   body)
+        check_body(fa, kernels.DENSE,
+                   traced_in_fresh_process([(q, k, v, n_valid)])[0], body)
     z, n, dk = q.shape
     bound, by, note = kernel_bound(fa, body, *dense_work(z, n, n_valid, dk,
                                                          q.dtype))
@@ -2894,42 +2942,26 @@ def classify_kernel(name: str) -> str:
     return "other"
 
 
-def profile_dino_step(trainer, state, batch, dev):
-    """Warm steps of the CLI's trainer: their host-clock split (augment,
-    forward, backward, update; device synchronised between them), then
-    one augment + step under torch.profiler (device busy by kind, the
-    idle share against the un-profiled wall); then the plain attention
-    backward (K5's gradient) timed apart, 20 calls back to back, at the
-    step's two shapes, and its share of the step's device time."""
+def profile_step(augment, step, attention, dev):
+    """Warm steps of a trainer (`step(timings)` runs one, `augment()` its
+    input's augment alone): their host-clock split (the device
+    synchronised between stages), then one augment and one augment + step
+    under torch.profiler (device busy by kind, the idle share against the
+    un-profiled wall); then the plain attention backward (K5's gradient)
+    timed apart, 20 calls back to back, at each (label, z, n, dk, blocks)
+    of `attention`, and its share of the step's device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from snuffy_tpu_torch.ops.dense_attention import dense_attention_reference
-    from snuffy_tpu_torch.ssl.augment import dino_multicrop_batch
-
-    gen = torch.Generator(dev).manual_seed(5)
-    imgs = torch.from_numpy(batch).to(dev)
-
-    def augment():
-        return dino_multicrop_batch(imgs, gen)
-
-    def step(timings=None):
-        g, loc = augment()
-        if timings is not None:
-            torch.cuda.synchronize()
-            timings["augment_s"] = timings.get("augment_s", 0.0) + (
-                time.perf_counter() - timings.pop("t0"))
-        return trainer.step(state, g, loc, 1e-5, 0.04, 0.996, 0.04, False,
-                            gen, timings)
 
     for _ in range(2):
-        step()
+        step(None)
     torch.cuda.synchronize()
     reps, split = 3, {}
     t0 = time.perf_counter()
     for _ in range(reps):
-        split["t0"] = time.perf_counter()
         step(split)
     torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t0) / reps
@@ -2939,7 +2971,8 @@ def profile_dino_step(trainer, state, batch, dev):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         augment()                        # the profiler's own start-up
     busy_of = {}
-    for label, fn in (("augment", augment), ("augment + step", step)):
+    for label, fn in (("augment", augment),
+                      ("augment + step", lambda: step(None))):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
@@ -2968,13 +3001,8 @@ def profile_dino_step(trainer, state, batch, dev):
             log(f"      {ms:8.3f} ms  {count:4d}x  {name[:110]}")
     log(f"    device idle over the warm step's {wall:.2f} ms wall: "
         f"{100 * (1 - busy_of['augment + step'] / wall):.1f} %")
-    b = batch.shape[0]
-    heads = trainer.backbone.blocks[0].attn.num_heads
-    dk = trainer.backbone.embed_dim // heads
-    blocks = len(trainer.backbone.blocks)
     total = 0.0
-    for label, z, n in (("globals", 2 * b * heads, 197),
-                        ("locals", trainer.n_local * b * heads, 37)):
+    for label, z, n, dk, blocks in attention:
         q, k, v = (torch.randn((z, n, dk), device=dev, dtype=torch.bfloat16,
                                requires_grad=True) for _ in range(3))
         g = torch.randn((z, n, dk), device=dev, dtype=torch.bfloat16)
@@ -2993,6 +3021,106 @@ def profile_dino_step(trainer, state, batch, dev):
         f"{step_busy:.3f} ms device busy ({100 * total / step_busy:.1f} %)")
 
 
+def profile_dino_step(trainer, state, batch, dev):
+    """Warm DINO steps of the CLI's trainer under `profile_step`, the
+    plain attention backward at the globals' and the locals' shapes."""
+    import torch
+
+    from snuffy_tpu_torch.ssl.augment import dino_multicrop_batch
+
+    gen = torch.Generator(dev).manual_seed(5)
+    imgs = torch.from_numpy(batch).to(dev)
+
+    def augment():
+        return dino_multicrop_batch(imgs, gen)
+
+    def step(timings):
+        t0 = time.perf_counter()
+        g, loc = augment()
+        if timings is not None:
+            torch.cuda.synchronize()
+            timings["augment_s"] = timings.get("augment_s", 0.0) + (
+                time.perf_counter() - t0)
+        return trainer.step(state, g, loc, 1e-5, 0.04, 0.996, 0.04, False,
+                            gen, timings)
+
+    b = batch.shape[0]
+    heads = trainer.backbone.blocks[0].attn.num_heads
+    dk = trainer.backbone.embed_dim // heads
+    blocks = len(trainer.backbone.blocks)
+    profile_step(augment, step,
+                 (("globals", 2 * b * heads, 197, dk, blocks),
+                  ("locals", trainer.n_local * b * heads, 37, dk, blocks)),
+                 dev)
+
+
+def check_phase_calls(fa, kernels, label, calls, want_shapes) -> float:
+    """K5 against its plain version on the inputs a phase's runs gave it
+    (`calls`, kept by `dense_calls`), the first call at each shape (each
+    shape runs in one dtype): f32 within DENSE_TOL, bf16 (real
+    activations) within one ulp of max |plain| (2^-7) as in phase 11, two
+    launches bitwise equal, the body against the profiler's kernel names,
+    one-call and b2b times beside plain, SDPA and the bound (the bodies
+    checked after them, by `kernel_traces`). Raises if a shape of
+    `want_shapes` never ran; returns the largest error."""
+    import torch
+
+    from snuffy_tpu_torch.ops.dense_attention import (
+        dense_attention_reference,
+        fused_self_attention,
+    )
+
+    worst, bodies, cases = 0.0, [], []
+    log(f"  K5 against its plain version on the inputs the {label} runs "
+        "gave it, the first call at each shape (each shape runs in one "
+        "dtype)")
+    for shape, (q, k, v, n_valid) in sorted(
+            (key, val) for key, val in calls.items() if key != "errors"):
+        dtype = str(q.dtype).removeprefix("torch.")
+        with torch.inference_mode():
+            got = fused_self_attention(q, k, v, n_valid)
+            ref = dense_attention_reference(q, k, v, n_valid)
+            if dtype == "float32":
+                err = check_kernel(f"K5 {dtype} {shape}", got, ref,
+                                   DENSE_TOL[dtype])
+            else:
+                # real activations: one bf16 ulp of max |plain|, 2^-7
+                # (phase 11's rule for its launches: DENSE_TOL's 2^-8 is
+                # under one ulp where the largest output sits low in its
+                # binade); beside it, each side's distance from the exact
+                # result (f64, p unrounded)
+                err = check_kernel(f"K5 {dtype} {shape}", got, ref,
+                                   KERNEL_TOL[dtype])
+                scale = float(ref.float().abs().max())
+                s_ = torch.bmm(q.double(), k.double().transpose(1, 2))
+                s_ = (s_ * q.shape[-1] ** -0.5)[..., :n_valid]
+                exact = torch.bmm(torch.softmax(s_, dim=-1),
+                                  v.double()[:, :n_valid])
+                log(f"      {max_ulps(got, ref):.2f} ulps (max_ulps); "
+                    f"within DENSE_TOL's 2^-8: "
+                    f"{err / scale <= DENSE_TOL[dtype]}; from the exact "
+                    "result: kernel "
+                    f"{float((got.double() - exact).abs().max()) / scale:.3e}"
+                    ", plain "
+                    f"{float((ref.double() - exact).abs().max()) / scale:.3e}"
+                    " of max |plain|")
+                del s_, exact
+            worst = max(worst, err)
+            if not torch.equal(fused_self_attention(q, k, v, n_valid), got):
+                raise AssertionError("K5: two launches on the same inputs "
+                                     "differ")
+            bodies.append(fa.kernel_body(q, k, v, got))
+        cases.append((q, k, v, n_valid))
+        time_dense(f"{label} {shape}", q, k, v, n_valid)
+    for body, kernel_times in zip(bodies, kernel_traces(cases)):
+        check_body(fa, kernels.DENSE, kernel_times, body)
+    missing = want_shapes - set(calls)
+    if missing:
+        raise AssertionError(f"K5 never ran at {sorted(missing)}; it ran at "
+                             f"{sorted(k for k in calls if k != 'errors')}")
+    return worst
+
+
 def phase_dino(dev, fa, kernels):
     """13: DINO-adapter pretraining through its CLI (module docstring);
     returns (launches of the main-path runs (a)-(c), K5's largest error
@@ -3009,12 +3137,7 @@ def phase_dino(dev, fa, kernels):
     from snuffy_tpu_torch import main_dino_adapter as cli
     from snuffy_tpu_torch.embed.pipeline import decode_batch, embed_tiles
     from snuffy_tpu_torch.embed.registry import build_embedder
-    from snuffy_tpu_torch.ops.dense_attention import (
-        dense_attention_reference,
-        fused_self_attention,
-    )
     from snuffy_tpu_torch.ssl.data import ImageBatcher, list_image_folder
-    from snuffy_tpu_torch.tools.profile_serve import device_profile
 
     log("== phase 13: DINO-adapter pretraining (python -m "
         "snuffy_tpu_torch.main_dino_adapter at its defaults: ViT-S/16 + "
@@ -3161,52 +3284,7 @@ def phase_dino(dev, fa, kernels):
         phase_dino_gpu_vs_cpu(cli, dev, batch[:4], calls)
 
     # (e) K5 on this phase's own inputs
-    worst = 0.0
-    log("  (e) K5 against its plain version on the inputs (a)-(d) gave it, "
-        "the first call at each shape (each shape runs in one dtype)")
-    for shape, (q, k, v, n_valid) in sorted(calls.items()):
-        dtype = str(q.dtype).removeprefix("torch.")
-        with torch.inference_mode():
-            got = fused_self_attention(q, k, v, n_valid)
-            ref = dense_attention_reference(q, k, v, n_valid)
-            if dtype == "float32":
-                err = check_kernel(f"K5 {dtype} {shape}", got, ref,
-                                   DENSE_TOL[dtype])
-            else:
-                # real activations: one bf16 ulp of max |plain|, 2^-7
-                # (phase 11's rule for its launches: DENSE_TOL's 2^-8 is
-                # under one ulp where the largest output sits low in its
-                # binade); beside it, each side's distance from the exact
-                # result (f64, p unrounded)
-                err = check_kernel(f"K5 {dtype} {shape}", got, ref,
-                                   KERNEL_TOL[dtype])
-                scale = float(ref.float().abs().max())
-                s_ = torch.bmm(q.double(), k.double().transpose(1, 2))
-                s_ = (s_ * q.shape[-1] ** -0.5)[..., :n_valid]
-                exact = torch.bmm(torch.softmax(s_, dim=-1),
-                                  v.double()[:, :n_valid])
-                log(f"      {max_ulps(got, ref):.2f} ulps (max_ulps); "
-                    f"within DENSE_TOL's 2^-8: "
-                    f"{err / scale <= DENSE_TOL[dtype]}; from the exact "
-                    "result: kernel "
-                    f"{float((got.double() - exact).abs().max()) / scale:.3e}"
-                    ", plain "
-                    f"{float((ref.double() - exact).abs().max()) / scale:.3e}"
-                    " of max |plain|")
-                del s_, exact
-            worst = max(worst, err)
-            if not torch.equal(fused_self_attention(q, k, v, n_valid), got):
-                raise AssertionError("K5: two launches on the same inputs "
-                                     "differ")
-            body = fa.kernel_body(q, k, v, got)
-            kernel_times = device_profile(
-                lambda: fused_self_attention(q, k, v, n_valid))[2]
-        check_body(fa, kernels.DENSE, kernel_times, body)
-        time_dense(f"DINO {shape}", q, k, v, n_valid)
-    missing = DINO_K5_SHAPES - set(calls)
-    if missing:
-        raise AssertionError(f"K5 never ran at {sorted(missing)}; it ran at "
-                             f"{sorted(calls)}")
+    worst = check_phase_calls(fa, kernels, "DINO", calls, DINO_K5_SHAPES)
     log(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
     return launches, worst
 
@@ -3265,6 +3343,328 @@ def phase_dino_gpu_vs_cpu(cli, dev, batch, calls):
     if not (d_loss <= DINO_GPU_CPU_TOL and d_center <= DINO_GPU_CPU_TOL
             and worst <= 2 * DINO_GPU_CPU_LR and share >= 0.99):
         raise AssertionError("DINO step: GPU and CPU disagree")
+
+
+# ---------------------------------------------------------------- phase 14
+
+# Phase 14: the MAE-adapter CLI at its defaults on phase 13's image folder
+# (regenerated: DINO_IMAGES 224² JPEGs, two full batches of 64), 2 epochs
+# of 2 steps with validation; the warmup cut to 0 epochs so that the two
+# epochs train at the recipe's blr.
+MAE_ARGV = ("--epochs", "2", "--max_steps_per_epoch", "2",
+            "--warmup_epochs", "0")
+# (e) GPU vs CPU, one f32 step (as phase 13's (d)): loss relative to its
+# size, parameters within Adam's 2·lr and 99 % within 1e-4.
+MAE_GPU_CPU_TOL = 1e-4
+MAE_GPU_CPU_LR = 1e-4
+# (f): K5's (z, n, dk): bf16 at batch 64 (a, b, d), ViT-B's masked encoder
+# (12 heads, 49 kept patches + CLS) and the decoder (16 heads of 32), and
+# ViT-L's encoder (16 heads); f32 at the extraction batch of 32 tiles (c)
+# and (e)'s 4 images
+MAE_K5_SHAPES = {(768, 50, 64), (1024, 197, 32), (1024, 50, 64),
+                 (384, 197, 64), (48, 50, 64), (64, 197, 32)}
+
+
+def check_mae_run(start, final, trains):
+    """(a)'s checks on the model's state dicts: every frozen tensor bit for
+    bit; adapters (encoder and decoder) and the decoder linears moved."""
+    import torch
+
+    frozen = [k for k, t in trains.items() if not t]
+    moved = [k for k in frozen if not torch.equal(start[k], final[k])]
+    if moved or not frozen:
+        raise AssertionError(f"frozen tensors moved: {moved[:3]}")
+    for group in ("blocks.", "decoder_blocks.", "decoder_embed.",
+                  "decoder_pred."):
+        keys = [k for k in start if k.startswith(group) and trains[k]]
+        if not keys or all(torch.equal(start[k], final[k]) for k in keys):
+            raise AssertionError(f"no trainable {group}* tensor moved")
+    log(f"    {len(frozen)} frozen tensors bit for bit; the encoder's and "
+        "decoder's adapters and the decoder linears moved")
+
+
+def phase_mae(dev, fa, kernels):
+    """14: MAE-adapter pretraining through its CLI (module docstring);
+    returns (launches of the main-path runs (a)-(d), K5's largest error
+    over (f))."""
+    import glob
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from snuffy_tpu_torch import compute_feats
+    from snuffy_tpu_torch import main_pretrain_adapter as cli
+    from snuffy_tpu_torch.embed.pipeline import decode_batch, embed_tiles
+    from snuffy_tpu_torch.embed.registry import build_embedder
+    from snuffy_tpu_torch.ssl.data import ImageBatcher, list_image_folder
+    from snuffy_tpu_torch.ssl.mae_trainer import mae_trainable_mask
+
+    log("== phase 14: MAE-adapter pretraining (python -m "
+        "snuffy_tpu_torch.main_pretrain_adapter at its defaults: "
+        "mae_vit_base_patch16 + adapters 64/4.0, 224², --mask_ratio 0.75, "
+        "batch 64, bf16, device augment, decoder linears trained)")
+    t_phase = time.perf_counter()
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    calls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_image_folder(os.path.join(tmp, "imgs"), DINO_IMAGES,
+                                  224, 13)
+        paths, _ = list_image_folder(data)
+        out = os.path.join(tmp, "out")
+        argv = ["--data_path", data, "--valid_data_path", data,
+                "--output_dir", out, *MAE_ARGV]
+        args = cli.get_args_parser().parse_args(argv)
+        start = cli.build_trainer(args, torch.device("cpu")).model
+        start = {k: v.clone() for k, v in start.state_dict().items()}
+        timings = {}
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with dense_calls(calls):
+            state = cli.main(argv, timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_a = kernels.launch_counts()
+        peak_a = torch.cuda.max_memory_allocated()
+        with open(os.path.join(out, "log.txt")) as f:
+            rows = [json.loads(line) for line in f]
+        if len(rows) != 2 or not all(
+                math.isfinite(r["train_loss"]) and math.isfinite(
+                    r["val_loss"]) for r in rows):
+            raise AssertionError(f"log.txt rows {rows}")
+        trains = mae_trainable_mask(state.model, True, True)
+        final = {k: v.cpu() for k, v in state.model.state_dict().items()}
+        check_mae_run(start, final, trains)
+        # from a random init the decoder linears and adapters cut the val
+        # loss by ≈ 13 % in two steps on an H100 (0.8797 → 0.7684; the
+        # data, draws and weights are seeded): epoch 1's best replaces
+        # epoch 0's
+        names = sorted(os.listdir(out))
+        want_names = ["checkpoint-best-1.pth", "checkpoint.pth", "log.txt"]
+        if not rows[1]["val_loss"] < rows[0]["val_loss"] or names != \
+                want_names:
+            raise AssertionError(f"{out} holds {names}, not {want_names} "
+                                 f"(val losses {rows})")
+        best = os.path.join(out, "checkpoint-best-1.pth")
+        ckpt = torch.load(best, map_location="cpu", weights_only=True)
+        if set(ckpt) != {"model", "optimizer", "step", "epoch", "args"}:
+            raise AssertionError(f"checkpoint keys {sorted(ckpt)}")
+        log(f"    checkpoints: {names} (val loss {rows[0]['val_loss']:.6f} → "
+            f"{rows[1]['val_loss']:.6f}: epoch 0's best deleted)")
+        steps = timings["steps"]
+        blocks = len(state.model.blocks) + len(state.model.decoder_blocks)
+        want = blocks * steps
+        if state.step != 4 or steps != 4 or run_a[kernels.DENSE.name] < want:
+            raise AssertionError(f"steps {state.step}/{steps}, K5 launches "
+                                 f"{run_a[kernels.DENSE.name]} < {want}")
+        per = {k: v / steps for k, v in timings.items() if k != "steps"}
+        log(f"  (a) 2 epochs x 2 steps + validation in {wall:.2f} s; losses "
+            f"{[round(r['train_loss'], 6) for r in rows]}, val "
+            f"{[round(r['val_loss'], 6) for r in rows]}; a step "
+            f"{sum(per.values()):.4f} s: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in per.items()) +
+            f" (mean of {steps}, the first with its warm-up); peak "
+            f"{peak_a / 2**30:.2f} GiB; K5 launches "
+            f"{run_a[kernels.DENSE.name]} (≥ {want}: (12 encoder + 8 decoder "
+            "blocks) × steps, plus validation)")
+        for k, v in run_a.items():
+            launches[k] += v
+
+        # (c) the best checkpoint into the extraction CLI, f32
+        bag = os.path.join(tmp, "datasets", "mae", "single", "fold1",
+                           "train", "1_tumor", "slide_1")
+        os.makedirs(bag)
+        for i, p in enumerate(paths[:32]):
+            shutil.copy(p, os.path.join(bag, f"{i}_{i % 7}.jpeg"))
+        buf = io.StringIO()
+        kernels.reset_launches()
+        with contextlib.redirect_stdout(buf), dense_calls(calls):
+            rows_c = compute_feats.main([
+                "--embedder", "MAE", "--backbone", "mae_vit_base_patch16",
+                "--use_adapter", "--weights", best, "--dataset", "mae",
+                "--datasets_path", os.path.join(tmp, "datasets"),
+                "--embeddings_path", os.path.join(tmp, "emb"),
+                "--batch_size", "32", "--num_workers", "0",
+                "--compute_dtype", "float32"])
+        torch.cuda.synchronize()
+        run_c = kernels.launch_counts()
+        audit = [line for line in buf.getvalue().splitlines()
+                 if line.startswith("layer audit")]
+        log(f"  (c) compute_feats --embedder MAE on {os.path.basename(best)}:"
+            f" {audit}")
+        encoder = {k: v for k, v in ckpt["model"].items()
+                   if not k.startswith(("decoder", "mask_token"))}
+        if audit != [f"layer audit: {len(encoder)} matched, 0 "
+                     "missing/mismatched, "
+                     f"{len(ckpt['model']) - len(encoder)} unused in {best}"]:
+            raise AssertionError(f"the encoder did not load whole: {audit}")
+        (csv_path, _), = rows_c
+        with open(csv_path) as f:
+            lines = f.read().splitlines()[1:]
+        dim = state.model.embed_dim
+        feats = torch.tensor([[float(x) for x in line.split(",")[:dim]]
+                              for line in lines])
+        emb = build_embedder("MAE", "mae_vit_base_patch16", use_adapter=True,
+                             device=dev)
+        emb.backbone.load_state_dict(encoder)
+        tiles = sorted(glob.glob(os.path.join(bag, "*.jpeg")))
+        want_f = torch.from_numpy(embed_tiles(emb, decode_batch(tiles, 224),
+                                              32))
+        err = float((feats - want_f).abs().max())
+        if feats.shape != (32, dim) or not err <= 1e-6 * float(
+                want_f.abs().max()):
+            raise AssertionError(f"extraction CSV vs the encoder: {err}")
+        log(f"    32 tiles' CSV features against the checkpoint's encoder "
+            f"on the same tiles (f32): max |diff| {err:.3e} (tol 1e-6 of "
+            f"max); K5 launches {run_c[kernels.DENSE.name]}")
+        for k, v in run_c.items():
+            launches[k] += v
+        del emb
+
+        # (b) resume for one epoch, the moments restored
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with dense_calls(calls):
+            resumed = cli.main(["--data_path", data, "--valid_data_path",
+                                data, "--output_dir", out, "--epochs", "3",
+                                "--max_steps_per_epoch", "2",
+                                "--warmup_epochs", "0"])
+        torch.cuda.synchronize()
+        run_b = kernels.launch_counts()
+        with open(os.path.join(out, "log.txt")) as f:
+            epochs = [json.loads(line)["epoch"] for line in f]
+        count = int(resumed.opt_state["count"])
+        if resumed.step != 6 or count != 6 or epochs != [0, 1, 2]:
+            raise AssertionError(f"resume: step {resumed.step}, Adam count "
+                                 f"{count}, log epochs {epochs}")
+        log(f"  (b) resumed at epoch 2 for 2 steps in "
+            f"{time.perf_counter() - t0:.2f} s: step 6, Adam's count 6 (the "
+            f"moments restored), log epochs {epochs}; K5 launches "
+            f"{run_b[kernels.DENSE.name]}")
+        for k, v in run_b.items():
+            launches[k] += v
+        del state, resumed
+
+        # (d) one step at --img_pack 2, one with ViT-L/16
+        for label, extra in (("--img_pack 2", ("--img_pack", "2")),
+                             ("mae_vit_large_patch16",
+                              ("--model", "mae_vit_large_patch16"))):
+            out_d = os.path.join(tmp, "out_" + extra[1])
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            with dense_calls(calls):
+                s_d = cli.main(["--data_path", data, "--output_dir", out_d,
+                                "--epochs", "1", "--max_steps_per_epoch",
+                                "1", "--warmup_epochs", "0", *extra])
+            torch.cuda.synchronize()
+            run_d = kernels.launch_counts()
+            with open(os.path.join(out_d, "log.txt")) as f:
+                loss = json.loads(f.readline())["train_loss"]
+            depth = len(s_d.model.blocks) + len(s_d.model.decoder_blocks)
+            if (s_d.step != 1 or not math.isfinite(loss)
+                    or run_d[kernels.DENSE.name] < depth):
+                raise AssertionError(f"{label}: {s_d.step} steps, loss "
+                                     f"{loss}, {run_d}")
+            log(f"  (d) {label}: 1 step in {time.perf_counter() - t0:.2f} s, "
+                f"loss {loss:.6f}, peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K5 "
+                f"launches {run_d[kernels.DENSE.name]}")
+            for k, v in run_d.items():
+                launches[k] += v
+            del s_d
+            shutil.rmtree(out_d)
+
+        # (g) a warm step at the defaults (not counted: a measurement)
+        batcher = ImageBatcher(paths, 64, 224, num_workers=8)
+        batch = batcher.decode_batch(paths[:64])
+        batcher.close()
+        trainer = cli.build_trainer(args, dev)
+        profile_mae_step(trainer, trainer.init_state(), batch, dev)
+        del trainer
+
+        # (e) one f32 step on the card and on the CPU
+        phase_mae_gpu_vs_cpu(cli, dev, batch[:4], calls)
+
+    # (f) K5 on this phase's own inputs
+    worst = check_phase_calls(fa, kernels, "MAE", calls, MAE_K5_SHAPES)
+    log(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, worst
+
+
+def profile_mae_step(trainer, state, batch, dev):
+    """(g): warm MAE steps of the CLI's trainer under `profile_step`, the
+    plain attention backward at the encoder's and the decoder's shapes."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(5)
+    imgs = torch.from_numpy(batch).to(dev)
+    model = trainer.model
+    b = batch.shape[0]
+    n_vis = int(model.grid ** 2 * (1 - trainer.mask_ratio)) + 1
+    enc, dec = model.blocks[0].attn, model.decoder_blocks[0].attn
+    profile_step(
+        lambda: trainer.prep(imgs, gen),
+        lambda timings: trainer.step(state, imgs, 1e-5, gen,
+                                     timings=timings),
+        (("encoder", b * enc.num_heads, n_vis,
+          model.embed_dim // enc.num_heads, len(model.blocks)),
+         ("decoder", b * dec.num_heads, model.grid ** 2 + 1,
+          model.decoder_embed.out_features // dec.num_heads,
+          len(model.decoder_blocks))),
+        dev)
+
+
+def phase_mae_gpu_vs_cpu(cli, dev, batch, calls):
+    """14e: one f32 step (4 images cropped once on the CPU, the adapters'
+    dropout off, their up-projections drawn non-zero, the same masking
+    noise) on the card and on the CPU from the same weights; K5's inputs
+    kept in `calls`."""
+    import torch
+
+    from snuffy_tpu_torch.ssl.augment import mae_draws, mae_train_augment
+
+    args = cli.get_args_parser().parse_args(["--compute_dtype", "float32"])
+    imgs = mae_train_augment(
+        torch.from_numpy(batch), None, 224,
+        draws=mae_draws(torch.Generator().manual_seed(3), len(batch),
+                        device=torch.device("cpu")))
+    noise = torch.rand((len(batch), 196),
+                       generator=torch.Generator().manual_seed(4))
+    out = []
+    for device in (torch.device("cpu"), dev):
+        trainer = cli.build_trainer(args, device)
+        trainer.augment = False            # the crops above, on both sides
+        gen = torch.Generator().manual_seed(5)
+        with torch.no_grad():
+            for blk in [*trainer.model.blocks, *trainer.model.decoder_blocks]:
+                blk.adaptmlp.dropout = 0.0
+                w = blk.adaptmlp.up_proj.weight
+                w.copy_(0.02 * torch.randn(w.shape, generator=gen))
+        state = trainer.init_state()
+        with dense_calls(calls):
+            _, loss = trainer.step(state, imgs.to(device), MAE_GPU_CPU_LR,
+                                   noise=noise.to(device))
+        out.append((float(loss), {k: v.cpu() for k, v in
+                                  state.model.state_dict().items()}))
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = out
+    d_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    worst, share = 0.0, 1.0
+    for k, v in p_cpu.items():
+        d = (p_gpu[k] - v).abs()
+        worst = max(worst, float(d.max()))
+        share = min(share, float((d <= MAE_GPU_CPU_TOL * (1 + v.abs()))
+                                 .float().mean()))
+    log(f"  (e) one f32 step, GPU vs CPU: loss {l_gpu:.6f} / {l_cpu:.6f} "
+        f"(rel {d_loss:.2e}, tol {MAE_GPU_CPU_TOL:.0e}); parameters max "
+        f"|diff| {worst:.3e} (bound 2·lr {2 * MAE_GPU_CPU_LR:.0e}), least "
+        f"share within 1e-4 {share:.4f}")
+    if not (d_loss <= MAE_GPU_CPU_TOL and worst <= 2 * MAE_GPU_CPU_LR
+            and share >= 0.99):
+        raise AssertionError("MAE step: GPU and CPU disagree")
 
 
 def build_kernels(kernels):
@@ -3359,6 +3759,7 @@ def main() -> int:
     # early in the run: its step profile needs torch.profiler's device
     # times, which late phases have found empty (phases 11, 12d)
     dino_launches, k5_dino_err = phase_dino(dev, fa, kernels)
+    mae_launches, k5_mae_err = phase_mae(dev, fa, kernels)
 
     cfg = SnuffyModelConfig(
         feats_size=384, num_classes=1, num_heads=4, big_lambda=512,
@@ -3392,13 +3793,14 @@ def main() -> int:
         f"{extract_launches}, train {train_launches}, training CLI "
         f"{cli_launches}, SimCLR serve (slide CLI and requests) "
         f"{simclr_launches}, SimCLR/MAE extraction {embedders_launches}, "
-        f"ROI heat maps {roi_launches}, DINO pretraining {dino_launches}")
+        f"ROI heat maps {roi_launches}, DINO pretraining {dino_launches}, "
+        f"MAE pretraining {mae_launches}")
     log(f"  K1 at dk=128, one bag: kernel {k1_dk128_record[0]:.4f} ms "
         f"(device {k1_dk128_record[4]:.4f}), bound {k1_dk128_record[2]:.4f} "
         f"ms ({k1_dk128_record[3]})")
     paths = (serve_launches, slide_launches, eval_launches, extract_launches,
              train_launches, cli_launches, simclr_launches,
-             embedders_launches, roi_launches, dino_launches)
+             embedders_launches, roi_launches, dino_launches, mae_launches)
     no_library = None  # no one PyTorch call computes the slot sums σᵀv
     records = []
     for kernel, err, (ms, plain_ms, bound, bound_by, library_ms) in (
@@ -3407,7 +3809,7 @@ def main() -> int:
             (kernels.BWD, max(bwd_err, k2_cli_err),
              (*bwd_record, no_library)),
             (kernels.DENSE, max(dense_err, k5_vitl_err, k5_roi_err,
-                                k5_dino_err),
+                                k5_dino_err, k5_mae_err),
              dense_record)):
         records.append({
             "name": kernel.name,

@@ -15,6 +15,8 @@
                                 numpy state dict
   mae_from_jax(params)          flax MAE params → MAE-keyed numpy state
                                 dict of the encoder
+  mae_pretrain_from_jax(params) the same with `mask_token` and the decoder
+                                (a `with_decoder` model's state dict)
   dino_head_state_dict(params)  flax DINOHead params (+ batch stats) →
                                 the reference's DINOHead names
   dino_from_jax(state)          a JAX `DINOState`'s student and teacher
@@ -122,10 +124,17 @@ def dsmil_from_jax(params: dict, feats_size: int, num_classes: int = 1,
     return model.to(device or torch.device("cuda")).eval()
 
 
-def _vit_blocks(sd: Dict[str, np.ndarray], params: dict) -> None:
-    depth = sum(1 for k in params if k.startswith("blocks_"))
+def _dense(sd: Dict[str, np.ndarray], tree: dict, name: str) -> None:
+    sd[f"{name}.weight"] = _f32(np.asarray(tree["kernel"]).T)
+    sd[f"{name}.bias"] = _f32(tree["bias"])
+
+
+def _vit_blocks(sd: Dict[str, np.ndarray], params: dict,
+                stack: str = "blocks") -> None:
+    """The flax `{stack}_{i}` Blocks → `{stack}.{i}.*`."""
+    depth = sum(1 for k in params if k.startswith(f"{stack}_"))
     for i in range(depth):
-        blk, pre = params[f"blocks_{i}"], f"blocks.{i}"
+        blk, pre = params[f"{stack}_{i}"], f"{stack}.{i}"
         for ln in ("norm1", "norm2"):
             sd[f"{pre}.{ln}.weight"] = _f32(blk[ln]["scale"])
             sd[f"{pre}.{ln}.bias"] = _f32(blk[ln]["bias"])
@@ -186,6 +195,21 @@ def mae_from_jax(params: dict) -> Dict[str, np.ndarray]:
         "norm.bias": _f32(params["norm"]["bias"]),
     }
     _vit_blocks(sd, params)
+    return sd
+
+
+def mae_pretrain_from_jax(params: dict) -> Dict[str, np.ndarray]:
+    """A flax MAE's tensors, the decoder's included, under the MAE
+    checkpoint's names: `mae_from_jax`'s encoder, `mask_token`,
+    `decoder_embed`, `decoder_blocks_i` → `decoder_blocks.i`,
+    `decoder_norm` and `decoder_pred`."""
+    sd = mae_from_jax(params)
+    sd["mask_token"] = _f32(params["mask_token"])
+    _dense(sd, params["decoder_embed"], "decoder_embed")
+    _vit_blocks(sd, params, "decoder_blocks")
+    sd["decoder_norm.weight"] = _f32(params["decoder_norm"]["scale"])
+    sd["decoder_norm.bias"] = _f32(params["decoder_norm"]["bias"])
+    _dense(sd, params["decoder_pred"], "decoder_pred")
     return sd
 
 

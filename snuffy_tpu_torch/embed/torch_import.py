@@ -14,7 +14,9 @@ Loading stays `weights_only`, with `argparse.Namespace` allowed: a DINO
 training checkpoint stores its arguments as one beside `teacher`. A full
 DINO training checkpoint (student and teacher, backbone and head) loads
 through `load_torch_full_checkpoint` and `import_dino_student_teacher`,
-the head filtered by `import_dino_head` as the reference filters it.
+the head filtered by `import_dino_head` as the reference filters it. MAE
+pretraining's `--finetune` takes the decoder too (`import_mae_pretrain`);
+extraction's `import_mae` keeps to the encoder.
 """
 
 from __future__ import annotations
@@ -75,8 +77,10 @@ _PATCH = ("patch_embed.proj.weight", "patch_embed.proj.bias")
 _NORM = ("norm.weight", "norm.bias")
 
 
-def _blocks(sd: StateDict) -> list:
-    return [f"blocks.{i}.{n}" for i in range(_depth(sd, "blocks"))
+def _blocks(sd: StateDict, stack: str = "blocks") -> list:
+    if not any(k.startswith(f"{stack}.") for k in sd):
+        return []
+    return [f"{stack}.{i}.{n}" for i in range(_depth(sd, stack))
             for n in _VIT_BLOCK]
 
 
@@ -94,6 +98,20 @@ def import_mae(sd: StateDict) -> StateDict:
     compute_feats.py:344)."""
     sd = strip_prefixes(sd)
     return _take(sd, ("cls_token", *_PATCH, *_blocks(sd), *_NORM))
+
+
+def import_mae_pretrain(sd: StateDict) -> StateDict:
+    """MAE (± adapter) → the port's `MaskedAutoencoderViT` built
+    `with_decoder`: the encoder and, where the checkpoint has them,
+    `mask_token`, `decoder_embed`, the decoder blocks, `decoder_norm` and
+    `decoder_pred` (the JAX `import_mae`, which pretraining's
+    `--finetune` uses). The fixed sin-cos grids are not taken."""
+    sd = strip_prefixes(sd)
+    return _take(sd, ("cls_token", *_PATCH, *_blocks(sd), *_NORM,
+                      "mask_token", "decoder_embed.weight",
+                      "decoder_embed.bias", *_blocks(sd, "decoder_blocks"),
+                      "decoder_norm.weight", "decoder_norm.bias",
+                      "decoder_pred.weight", "decoder_pred.bias"))
 
 
 _BN = ("weight", "bias", "running_mean", "running_var")

@@ -1,1 +1,1 @@
-"""Self-supervised pretraining of the embedders (DINO-adapter)."""
+"""Self-supervised pretraining of the embedders (DINO- and MAE-adapter)."""

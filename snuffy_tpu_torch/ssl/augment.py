@@ -1,13 +1,16 @@
-"""Device-side multi-crop augmentation for DINO pretraining, batched.
+"""Device-side augmentation for DINO and MAE pretraining, batched.
 
-The port of the DINO half of `snuffy_tpu/ssl/augment.py` (the reference's
-DataAugmentationDINO, reference dino_adapter/main_dino_adapter.py:674-719:
+The port of `snuffy_tpu/ssl/augment.py`: the reference's
+DataAugmentationDINO (reference dino_adapter/main_dino_adapter.py:674-719:
 2 global crops at 224 and N local crops at 96, with flip, colour jitter,
-grayscale, blur and solarization). The JAX package vmaps each op over the
-batch; here each op is one tensor program over a batch of crops: every
-crop's window becomes gather indices into the source batch, and its flip,
-jitter, blur and solarize draws broadcast over its pixels. No Python loop
-runs over images.
+grayscale, blur and solarization) and the MAE `transform_train`
+(`mae_train_augment`: a bicubic RandomResizedCrop with scale (0.2, 1.0),
+a flip and the ImageNet normalisation; reference
+mae_adapter/main_pretrain_adapter.py:155-159). The JAX package vmaps each
+op over the batch; here each op is one tensor program over a batch of
+crops: every crop's window becomes gather indices into the source batch,
+and its flip, jitter, blur and solarize draws broadcast over its pixels.
+No Python loop runs over images.
 
 Each op is split in two: a *draw* (`draw_views`: the uniforms and
 Bernoullis of every crop, as tensors from an explicit `torch.Generator`
@@ -31,8 +34,8 @@ window, edge-clamped bilinear or bicubic (Keys, a = −0.5) taps, the
 uniform U(lo, hi) is `u·(hi − lo) + lo`, as `jax.random.uniform` maps
 it, and a Bernoulli(p) is `u < p`.
 
-`mae_train_augment` belongs to MAE pretraining (ROADMAP.md Queue 1,
-Slice 6b) and is not here yet.
+The MAE transform draws only the crop (area, log_ratio, y, x) and the
+flip (`mae_draws`), and applies them by `mae_apply`.
 """
 
 from __future__ import annotations
@@ -296,3 +299,41 @@ def dino_multicrop_batch(images: torch.Tensor, gen: torch.Generator,
         loc = apply_views(images, src.repeat(n_local), l_d, local_size)
         loc = loc.reshape(n_local, b, local_size, local_size, 3)
     return g.reshape(2, b, global_size, global_size, 3), loc
+
+
+def mae_draws(gen: torch.Generator, n: int, scale=(0.2, 1.0),
+              device: Optional[torch.device] = None) -> Draws:
+    """The draws of `mae_train_augment` for `n` images: the crop's area,
+    log aspect ratio and offsets, and the flip."""
+    device = device or torch.device("cuda")
+    return {
+        "area": _uniform(gen, n, scale[0], scale[1], device),
+        "log_ratio": _uniform(gen, n, math.log(RATIO[0]), math.log(RATIO[1]),
+                              device),
+        "y": torch.rand(n, generator=gen, device=device),
+        "x": torch.rand(n, generator=gen, device=device),
+        "flip": _bernoulli(gen, n, 0.5, device),
+    }
+
+
+def mae_apply(images: torch.Tensor, d: Draws, out_size: int) -> torch.Tensor:
+    """Image i cropped (bicubic) by its draws, flipped where drawn,
+    normalised → (B, out, out, 3) f32."""
+    src = torch.arange(images.shape[0], device=images.device)
+    x = random_resized_crop(images, src, d, out_size, "bicubic")
+    return normalize(hflip(x, d["flip"]))
+
+
+def mae_train_augment(images: torch.Tensor, gen: Optional[torch.Generator],
+                      out_size: int, scale=(0.2, 1.0),
+                      draws: Optional[Draws] = None) -> torch.Tensor:
+    """(B, H, W, 3) uint8 (or f32 in [0, 1]) of any size → (B, out_size,
+    out_size, 3) f32, normalised, on the images' device: the crop window
+    is taken from the raw decode, as torchvision crops the original
+    image. `draws` (as `mae_draws` gives them) replaces the draws from
+    `gen`."""
+    if images.dtype == torch.uint8:
+        images = images.float() / 255.0
+    if draws is None:
+        draws = mae_draws(gen, images.shape[0], scale, images.device)
+    return mae_apply(images, draws, out_size)

@@ -47,6 +47,7 @@ import torch
 from torch import nn
 
 from snuffy_tpu_torch.models.vit import DINOHead, VisionTransformer
+from snuffy_tpu_torch.ssl.adam import adam_directions, init_adam_state
 from snuffy_tpu_torch.ssl.lars import jax_ndim, lars_direction
 
 OPTIMIZERS = ("adamw", "sgd", "lars")
@@ -180,16 +181,11 @@ class DINOTrainer:
         """adamw: {'count': int32 0-d, 'exp_avg': {name: μ}, 'exp_avg_sq':
         {name: ν}}, one shared count (optax's); sgd and lars:
         {'momentum_buffer': {name: m}}. One buffer a trainable parameter."""
-        zeros = {n: torch.zeros_like(p) for n, p in
-                 self.trainable_params(student)}
+        params = dict(self.trainable_params(student))
         if self.optimizer == "adamw":
-            return {"count": torch.zeros((), dtype=torch.int32,
-                                         device=next(iter(zeros.values()))
-                                         .device),
-                    "exp_avg": zeros,
-                    "exp_avg_sq": {n: torch.zeros_like(t)
-                                   for n, t in zeros.items()}}
-        return {"momentum_buffer": zeros}
+            return init_adam_state(params)
+        return {"momentum_buffer": {n: torch.zeros_like(p)
+                                    for n, p in params.items()}}
 
     # ------------------------------------------------------------ forwards
 
@@ -314,20 +310,8 @@ class DINOTrainer:
         """The positive descent direction of each parameter, its buffers
         moved in `opt` in place (every trainable one, cancelled or not)."""
         if self.optimizer == "adamw":
-            opt["count"] += 1
-            count = opt["count"].float()
-            c1 = 1 - torch.tensor(ADAM_B1, device=count.device) ** count
-            c2 = 1 - torch.tensor(ADAM_B2, device=count.device) ** count
-            mus = [opt["exp_avg"][n] for n in names]
-            nus = [opt["exp_avg_sq"][n] for n in names]
-            torch._foreach_mul_(mus, ADAM_B1)
-            torch._foreach_add_(mus, grads, alpha=1 - ADAM_B1)
-            torch._foreach_mul_(nus, ADAM_B2)
-            torch._foreach_addcmul_(nus, grads, grads, value=1 - ADAM_B2)
-            den = torch._foreach_div(nus, c2)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, ADAM_EPS)
-            return torch._foreach_div(torch._foreach_div(mus, c1), den)
+            return adam_directions(opt, names, grads, ADAM_B1, ADAM_B2,
+                                   ADAM_EPS)
         bufs = [opt["momentum_buffer"][n] for n in names]
         if self.optimizer == "sgd":
             torch._foreach_mul_(bufs, 0.9)

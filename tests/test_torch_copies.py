@@ -576,3 +576,42 @@ def test_dino_cli_flags_are_the_root_flags(monkeypatch):
 
     assert ours.pop("device")[1] == "cuda"
     assert ours == flags(root_cli.get_args_parser())
+
+
+# ------------------------------------------- the MAE pretraining slice's
+
+
+def test_mae_cli_flags_are_the_root_flags(monkeypatch):
+    """The port's MAE CLI builds its parser with the root script out of
+    reach, and its flags are the root's plus --device (`bool_flag` is the
+    port's copy: types compare by name)."""
+    from snuffy_tpu_torch import main_pretrain_adapter as port_cli
+
+    def flags(parser):
+        return {a.dest: (a.option_strings, a.default,
+                         getattr(a.type, "__name__", a.type), a.choices,
+                         a.nargs, a.required, type(a).__name__)
+                for a in parser._actions if a.dest != "help"}
+
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "main_pretrain_adapter", None)
+        ours = flags(port_cli.get_args_parser())
+    import main_pretrain_adapter as root_cli
+
+    assert ours.pop("device")[1] == "cuda"
+    assert ours == flags(root_cli.get_args_parser())
+
+
+def test_mae_trainer_helpers_match():
+    from snuffy_tpu.ssl import mae_trainer as jax_trainer
+    from snuffy_tpu_torch.ssl import mae_trainer
+
+    for args in ((1e-3, 64), (1.5e-4, 32, 2), (1e-3, 64, 1, 4), (5e-4, 7)):
+        assert mae_trainer.effective_lr(*args) == \
+            jax_trainer.effective_lr(*args)
+    for fn in (mae_trainer.host_check_finite, jax_trainer.host_check_finite):
+        fn(1.0)
+        for bad in (float("nan"), float("inf"), -float("inf")):
+            with pytest.raises(FloatingPointError,
+                               match=f"Loss is {bad}, stopping training"):
+                fn(bad)

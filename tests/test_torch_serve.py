@@ -169,7 +169,9 @@ def test_package_imports_with_jax_blocked():
                 "datasets.tcga.train_validation_test_reverse_tcga",
                 "datasets.tcga.train_validation_test_splitter_tcga",
                 "eval.froc", "froc", "models.dsmil", "snuffy",
-                "snuffy_multiclass", "viz.png", "viz.heatmap", "roi"):
+                "snuffy_multiclass", "viz.png", "viz.heatmap", "roi",
+                "ssl.augment", "ssl.dino", "main_dino_adapter",
+                "ssl.adam", "ssl.mae_trainer", "main_pretrain_adapter"):
         assert f"snuffy_tpu_torch.{new}" in names.split()
 
 
