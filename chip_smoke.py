@@ -188,13 +188,36 @@ per kernel, all at once), then:
      shapes and its share of the step; (e) one f32 step on the card and
      on the CPU from the same weights, crops and noise; (f) K5 on the
      inputs (a)-(e) gave it, as phase 13's (e).
+  15. data parallelism, run last (python -m snuffy_tpu_torch.tools.
+     multiproc_worker, two ranks sharing the card: gloo over CUDA tensors,
+     both on cuda:0, since NCCL refuses two ranks on one device), each
+     rank's process killed past MULTI_RANK_TIMEOUT: (a) one packed MIL
+     step at bench.py's training point (d=384, 4 heads, Λ=512, depth 2,
+     bf16, 8 bags padded to 10240) as 4 bags a rank, against one rank
+     stepping all 8 from the same weights at ρ=0 and no dropout (losses,
+     bag and instance scores, parameters), then a tail batch of 3 real
+     bags (rank 1 holds only dummies), then an epoch at ρ=0.5 and rate
+     0.1: finite, replicas bitwise equal; (b) two DINO steps at the CLI's
+     defaults (ViT-S/16 + adapter, bf16, out_dim 65536, 2×224 + 8×96
+     crops drawn once and split), 32 a rank against 64 on one rank: loss,
+     centre, student and teacher; (c) two MAE steps likewise (ViT-B/16 +
+     adapters, mask 0.75, the noise passed in); each with the step walls
+     (2 ranks sharing the card, and 1), each gradient bucket's all-reduce
+     time and bytes, and each rank's peak memory; (d) the extraction CLI
+     (ViT-S/8 + adapter, bf16) on 2 ranks over phase 11c's 300 tiles as 4
+     bags: every CSV byte for byte one process's on the card, the dataset
+     CSV written by rank 0 alone; (e) NCCL in a group of one rank: an
+     all-reduce, and a DINO step under the mesh bit for bit the step
+     without a group. Each rank holds its K1, K2 and K5 first launches at
+     each shape against the plain versions.
 
 Each path of the main path (serve, whole slide, eval, extraction, train,
 each training-CLI run, the SimCLR slide CLI and requests, the SimCLR and
 MAE extraction CLI runs and the ViT-L batch, each ROI run, the DINO
 CLI's two runs and its checkpoint's extraction, the MAE CLI's four runs
-and its checkpoint's extraction) runs with the launch
-counts set to 0 just before it and read just after.
+and its checkpoint's extraction, and in each rank of phase 15 its MIL,
+DINO, MAE and extraction runs) runs with the launch counts set to 0 just
+before it and read just after.
 Every phase asserts; any failure exits non-zero. The line before the last
 is the kernels' JSON record, the last line the device record. It exits
 non-zero at once without a CUDA device.
@@ -3667,6 +3690,215 @@ def phase_mae_gpu_vs_cpu(cli, dev, batch, calls):
         raise AssertionError("MAE step: GPU and CPU disagree")
 
 
+# ---------------------------------------------------------------- phase 15
+
+# Phase 15: data parallelism (Slice 7a) through
+# snuffy_tpu_torch/tools/multiproc_worker.py, two ranks sharing the one
+# card: gloo over CUDA tensors, both on cuda:0 (NCCL refuses two ranks on
+# one device); then NCCL in a group of one rank. Each launch kills its
+# ranks past MULTI_RANK_TIMEOUT s. The tolerances of (a)-(c) are the
+# worker's (LOSS_TOL, PARAM_TOL, PARAM_SHARE: bf16 at these widths).
+MULTI_RANK_TIMEOUT = 300
+# (d): phase 11c's 300-tile bag (its seed) split into 4 bags of 75 tiles,
+# two classes, the extraction CLI at ViT-S/8 + adapter in bf16
+MULTI_EXTRACT_BAGS = 4
+
+
+def write_multi_extract_tree(root):
+    """Phase 11c's 300 tiles (seed 8) as q90 JPEGs in MULTI_EXTRACT_BAGS
+    bags under camelyon16/single/fold1/train/<class>/<bag>."""
+    import os
+
+    import numpy as np
+
+    from snuffy_tpu_torch import native
+
+    rng = np.random.default_rng(8)
+    bag = [rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+           for n in EXTRACT_BAGS][1]
+    per = len(bag) // MULTI_EXTRACT_BAGS
+    for b in range(MULTI_EXTRACT_BAGS):
+        cls = ("0_normal", "1_tumor")[b % 2]
+        bag_dir = os.path.join(root, "camelyon16", "single", "fold1",
+                               "train", cls, f"slide_{b}")
+        os.makedirs(bag_dir)
+        for j, tile in enumerate(bag[b * per:(b + 1) * per]):
+            native.write_jpeg(
+                os.path.join(bag_dir, f"{j % 20}_{j // 20}.jpeg"), tile,
+                quality=90)
+
+
+def check_multi_step(ranks, label, mpw, smi, lr, steps):
+    """(a)-(c): the 2-rank step(s) against one rank, replicas bitwise
+    equal; the walls, all-reduce buckets and peak memory logged."""
+    r0, r1 = ranks
+    if r0[f"{label}_digest"] != r1[f"{label}_digest"]:
+        raise AssertionError(f"{label}: the replicas differ after the step")
+    worst, share = r0[f"{label}_params" if label != "dino"
+                      else "dino_student"]
+    tol = mpw.PARAM_TOL["bfloat16"]
+    log(f"  {label}: parameters after {steps} step(s), 2 ranks vs 1: max "
+        f"|diff| {worst:.3e} (bound 2·lr·steps {2 * lr * steps:.0e}), least "
+        f"share within {tol:.0e}·(1 + |x|) {share:.5f} (needed "
+        f"{mpw.PARAM_SHARE}); replicas bitwise equal")
+    if not (worst <= 2 * lr * steps and share >= mpw.PARAM_SHARE):
+        raise AssertionError(f"{label}: 2 ranks and 1 disagree")
+    two, one = r0[f"{label}_step_s_ranks"], r0[f"{label}_step_s_one"]
+    log(f"    step wall, s ({smi}): 2 ranks sharing the card "
+        f"{[round(x, 4) for x in two]} (rank 1: "
+        f"{[round(x, 4) for x in r1[f'{label}_step_s_ranks']]}), 1 rank "
+        f"on the whole batch {[round(x, 4) for x in one]}; the last is "
+        "warm")
+    log(f"    peak memory, GiB: rank 0 {r0[f'{label}_peak_bytes'] / 2**30:.2f}"
+        f" (with the 1-rank reference), rank 1 "
+        f"{r1[f'{label}_peak_bytes'] / 2**30:.2f}")
+    for r in (r0, r1):
+        buckets = r.get(f"{label}_buckets")
+        if buckets:
+            log(f"    rank {r['rank']} gradient all-reduce (gloo, CUDA "
+                "tensors), per bucket: " + ", ".join(
+                    f"{b['bytes'] / 2**20:.2f} MiB in {1e3 * b['s']:.2f} ms"
+                    for b in buckets))
+
+
+def phase_multi_rank(dev, kernels, smi):
+    """15 (module docstring): returns (the launch counts of (a)-(d) summed
+    over both ranks, plus (e)'s rank; each kernel's largest error against
+    its plain version on either rank)."""
+    import filecmp
+    import os
+    import tempfile
+
+    import torch
+
+    from snuffy_tpu_torch import compute_feats
+    from snuffy_tpu_torch.tools import multiproc_worker as mpw
+
+    log("== phase 15: data parallelism, 2 ranks sharing the card (gloo over "
+        "CUDA tensors, cuda:0 each; python -m snuffy_tpu_torch.tools."
+        "multiproc_worker): (a) the packed MIL step at bench.py's point, 8 "
+        "bags as 4 a rank; (b) DINO at the CLI's defaults, 32 a rank; (c) "
+        "MAE likewise; (d) the extraction CLI over 4 bags; (e) NCCL, one "
+        f"rank  [{smi}]")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    errors = {k.name: 0.0 for k in kernels.KERNELS}
+    with tempfile.TemporaryDirectory() as root:
+        write_multi_extract_tree(os.path.join(root, "datasets"))
+        t0 = time.perf_counter()
+        ranks = mpw.launch("mil,dino,mae,extract", root, world=2,
+                           size="full", device="cuda:0", backend="gloo",
+                           timeout=MULTI_RANK_TIMEOUT)
+        log(f"  (a)-(d) on 2 ranks: {time.perf_counter() - t0:.1f} s of "
+            "wall, the processes' start included")
+        r0, r1 = ranks
+        if [r["backend"] for r in ranks] != ["gloo", "gloo"] or \
+                [r["device"] for r in ranks] != ["cuda:0", "cuda:0"]:
+            raise AssertionError(f"ranks: {[r['backend'] for r in ranks]}"
+                                 f" on {[r['device'] for r in ranks]}")
+        for r in ranks:
+            for key in ("mil", "dino", "mae", "extract"):
+                for name, n in r[f"{key}_launches"].items():
+                    launches[name] += n
+                for name, e in r[f"{key}_kernel_errors"].items():
+                    errors[name] = max(errors[name], e)
+            log(f"  rank {r['rank']} launches: " + ", ".join(
+                f"{key} {r[f'{key}_launches']}"
+                for key in ("mil", "dino", "mae", "extract")))
+            # at least: K1 and K2 a layer of the step; K5 a block of each
+            # ViT call of the step (the student's two crop sizes and the
+            # teacher's; the MAE encoder and decoder); a block a batch
+            least = (("mil", kernels.FWD, 2), ("mil", kernels.BWD, 2),
+                     ("dino", kernels.DENSE, 12 * 3),
+                     ("mae", kernels.DENSE, 12 + 8),
+                     ("extract", kernels.DENSE, 12))
+            for key, kernel, n in least:
+                if r[f"{key}_launches"][kernel.name] < n:
+                    raise AssertionError(
+                        f"rank {r['rank']} {key}: {kernel.name} launched "
+                        f"{r[f'{key}_launches'][kernel.name]} < {n} times")
+        # (a)
+        tol = mpw.LOSS_TOL[r0["mil_dtype"]]
+        for i, errs in enumerate(r0["mil_errors"]):
+            log(f"  (a) MIL step {i} ({('8 real bags', '3 real bags')[i]}): "
+                f"losses, bag scores, instance scores vs 1 rank: "
+                f"{[f'{e:.3e}' for e in errs]} of max |x| (tol {tol:.0e})")
+            if max(errs) > tol:
+                raise AssertionError("MIL: 2 ranks and 1 disagree")
+        check_multi_step(ranks, "mil", mpw, smi, mpw.MIL_LR, 2)
+        if not (r0["mil_rand_finite"] and r0["mil_rand_digest"]
+                == r1["mil_rand_digest"]
+                and r0["mil_rand_order"] == r1["mil_rand_order"]):
+            raise AssertionError("MIL at rho 0.5, rate 0.1: not finite, or "
+                                 "the replicas differ")
+        log("    rho 0.5, rate 0.1 (rank folded into the seeds): finite, "
+            "replicas bitwise equal")
+        # (b), (c)
+        for label in ("dino", "mae"):
+            loss, loss1 = r0[f"{label}_loss"]
+            tol = mpw.LOSS_TOL["bfloat16"]
+            log(f"  ({'bc'[label == 'mae']}) {label.upper()}: loss 2 ranks "
+                f"{loss:.6f}, 1 rank {loss1:.6f} (rel "
+                f"{abs(loss - loss1) / abs(loss1):.2e}, tol {tol:.0e})")
+            if abs(loss - loss1) > tol * abs(loss1):
+                raise AssertionError(f"{label}: 2 ranks and 1 disagree")
+            if label == "dino":
+                log(f"    centre rel {r0['dino_center']:.3e}; teacher max "
+                    f"|diff| {r0['dino_teacher'][0]:.3e}")
+                if r0["dino_center"] > tol:
+                    raise AssertionError("DINO centre: 2 ranks and 1 differ")
+            check_multi_step(ranks, label, mpw, smi, mpw.SSL_LR,
+                             mpw.SSL_STEPS)
+        # (d) one process on the card against the ranks' files
+        one = os.path.join(root, "one")
+        os.makedirs(one)
+        cwd = os.getcwd()
+        os.chdir(one)
+        try:
+            want = compute_feats.main(mpw.extract_flags("full") + [
+                "--datasets_path", os.path.join(root, "datasets"),
+                "--dataset", "camelyon16", "--device", "cuda"])
+        finally:
+            os.chdir(cwd)
+        want = [list(w) for w in want]
+        got = r0["extract_rows"]["camelyon16"]
+        files = sorted(os.path.relpath(os.path.join(d, f), one)
+                       for d, _, fs in os.walk(one) for f in fs
+                       if f.endswith(".csv"))
+        _, bad, missing = filecmp.cmpfiles(
+            one, os.path.join(root, "ranks"), files, shallow=False)
+        dataset_csv = os.path.join("embeddings", "camelyon16", "DINO",
+                                   "camelyon16.csv")
+        writers = [r["rank"] for r in ranks
+                   if dataset_csv in {os.path.relpath(w, "ranks")
+                                      for w in r["extract_writes"]}]
+        log(f"  (d) extraction: {len(got)} bags, {len(files)} CSVs, byte "
+            f"for byte one process's: {not bad and not missing}; the "
+            f"dataset CSV written by rank(s) {writers}; 2-rank wall "
+            f"{r0['extract_s']:.2f} s ({smi})")
+        if got != want or r1["extract_rows"] != r0["extract_rows"] or bad \
+                or missing or writers != [0] or \
+                len(got) != MULTI_EXTRACT_BAGS:
+            raise AssertionError(f"extraction on 2 ranks: rows equal "
+                                 f"{got == want}, differing {bad}, missing "
+                                 f"{missing}, dataset CSV by {writers}")
+        # (e)
+        (nccl,) = mpw.launch("nccl1", root, world=1, size="full",
+                             device="cuda:0", backend="nccl",
+                             timeout=MULTI_RANK_TIMEOUT)
+        log(f"  (e) NCCL, one rank: backend {nccl['backend']}, all-reduce "
+            f"{nccl['allreduce']}, a DINO step under the mesh bit for bit "
+            f"the step without a group: {nccl['nccl1_bitwise']}")
+        if not (nccl["backend"] == "nccl" and nccl["allreduce"]
+                == [0.0, 1.0, 2.0, 3.0] and nccl["nccl1_bitwise"]):
+            raise AssertionError("NCCL at world size 1")
+    log(f"  each rank's K1, K2 and K5 first launches at each shape against "
+        f"the plain versions: largest error {errors}")
+    log(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, errors
+
+
 def build_kernels(kernels):
     """Build every kernel at once, one nvcc each; print ptxas's lines."""
     with concurrent.futures.ThreadPoolExecutor(len(kernels.KERNELS)) as pool:
@@ -3787,6 +4019,7 @@ def main() -> int:
     roi_launches, k1_roi_err, k5_roi_err = phase_eval_viz(
         fa, packed_inverted_sparse_attention,
         packed_inverted_sparse_attention_bwd, kernels, dev)
+    multi_launches, multi_err = phase_multi_rank(dev, kernels, smi)
 
     log(f"  main-path kernel launches: serve {serve_launches}, whole slide "
         f"{slide_launches}, eval {eval_launches}, extraction "
@@ -3794,22 +4027,27 @@ def main() -> int:
         f"{cli_launches}, SimCLR serve (slide CLI and requests) "
         f"{simclr_launches}, SimCLR/MAE extraction {embedders_launches}, "
         f"ROI heat maps {roi_launches}, DINO pretraining {dino_launches}, "
-        f"MAE pretraining {mae_launches}")
+        f"MAE pretraining {mae_launches}, 2 ranks (phase 15) "
+        f"{multi_launches}")
     log(f"  K1 at dk=128, one bag: kernel {k1_dk128_record[0]:.4f} ms "
         f"(device {k1_dk128_record[4]:.4f}), bound {k1_dk128_record[2]:.4f} "
         f"ms ({k1_dk128_record[3]})")
     paths = (serve_launches, slide_launches, eval_launches, extract_launches,
              train_launches, cli_launches, simclr_launches,
-             embedders_launches, roi_launches, dino_launches, mae_launches)
+             embedders_launches, roi_launches, dino_launches, mae_launches,
+             multi_launches)
     no_library = None  # no one PyTorch call computes the slot sums σᵀv
     records = []
     for kernel, err, (ms, plain_ms, bound, bound_by, library_ms) in (
             (kernels.FWD, max(fwd_err, k1_cli_err, k1_dk128_err,
-                              k1_roi_err), (*fwd_record, no_library)),
-            (kernels.BWD, max(bwd_err, k2_cli_err),
+                              k1_roi_err, multi_err[kernels.FWD.name]),
+             (*fwd_record, no_library)),
+            (kernels.BWD, max(bwd_err, k2_cli_err,
+                              multi_err[kernels.BWD.name]),
              (*bwd_record, no_library)),
             (kernels.DENSE, max(dense_err, k5_vitl_err, k5_roi_err,
-                                k5_dino_err, k5_mae_err),
+                                k5_dino_err, k5_mae_err,
+                                multi_err[kernels.DENSE.name]),
              dense_record)):
         records.append({
             "name": kernel.name,

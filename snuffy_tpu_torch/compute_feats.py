@@ -22,6 +22,12 @@ and `embedder.pth`: the backbone's state dict under its family's names
 `--embedder_weights` of `predict_slide` load. `--weights` is overlaid as
 the root CLI does (`embed.torch_import.load_embedder_weights`): every
 tensor whose name and shape match, with the layer audit printed.
+
+Several GPUs: `torchrun --nproc_per_node N -m snuffy_tpu_torch.compute_feats
+...` runs one process a GPU (`parallel/distributed.py`); each rank embeds
+every N-th bag and writes its CSVs, then rank 0 alone writes
+`embedder.pth`, the per-class CSVs and the dataset CSV, the same bytes as
+one process writes. The output directory is shared by the ranks.
 """
 
 from __future__ import annotations
@@ -133,9 +139,24 @@ def build_and_load_embedder(args, device: torch.device):
 
 
 def main(argv=None):
+    """The CLI: the bootstrap (nothing without torchrun's environment),
+    then `extract`."""
+    from snuffy_tpu_torch.parallel import distributed
+
     args = get_args_parser().parse_args(argv)
+    with distributed.session(device=args.device):
+        return extract(args)
+
+
+def extract(args):
+    """Every bag's CSV, then (rank 0) the per-class CSVs and the dataset
+    CSV. Over several ranks each embeds every W-th bag; the gather of the
+    rows in `extract_dataset` waits for all of them before rank 0 lists
+    the tree."""
+    from snuffy_tpu_torch.parallel import distributed
+
     validate_args(args)
-    device = resolve_device(args.device)
+    device = resolve_device(str(distributed.rank_device(args.device)))
     embedder = build_and_load_embedder(args, device)
 
     dataset_path = os.path.join(args.datasets_path, args.dataset)
@@ -150,13 +171,18 @@ def main(argv=None):
     print(f"class labels: {class_labels}")
 
     os.makedirs(out_dir, exist_ok=True)
-    torch.save(embedder.backbone.state_dict(),
-               os.path.join(out_dir, "embedder.pth"))
+    if distributed.is_primary():
+        torch.save(embedder.backbone.state_dict(),
+                   os.path.join(out_dir, "embedder.pth"))
     rows = extract_dataset(
         embedder, dataset_path, args.fold, out_dir,
         class_labels=class_labels, tile_label_csv=tile_label_csv,
         batch_size=args.batch_size, num_workers=max(args.num_workers, 0),
     )
+    if not distributed.is_primary():
+        print(f"extracted {len(rows)} bags (rank {distributed.rank()}'s "
+              f"share written) → {out_dir}")
+        return rows
     # The per-class CSVs and the shuffled dataset CSV, gated on --droped;
     # a fold without a split/class layout gets the flat dataset CSV.
     shuffled = save_class_features(out_dir, f"{args.dataset}.csv",

@@ -15,9 +15,14 @@ and a numpy copy of PIL's bilinear resample in place of PIL:
     CSV in the JAX package's row order.
 
 `embed_tiles` is the device part alone (uint8 tiles → feats). Host decode
-runs in a spawned process pool. One process, one device: the JAX
-package's dp mesh and multi-host bag stride are not ported (ROADMAP.md
-Queue 1, slice 7).
+runs in a spawned process pool.
+
+Several GPUs (`parallel/distributed.py`, one process a GPU): the ranks
+take the bags by stride, each writes its own bags' CSVs, and the dataset
+rows are gathered to every rank in the order one process gives them
+(JAX `embed/pipeline.py:242-243`). The JAX package's local dp mesh over
+a host's chips (`embed/pipeline.py:112-123`) has no counterpart: with one
+rank a GPU, the stride is that split.
 """
 
 from __future__ import annotations
@@ -289,14 +294,21 @@ def extract_dataset(
     num_workers: int = 0,
 ) -> List[Tuple[str, int]]:
     """Every bag under `<dataset>/single/<fold>` → one CSV under out_dir.
-    Returns the dataset rows (bag CSV path, class)."""
+    Returns the dataset rows (bag CSV path, class). Over several ranks,
+    rank r embeds bags r, r + W, ... and every rank returns every row;
+    the gather waits for the slowest rank."""
+    from snuffy_tpu_torch.parallel import distributed
+
     patch_labels = (load_patch_labels(tile_label_csv) if tile_label_csv
                     else None)
     pool = (mp.get_context("spawn").Pool(num_workers) if num_workers > 0
             else None)
-    rows: List[Tuple[str, int]] = []
+    world, rank = distributed.world_size(), distributed.rank()
+    rows: List[Tuple[int, str, int]] = []
     try:
-        for bag_dir in list_bags(dataset_path, fold):
+        for index, bag_dir in enumerate(list_bags(dataset_path, fold)):
+            if index % world != rank:
+                continue
             patch_paths = sorted(
                 glob.glob(os.path.join(bag_dir, "*.jpg"))
                 + glob.glob(os.path.join(bag_dir, "*.jpeg"))
@@ -323,9 +335,11 @@ def extract_dataset(
             if class_labels:
                 cls_dir = os.path.basename(os.path.dirname(bag_dir))
                 cls = class_labels.get(cls_dir, 0)
-            rows.append((out_csv, cls))
+            rows.append((index, out_csv, cls))
     finally:
         if pool is not None:
             pool.close()
             pool.join()
-    return rows
+    gathered = sorted(r for part in distributed.host_allgather(rows)
+                      for r in part)
+    return [(out_csv, cls) for _, out_csv, cls in gathered]

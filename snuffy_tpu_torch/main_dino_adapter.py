@@ -34,9 +34,18 @@ snuffy_tpu_torch.compute_feats --embedder DINO --backbone vit_small
 
 `--full_checkpoint` starts from a full DINO training checkpoint (student
 and teacher, the head filtered as the reference filters it; `--random_head
-1` keeps the head's init) or from a plain backbone `.pth`. One process on
-one device: a launch of more processes is refused (multi-GPU is ROADMAP.md
-Queue 1, Slice 7), and `--num_workers` is the decode's thread count.
+1` keeps the head's init) or from a plain backbone `.pth`.
+`--num_workers` is the decode's thread count.
+
+Several GPUs, data-parallel: `torchrun --nproc_per_node N -m
+snuffy_tpu_torch.main_dino_adapter ...` runs one process a GPU
+(`parallel/distributed.py`); without torchrun's environment it is one
+process. Each rank takes every N-th image, `--batch_size_per_gpu` images a
+step, and averages the gradients with the others; the ranks agree on the
+steps an epoch and the validation batches (the fewest any rank has), the
+learning rate scales by the global batch (lr · batch · N / 256), and rank
+0 alone writes `log.txt` and the checkpoints (the epoch row count-weighted
+over the ranks). The output directory is shared by the ranks.
 """
 
 from __future__ import annotations
@@ -122,9 +131,9 @@ def get_args_parser():
     return p
 
 
-def build_trainer(args, device: torch.device):
+def build_trainer(args, device: torch.device, mesh=None):
     """The backbone the flags name (seeded by --seed) and its
-    DINOTrainer."""
+    DINOTrainer, data-parallel over `mesh` when one is given."""
     from snuffy_tpu_torch.models import vit as vit_mod
     from snuffy_tpu_torch.ssl.dino import DINOTrainer
 
@@ -153,6 +162,7 @@ def build_trainer(args, device: torch.device):
         optimizer=args.optimizer,
         use_bn_in_head=args.use_bn_in_head,
         crop_pack=args.crop_pack,
+        mesh=mesh,
     )
 
 
@@ -235,6 +245,9 @@ def train_dino(args, timings: Optional[Dict[str, float]] = None):
     `timings` dict, adds the seconds of the host decode, the augment and
     the step's forward, backward and update (device synchronised between
     them) and the count of steps to it."""
+    from snuffy_tpu_torch.parallel import distributed
+    from snuffy_tpu_torch.parallel.mesh import make_mesh
+    from snuffy_tpu_torch.parallel.ssl_sharding import replicate_state
     from snuffy_tpu_torch.predict_slide import resolve_device
     from snuffy_tpu_torch.ssl.augment import dino_multicrop_batch
     from snuffy_tpu_torch.ssl.data import ImageBatcher, list_image_folder
@@ -243,24 +256,27 @@ def train_dino(args, timings: Optional[Dict[str, float]] = None):
     from snuffy_tpu_torch.utils.logging import truncate_log_past_epoch
     from snuffy_tpu_torch.utils.metrics_sync import (
         global_min_int,
-        require_one_process,
         sync_epoch_row,
     )
 
-    require_one_process("python -m snuffy_tpu_torch.main_dino_adapter")
-    device = resolve_device(args.device)
-    trainer = build_trainer(args, device)
+    device = resolve_device(str(distributed.rank_device(args.device)))
+    world, rank = distributed.world_size(), distributed.rank()
+    mesh = make_mesh(distributed.global_mesh_spec()) if world > 1 else None
+    trainer = build_trainer(args, device, mesh)
     state = trainer.init_state(args.seed)
     if args.full_checkpoint:
         load_full_checkpoint(args, trainer, state)
 
+    # each rank feeds every world-th image (the DistributedSampler's role)
     paths, _ = list_image_folder(args.data_path)
+    paths = paths[rank::world]
     batcher = ImageBatcher(paths, args.batch_size_per_gpu, args.img_size,
                            args.num_workers, args.seed)
     valid_batcher = None
     if args.valid_data_path:
         vp, _ = list_image_folder(args.valid_data_path)
-        valid_batcher = ImageBatcher(vp, args.batch_size_per_gpu,
+        valid_batcher = ImageBatcher(vp[rank::world],
+                                     args.batch_size_per_gpu,
                                      args.img_size, args.num_workers,
                                      args.seed + 1)
     iters = len(batcher)
@@ -269,12 +285,13 @@ def train_dino(args, timings: Optional[Dict[str, float]] = None):
     iters = global_min_int(iters)
     n_val_batches = global_min_int(
         min(len(valid_batcher), 5) if valid_batcher is not None else 0)
-    print(f"{len(paths)} images, {iters} iters/epoch, 1 device(s) x batch "
-          f"{args.batch_size_per_gpu}")
+    print(f"{len(paths)} images, {iters} iters/epoch, {world} device(s) x "
+          f"batch {args.batch_size_per_gpu}")
 
-    # the linear scaling rule by the global batch (one device here)
+    # the linear scaling rule by the global batch (reference
+    # main_dino_adapter.py: lr * batch_size_per_gpu * world_size / 256)
     lr_s = cosine_iter_schedule(
-        args.lr * args.batch_size_per_gpu / 256.0, args.min_lr,
+        args.lr * args.batch_size_per_gpu * world / 256.0, args.min_lr,
         args.epochs, iters, warmup_epochs=args.warmup_epochs)
     wd_s = cosine_iter_schedule(args.weight_decay, args.weight_decay_end,
                                 args.epochs, iters)
@@ -295,12 +312,17 @@ def train_dino(args, timings: Optional[Dict[str, float]] = None):
     if os.path.exists(ckpt):
         start_epoch = resume(ckpt, trainer, state, device)
         print(f"resumed from {ckpt} at epoch {start_epoch}")
-        truncate_log_past_epoch(os.path.join(args.output_dir, "log.txt"),
-                                start_epoch)
+        if distributed.is_primary():
+            truncate_log_past_epoch(
+                os.path.join(args.output_dir, "log.txt"), start_epoch)
+    # every rank starts from rank 0's weights, centre and optimizer
+    replicate_state((state.student, state.teacher, state.center,
+                     state.opt_state), mesh)
 
     clock = StageClock(timings, device)
     it = start_epoch * iters
-    gen = torch.Generator(device).manual_seed(args.seed + start_epoch)
+    gen = torch.Generator(device).manual_seed(
+        distributed.rank_seed(args.seed + start_epoch))
     for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
         losses = []
@@ -354,7 +376,13 @@ def train_dino(args, timings: Optional[Dict[str, float]] = None):
 
 
 def main(argv=None, timings: Optional[Dict[str, float]] = None):
-    return train_dino(get_args_parser().parse_args(argv), timings)
+    """The CLI: the bootstrap (nothing without torchrun's environment),
+    then `train_dino`."""
+    from snuffy_tpu_torch.parallel import distributed
+
+    args = get_args_parser().parse_args(argv)
+    with distributed.session(device=args.device):
+        return train_dino(args, timings)
 
 
 if __name__ == "__main__":

@@ -35,10 +35,18 @@ into the extraction CLI: `python -m snuffy_tpu_torch.compute_feats
 
 `--finetune` starts from a published MAE `.pth` (encoder, mask token and
 decoder; the adapters it lacks keep their init); with linears from
-scratch, its `decoder_embed` and `decoder_pred` are not taken. One
-process on one device: a launch of more processes is refused (multi-GPU
-is ROADMAP.md Queue 1, Slice 7), and `--num_workers` is the decode's
-thread count.
+scratch, its `decoder_embed` and `decoder_pred` are not taken.
+`--num_workers` is the decode's thread count.
+
+Several GPUs, data-parallel: `torchrun --nproc_per_node N -m
+snuffy_tpu_torch.main_pretrain_adapter ...` runs one process a GPU
+(`parallel/distributed.py`); without torchrun's environment it is one
+process. Each rank takes every N-th image, `--batch_size` images a step,
+and averages the gradients with the others; the ranks agree on the steps
+an epoch and the validation batches (the fewest any rank has), blr scales
+by the global batch (blr · batch · N / 256), and rank 0 alone writes
+`log.txt` and the checkpoints (the epoch row count-weighted over the
+ranks). The output directory is shared by the ranks.
 """
 
 from __future__ import annotations
@@ -111,9 +119,9 @@ def get_args_parser():
     return p
 
 
-def build_trainer(args, device: torch.device):
+def build_trainer(args, device: torch.device, mesh=None):
     """The model the flags name, with its decoder (seeded by --seed), and
-    its MAETrainer."""
+    its MAETrainer, data-parallel over `mesh` when one is given."""
     from snuffy_tpu_torch.models import mae as mae_mod
     from snuffy_tpu_torch.ssl.mae_trainer import MAETrainer
 
@@ -134,6 +142,7 @@ def build_trainer(args, device: torch.device):
         train_decoder_linears=bool(train_linears),
         augment=args.device_augment,
         img_pack=args.img_pack,
+        mesh=mesh,
     )
 
 
@@ -196,6 +205,9 @@ def train_mae(args, timings: Optional[Dict[str, float]] = None):
     `timings` dict, adds the seconds of the host decode and the step's
     augment, forward, backward and update (device synchronised between
     them) and the count of steps to it."""
+    from snuffy_tpu_torch.parallel import distributed
+    from snuffy_tpu_torch.parallel.mesh import make_mesh
+    from snuffy_tpu_torch.parallel.ssl_sharding import replicate_state
     from snuffy_tpu_torch.predict_slide import resolve_device
     from snuffy_tpu_torch.ssl.data import ImageBatcher, list_image_folder
     from snuffy_tpu_torch.ssl.dino import StageClock
@@ -207,33 +219,37 @@ def train_mae(args, timings: Optional[Dict[str, float]] = None):
     from snuffy_tpu_torch.utils.logging import truncate_log_past_epoch
     from snuffy_tpu_torch.utils.metrics_sync import (
         global_min_int,
-        require_one_process,
         sync_epoch_row,
     )
 
-    require_one_process("python -m snuffy_tpu_torch.main_pretrain_adapter")
-    device = resolve_device(args.device)
-    trainer = build_trainer(args, device)
+    device = resolve_device(str(distributed.rank_device(args.device)))
+    world, rank = distributed.world_size(), distributed.rank()
+    mesh = make_mesh(distributed.global_mesh_spec()) if world > 1 else None
+    trainer = build_trainer(args, device, mesh)
     if args.finetune:
         load_finetune(args, trainer.model)
     state = trainer.init_state()
 
-    # the linear scaling rule by the global batch (one device here)
+    # the linear scaling rule by the global batch (reference
+    # main_pretrain_adapter.py:296-302: eff_batch = batch * world_size)
     base_lr = args.lr if args.lr is not None else effective_lr(
-        args.blr, args.batch_size)
+        args.blr, args.batch_size * world)
     lr_s = mae_lr_schedule(base_lr, args.min_lr, args.epochs,
                            args.warmup_epochs)
     # with the device-side augment the host streams the raw decode size
     # and the step crops to input_size
     feed_size = ((args.raw_input_size or args.input_size)
                  if args.device_augment else args.input_size)
+    # each rank feeds every world-th image (the DistributedSampler's role)
     paths, _ = list_image_folder(args.data_path)
+    paths = paths[rank::world]
     batcher = ImageBatcher(paths, args.batch_size, feed_size,
                            args.num_workers, args.seed)
     valid_batcher = None
     if args.valid_data_path:
         vp, _ = list_image_folder(args.valid_data_path)
-        valid_batcher = ImageBatcher(vp, args.batch_size, feed_size,
+        valid_batcher = ImageBatcher(vp[rank::world], args.batch_size,
+                                     feed_size,
                                      args.num_workers, args.seed + 1)
     iters = len(batcher)
     if args.max_steps_per_epoch:
@@ -242,7 +258,7 @@ def train_mae(args, timings: Optional[Dict[str, float]] = None):
     n_val_batches = global_min_int(
         min(len(valid_batcher), 10) if valid_batcher is not None else 0)
     print(f"{len(paths)} images, {iters} iters/epoch, base_lr "
-          f"{base_lr:.2e}, 1 device(s) x batch {args.batch_size}")
+          f"{base_lr:.2e}, {world} device(s) x batch {args.batch_size}")
 
     os.makedirs(args.output_dir, exist_ok=True)
     start_epoch = 0
@@ -250,11 +266,15 @@ def train_mae(args, timings: Optional[Dict[str, float]] = None):
     if os.path.exists(rolling):
         start_epoch = resume(rolling, state, device)
         print(f"resumed from {rolling} at epoch {start_epoch}")
-        truncate_log_past_epoch(os.path.join(args.output_dir, "log.txt"),
-                                start_epoch)
+        if distributed.is_primary():
+            truncate_log_past_epoch(
+                os.path.join(args.output_dir, "log.txt"), start_epoch)
+    # every rank starts from rank 0's weights and optimizer
+    replicate_state((state.model, state.opt_state), mesh)
 
     clock = StageClock(timings, device)
-    gen = torch.Generator(device).manual_seed(args.seed + start_epoch)
+    gen = torch.Generator(device).manual_seed(
+        distributed.rank_seed(args.seed + start_epoch))
     best_val, best_path = float("inf"), None
     for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
@@ -312,7 +332,13 @@ def train_mae(args, timings: Optional[Dict[str, float]] = None):
 
 
 def main(argv=None, timings: Optional[Dict[str, float]] = None):
-    return train_mae(get_args_parser().parse_args(argv), timings)
+    """The CLI: the bootstrap (nothing without torchrun's environment),
+    then `train_mae`."""
+    from snuffy_tpu_torch.parallel import distributed
+
+    args = get_args_parser().parse_args(argv)
+    with distributed.session(device=args.device):
+        return train_mae(args, timings)
 
 
 if __name__ == "__main__":

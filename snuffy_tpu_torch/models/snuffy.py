@@ -29,7 +29,9 @@ the FFN after the activation (`ffn_dropout`: by default
 `encoder_dropout` for the binary model and 0.1 for the multiclass one,
 as the reference's trainers leave it). The hash seeds come from a CPU
 generator, so no device value is read back each layer (JAX draws them on
-the device). Mesh, sp, tp and remat are not ported.
+the device). Data parallelism runs this model whole on each rank
+(`parallel/sharded_train.py`); the mesh hooks of sequence and tensor
+parallelism and remat are not ported (Slice 7b).
 """
 
 from __future__ import annotations

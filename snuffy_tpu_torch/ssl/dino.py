@@ -32,6 +32,13 @@ learnable adapter `scale` are exempt).
 The teacher sees only the 2 global views; it runs its backbone
 deterministically and its head's BatchNorm (with `use_bn_in_head`) on
 batch statistics, as a torch module left in train mode under no_grad.
+
+Under data parallelism (`mesh`, `parallel/mesh.py`), each rank steps on
+its own rows: the gradients are averaged over the ranks before the clip
+(the reference clips after DDP's all-reduce), the batch centre is the
+global batch's mean (reference main_dino_adapter.py:666-668), and
+`eval_loss` the ranks' mean. Every rank holds the same batch size, so the
+mean of the ranks' means is the global mean.
 """
 
 from __future__ import annotations
@@ -47,8 +54,11 @@ import torch
 from torch import nn
 
 from snuffy_tpu_torch.models.vit import DINOHead, VisionTransformer
+from snuffy_tpu_torch.parallel.mesh import Mesh
+from snuffy_tpu_torch.parallel.ssl_sharding import allreduce_gradients
 from snuffy_tpu_torch.ssl.adam import adam_directions, init_adam_state
 from snuffy_tpu_torch.ssl.lars import jax_ndim, lars_direction
+from snuffy_tpu_torch.utils.metrics_sync import mesh_metric_mean
 
 OPTIMIZERS = ("adamw", "sgd", "lars")
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -114,10 +124,17 @@ class DINOTrainer:
         optimizer: str = "adamw",
         use_bn_in_head: bool = False,
         crop_pack: int = 1,
+        mesh: Optional[Mesh] = None,
     ):
         if optimizer not in OPTIMIZERS:
             raise KeyError(f"Optimizer not found. Given: {optimizer}, "
                            f"Have: {list(OPTIMIZERS)}")
+        if use_bn_in_head and mesh is not None and mesh.size > 1:
+            raise ValueError(
+                "use_bn_in_head over more than one rank needs the head's "
+                "BatchNorm synchronised across ranks (the reference's "
+                "SyncBatchNorm): not ported yet (Slice 7b)")
+        self.mesh = mesh
         self.backbone = backbone
         self.head_kw = dict(out_dim=out_dim, hidden_dim=head_hidden_dim,
                             bottleneck_dim=head_bottleneck_dim,
@@ -236,8 +253,9 @@ class DINOTrainer:
                 n_terms += 1
         loss = total / n_terms
         with torch.no_grad():
-            batch_center = torch.mean(teacher_out.reshape(-1, self.out_dim),
-                                      dim=0, keepdim=True)
+            batch_center = mesh_metric_mean(
+                torch.mean(teacher_out.reshape(-1, self.out_dim), dim=0,
+                           keepdim=True), self.mesh)
             new_center = (center * self.center_momentum
                           + batch_center * (1 - self.center_momentum))
         return loss, new_center
@@ -266,10 +284,12 @@ class DINOTrainer:
                                           teacher_temp)
         clock.mark("forward_s")
         params = self.trainable_params(student)
-        grads = torch.autograd.grad(loss, [p for _, p in params])
+        grads = allreduce_gradients(
+            list(torch.autograd.grad(loss, [p for _, p in params])),
+            self.mesh)
         clock.mark("backward_s")
         with torch.no_grad():
-            self._update(state, params, list(grads), lr, wd, cancel_last)
+            self._update(state, params, grads, lr, wd, cancel_last)
             self._ema(state, momentum)
             state.center = new_center
             state.step += 1
@@ -334,8 +354,9 @@ class DINOTrainer:
     def eval_loss(self, state: DINOState, globals_, locals_,
                   teacher_temp: float) -> float:
         """Deterministic DINO loss on held-out crops (the reference's
-        per-epoch validation pass, main_dino_adapter.py:567-594); head
-        BatchNorms use their running averages and nothing updates."""
+        per-epoch validation pass, main_dino_adapter.py:567-594), the
+        ranks' mean under a mesh; head BatchNorms use their running
+        averages and nothing updates."""
         state.student.eval()
         state.teacher.eval()
         with torch.no_grad():
@@ -343,7 +364,7 @@ class DINOTrainer:
             t_out = self.forward_views(state.teacher, globals_, locals_[:0])
             loss, _ = self.dino_loss(s_out, t_out, state.center,
                                      teacher_temp)
-        return float(loss)
+        return float(mesh_metric_mean(loss, self.mesh))
 
 
 class StageClock:

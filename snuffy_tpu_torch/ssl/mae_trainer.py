@@ -25,6 +25,12 @@ those, with one shared step count.
 
 A step draws, from one `torch.Generator` on the device, the augment's
 crops and flips, then the masking noise, then the adapters' dropout.
+
+Under data parallelism (`mesh`, `parallel/mesh.py`), each rank steps on
+its own images: the gradients are averaged over the ranks before the
+update (every rank holds the same batch size and mask ratio, so the mean
+of the ranks' losses is the global loss), and `eval_loss` is the ranks'
+mean.
 """
 
 from __future__ import annotations
@@ -36,9 +42,12 @@ import numpy as np
 import torch
 
 from snuffy_tpu_torch.models.mae import MaskedAutoencoderViT
+from snuffy_tpu_torch.parallel.mesh import Mesh
+from snuffy_tpu_torch.parallel.ssl_sharding import allreduce_gradients
 from snuffy_tpu_torch.ssl.adam import adam_directions, init_adam_state
 from snuffy_tpu_torch.ssl.augment import Draws, mae_train_augment
 from snuffy_tpu_torch.ssl.dino import StageClock
+from snuffy_tpu_torch.utils.metrics_sync import mesh_metric_mean
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.95, 1e-8
 CROP_SCALE = (0.2, 1.0)
@@ -102,8 +111,10 @@ class MAETrainer:
         train_decoder_linears: bool = False,
         augment: bool = False,
         img_pack: int = 1,
+        mesh: Optional[Mesh] = None,
     ):
         self.model = model
+        self.mesh = mesh
         self.mask_ratio = mask_ratio
         self.weight_decay = weight_decay
         self.freeze_non_adapter = freeze_non_adapter
@@ -165,10 +176,12 @@ class MAETrainer:
                                             generator, self.img_pack)
         clock.mark("forward_s")
         params = self.trainable_params()
-        grads = torch.autograd.grad(loss, [p for _, p in params])
+        grads = allreduce_gradients(
+            list(torch.autograd.grad(loss, [p for _, p in params])),
+            self.mesh)
         clock.mark("backward_s")
         with torch.no_grad():
-            self._update(state, params, list(grads), lr)
+            self._update(state, params, grads, lr)
             state.step += 1
         clock.mark("update_s")
         return state, loss.detach()
@@ -193,11 +206,11 @@ class MAETrainer:
                   noise: Optional[torch.Tensor] = None) -> float:
         """The loss in eval mode (no dropout, no packing), the masking and,
         with `augment`, the crops still random, as the reference
-        validates."""
+        validates; the ranks' mean under a mesh."""
         model = state.model
         model.eval()
         with torch.no_grad():
             imgs = self.prep(images, generator)
             loss, _, _ = model.forward_pretrain(imgs, self.mask_ratio, noise,
                                                 generator)
-        return float(loss)
+        return float(mesh_metric_mean(loss, self.mesh))

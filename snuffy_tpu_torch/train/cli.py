@@ -21,10 +21,17 @@ official`, `embeddings/<dataset>/official/<Dataset>.csv` split by
 
 Flags that select machinery only the JAX package has are accepted at
 their defaults and refused at any other value: `--bag_batch_impl vmap`,
-`--use_mesh 1`, `--remat 1`, and `--use_pallas 0` on the card (the card
-runs the attention kernels; the CPU runs their plain versions whatever
-the flag). `--gpu_index` picks the card when `--device` is `cuda`;
-`--num_processes` is the loader's pool size; `--wandb_run` names the run.
+`--use_mesh 1` and `--remat 1` (sp/tp meshes and remat are Slice 7b), and
+`--use_pallas 0` on the card (the card runs the attention kernels; the
+CPU runs their plain versions whatever the flag). `--gpu_index` picks the
+card when `--device` is `cuda`; `--num_processes` is the loader's pool
+size; `--wandb_run` names the run.
+
+Several GPUs: `torchrun --nproc_per_node N -m snuffy_tpu_torch.train ...
+--bag_batch_size B` runs one process a GPU (`parallel/distributed.py`,
+each rank on `cuda:LOCAL_RANK`); with B a multiple of N each packed step
+of B bags splits into B/N bags a rank and one optimizer step, and rank 0
+alone writes the run's files. Otherwise every rank runs the whole run.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from snuffy_tpu_torch.configs import (
 )
 from snuffy_tpu_torch.data.bags import load_split, parse_number, read_csv_rows
 from snuffy_tpu_torch.data.mil_pickle import load_mil_data
+from snuffy_tpu_torch.parallel import distributed
 from snuffy_tpu_torch.train.runner import Runner
 from snuffy_tpu_torch.train.schedules import make_epoch_schedule
 from snuffy_tpu_torch.train.trainer import SnuffyTrainer
@@ -199,16 +207,17 @@ def resolve_device(args) -> torch.device:
          "port packs bags on the row axis (packed)"),
         (args.use_mesh == 1,
          "--use_mesh 1 builds the JAX package's dp*sp*tp device mesh; the "
-         "port trains on one device"),
+         "port's mesh is data-parallel over the ranks (sp and tp are Slice "
+         "7b)"),
         (args.remat == 1,
          "--remat 1 rematerialises encoder layers with jax.checkpoint; "
-         "the port does not"),
+         "the port does not yet (Slice 7b)"),
     ]
-    device = torch.device(args.device)
+    device = distributed.rank_device(args.device)
     if device.type == "cuda":
         if len(args.gpu_index) != 1:
             raise ValueError(f"--gpu_index {args.gpu_index}: the port trains "
-                             "on one card")
+                             "on one card a process")
         if device.index is None:
             device = torch.device("cuda", args.gpu_index[0])
         refused.append((
@@ -280,6 +289,11 @@ def load_datasets(cfg: MILTrainConfig):
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = get_args_parser().parse_args(argv)
+    with distributed.session(device=args.device):
+        return train(args)
+
+
+def train(args) -> dict:
     cfg = build_config(args)
     device = resolve_device(args)
     if cfg.arch not in ("snuffy", "snuffy_multiclass"):

@@ -23,6 +23,13 @@ where the JAX runner scores it: instance scores above the feature
 threshold become level-0 detections at patch centres, held against the
 masks by `eval/froc.froc_for_slides`; `reference.csv` is read with the
 csv module.
+
+Over several ranks (`parallel/distributed.py`) every rank trains and
+evaluates (the trainer splits the packed steps over them); rank 0 alone
+writes the checkpoints, threshold files, ROC dumps, `summary.json` and
+the clean-up (`primary_only`), and the ranks meet at a barrier before
+they read the best and last epochs' files back. `save_path` is shared by
+the ranks.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from snuffy_tpu_torch.eval.metrics import (
     ece_loss,
     multi_label_roc,
 )
+from snuffy_tpu_torch.parallel import distributed
 from snuffy_tpu_torch.train.trainer import SnuffyTrainer
 from snuffy_tpu_torch.utils.logging import MetricsLogger
 
@@ -110,6 +118,8 @@ class Runner:
         self.valid_data = valid_data
         self.test_data = test_data
         self.logger = logger or MetricsLogger()
+        if not distributed.is_primary():  # the JSONL rows from rank 0 alone
+            self.logger = MetricsLogger()
         self.rng = np.random.default_rng(cfg.seed)
 
         # Weighted BCE from the train split, for every dataset: the
@@ -228,7 +238,8 @@ class Runner:
         # ROC dump, gated as the reference gates it (train.py:365-372,
         # 985-990): both --roc_run_name and --roc_run_epoch, the file
         # named after --roc_run_epoch.
-        if self.cfg.for_roc_curve and self.cfg.roc_data_split in prefix:
+        if (self.cfg.for_roc_curve and self.cfg.roc_data_split in prefix
+                and distributed.is_primary()):
             roc_dir = os.path.join(self.cfg.roc_path, self.cfg.roc_run_name)
             os.makedirs(roc_dir, exist_ok=True)
             np.savez(
@@ -307,6 +318,7 @@ class Runner:
         return os.path.join(self.save_dir,
                             f"{epoch}_single_weight_parameter.pth")
 
+    @distributed.primary_only
     def save_checkpoint(self, epoch: int, valid_res: dict) -> None:
         model_state, w = self.trainer.state_dict()
         torch.save(model_state, self._ckpt_path(epoch))
@@ -337,6 +349,7 @@ class Runner:
         with open(os.path.join(self.save_dir, f"thresholds_{epoch}.txt")) as f:
             return json.load(f)
 
+    @distributed.primary_only
     def clean_up(self, keep_epochs) -> None:
         """Delete every other epoch's checkpoint, w and thresholds files
         (reference train.py:780-794)."""
@@ -384,7 +397,9 @@ class Runner:
             "history": history,
         }
 
-        # Test at the best-AUC and last epochs (reference train.py:752-778).
+        # Test at the best-AUC and last epochs (reference train.py:752-778),
+        # from the files rank 0 wrote.
+        distributed.barrier("checkpoints written")
         for tag, epoch in (("best", self.best_epoch), ("last", cfg.num_epochs)):
             if epoch < 1:
                 continue
@@ -403,7 +418,8 @@ class Runner:
 
         self.timings["tests"] = self._take_clock()
         summary["timings"] = self.timings
-        with open(os.path.join(self.save_dir, "summary.json"), "w") as f:
-            json.dump(summary, f, default=float)
+        if distributed.is_primary():
+            with open(os.path.join(self.save_dir, "summary.json"), "w") as f:
+                json.dump(summary, f, default=float)
         self.clean_up({self.best_epoch, cfg.num_epochs})
         return summary

@@ -28,8 +28,15 @@ on the trainer's device. `init_state` resets the weights to a seed's,
 state; `state_dict` and `load` carry (MILNet, w) to and from the
 runner's checkpoints.
 
-Not ported: `bag_batch_impl='vmap'`, the device mesh and the per-bucket
-`lax.scan` (PyTorch runs the steps eagerly).
+Over several ranks (`parallel/distributed.py`, one process a GPU) the
+packed steps run data-parallel (`_maybe_mesh`, `parallel/sharded_train`):
+every rank draws the same bucket and bag order from `rng`, steps on its
+B/W bags of each chunk, and the gradients are summed over the ranks; the
+rank is folded into the seeds of its draws. The serial step and the eval
+run whole on every rank.
+
+Not ported: `bag_batch_impl='vmap'`, the per-bucket `lax.scan` (PyTorch
+runs the steps eagerly) and the sp/tp meshes (`use_mesh=1`, Slice 7b).
 """
 
 from __future__ import annotations
@@ -41,6 +48,14 @@ import torch
 
 from snuffy_tpu_torch.configs import MILTrainConfig, OptimizerConfig
 from snuffy_tpu_torch.models.snuffy import MILNet, build_milnet
+from snuffy_tpu_torch.parallel import distributed
+from snuffy_tpu_torch.parallel.mesh import Mesh, MeshSpec, make_mesh
+from snuffy_tpu_torch.parallel.sharded_train import (
+    global_bag_weight,
+    make_sharded_batch_train_step,
+    sum_gradients,
+)
+from snuffy_tpu_torch.parallel.ssl_sharding import replicate_state
 from snuffy_tpu_torch.train.losses import mixed_mil_loss, packed_mixed_mil_loss
 
 Bucketed = Dict[int, Tuple[object, object, object, np.ndarray]]
@@ -71,6 +86,26 @@ def clip_by_global_norm(params, max_norm: float) -> None:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
+def _maybe_mesh(cfg: MILTrainConfig) -> Optional[Mesh]:
+    """The dp mesh of the packed steps (the JAX `_maybe_mesh`,
+    train/trainer.py:79-111, with one device a rank): use_mesh None gives
+    one over every rank when bag_batch_size divides over them, else none
+    (each rank runs the whole run); 0 none; 1, the dp×sp×tp factoring,
+    raises (Slice 7b). One rank, or one bag a step: none."""
+    world = distributed.world_size()
+    if cfg.bag_batch_size <= 1 or world <= 1:
+        return None
+    if cfg.use_mesh is not None and int(cfg.use_mesh) == 0:
+        return None
+    if cfg.use_mesh is not None and int(cfg.use_mesh) == 1:
+        raise NotImplementedError(
+            "use_mesh=1 factors the devices into dp×sp×tp; sequence and "
+            "tensor parallelism are not ported yet (Slice 7b)")
+    if cfg.bag_batch_size % world:
+        return None
+    return make_mesh(MeshSpec(1, 1, 1, dcn=world))
+
+
 class SnuffyTrainer:
     """Owns the MILNet, the loss-mix weight `w` and the optimizer
     (the counterpart of the JAX trainer's MILTrainState). Runs on the
@@ -95,6 +130,7 @@ class SnuffyTrainer:
         self.optimizer = make_optimizer(cfg.optim, self.model.parameters(),
                                         self.w, cfg.soft_average)
         self.pos_weight = None
+        self.mesh = _maybe_mesh(cfg)
 
     @property
     def pos_weight(self) -> Optional[torch.Tensor]:
@@ -111,8 +147,10 @@ class SnuffyTrainer:
 
     def init_state(self, seed: int) -> None:
         """The weights `build_milnet` draws at `seed`, w = 0.5 and a fresh
-        optimizer (the JAX trainer's `init_state`)."""
+        optimizer (the JAX trainer's `init_state`); under a mesh, rank
+        0's."""
         self.load(MILNet(self.cfg.model, seed).state_dict(), 0.5)
+        replicate_state((self.model, self.w), self.mesh)
         self.optimizer = make_optimizer(self.cfg.optim,
                                         self.model.parameters(), self.w,
                                         self.cfg.soft_average)
@@ -141,6 +179,8 @@ class SnuffyTrainer:
     def _apply_gradients(self, loss: torch.Tensor) -> None:
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            sum_gradients([*self.model.parameters(), self.w], self.mesh)
         if self.cfg.optim.clip_grad is not None:
             clip_by_global_norm(self.model.parameters(),
                                 self.cfg.optim.clip_grad)
@@ -163,7 +203,8 @@ class SnuffyTrainer:
     def packed_train_step(self, feats_b, masks_b, labels_b, bag_w, generator,
                           seed_generator):
         """One optimizer step on a chunk of b bags packed on the row axis;
-        the loss is the bag_w-weighted mean. → (losses (b,), scores
+        the loss is the bag_w-weighted mean (under a mesh, over every
+        rank's bags: this rank's share of it). → (losses (b,), scores
         (b, C), ins_scores (b, n, C)), detached."""
         b, n, d = feats_b.shape
         mask = masks_b.reshape(b * n)
@@ -175,7 +216,9 @@ class SnuffyTrainer:
         losses, scores = packed_mixed_mil_loss(
             ins_logits, bag_logits, labels_b, mask, self.w, self.pos_weight,
             segments=b)
-        mean = (losses * bag_w).sum() / bag_w.sum().clamp_min(1.0)
+        total = (bag_w.sum() if self.mesh is None
+                 else global_bag_weight(bag_w, self.mesh))
+        mean = (losses * bag_w).sum() / total.clamp_min(1.0)
         self._apply_gradients(mean)
         return losses.detach(), scores.detach(), torch.sigmoid(
             ins_logits.detach()).reshape(b, n, -1)
@@ -191,9 +234,14 @@ class SnuffyTrainer:
         as in the JAX trainer; each bucket's draws come from a CPU
         generator seeded with rng.integers(2**31) ^ seed, which draws the
         attention-dropout seeds and seeds the device generator of the
-        selection and the encoder dropout."""
+        selection and the encoder dropout. Under a mesh the rank is
+        folded into that seed, and each chunk steps over the ranks."""
         dev = self.device
         batch = max(1, self.cfg.bag_batch_size)
+        packed_step, fold = self.packed_train_step, 0
+        if self.mesh is not None:
+            packed_step = make_sharded_batch_train_step(self, self.mesh)
+            fold = self.mesh.rank << distributed.RANK_SEED_SHIFT
         self.model.train()
         self.set_lr(lr)
         order, losses, scores, ins_list = [], [], [], []
@@ -207,7 +255,7 @@ class SnuffyTrainer:
             labels_b = torch.as_tensor(labels_b, device=dev).float()[perm]
             idx = np.asarray(idx)[perm]
             seeds = torch.Generator().manual_seed(
-                int(rng.integers(2**31)) ^ seed)
+                (int(rng.integers(2**31)) ^ seed) + fold)
             gen = torch.Generator(dev).manual_seed(
                 int(torch.randint(2**62, (), generator=seeds)))
             parts = []
@@ -227,7 +275,7 @@ class SnuffyTrainer:
                         mb = torch.cat([mb, mb.new_zeros((pad,) + mb.shape[1:])])
                         lb = torch.cat([lb, lb.new_zeros((pad,) + lb.shape[1:])])
                     bag_w = (torch.arange(batch, device=dev) < n_real).float()
-                    out = self.packed_train_step(fb, mb, lb, bag_w, gen, seeds)
+                    out = packed_step(fb, mb, lb, bag_w, gen, seeds)
                     parts.append([t[:n_real] for t in out])
             l, s, ins = (torch.cat(p).cpu().numpy() for p in zip(*parts))
             losses.append(l)

@@ -615,3 +615,75 @@ def test_mae_trainer_helpers_match():
             with pytest.raises(FloatingPointError,
                                match=f"Loss is {bad}, stopping training"):
                 fn(bad)
+
+
+@pytest.mark.parametrize("procs", [1, 2, 3, 4, 8])
+def test_mesh_factoring_matches(procs):
+    """`MeshSpec`, `factor_devices` and `validate_spec` (copied into
+    `parallel/mesh.py`): every device count a process count divides, the
+    refusals, and the tp validation."""
+    from snuffy_tpu.parallel import mesh as jax_mesh
+    from snuffy_tpu_torch.parallel import mesh
+
+    assert [(f.name, f.type, f.default) for f in dataclasses.fields(
+        mesh.MeshSpec)] == [(f.name, f.type, f.default)
+                            for f in dataclasses.fields(jax_mesh.MeshSpec)]
+    for n in range(1, 65):
+        if n % procs:
+            for m in (mesh, jax_mesh):
+                with pytest.raises(ValueError, match="do not split evenly"):
+                    m.factor_devices(n, procs)
+            continue
+        ours, theirs = mesh.factor_devices(n, procs), \
+            jax_mesh.factor_devices(n, procs)
+        assert dataclasses.astuple(ours) == dataclasses.astuple(theirs)
+        assert ours.n_devices == theirs.n_devices == n
+    for tp, heads, hidden in ((2, 4, 8), (2, 3, None), (4, 8, 6), (3, 6, 9)):
+        spec, jspec = mesh.MeshSpec(tp=tp), jax_mesh.MeshSpec(tp=tp)
+        errs = []
+        for m, s in ((mesh, spec), (jax_mesh, jspec)):
+            try:
+                m.validate_spec(s, heads, hidden)
+                errs.append(None)
+            except ValueError as e:
+                errs.append(str(e))
+        assert errs[0] == errs[1]
+
+
+@pytest.mark.parametrize("procs", [2, 3])
+def test_metric_sync_across_processes_matches(monkeypatch, procs):
+    """`sync_metrics`, `sync_epoch_row`, `global_min_int` and the meters'
+    sync with P processes simulated the JAX tests' way (the all-gather
+    monkeypatched in both modules): count-weighted, None on some ranks,
+    sums."""
+    from snuffy_tpu.utils import metrics_sync as jax_ms
+    from snuffy_tpu_torch.utils import metrics_sync
+
+    rows = {}
+
+    def gather(vals):
+        # this process's row, then rows the other ranks would send
+        key = len(vals)
+        extra = rows.setdefault(key, np.random.default_rng(key).uniform(
+            0.5, 3.0, (procs - 1, key)))
+        extra = np.where(np.arange(key) % 3 == 2, np.nan, extra)
+        return np.vstack([vals, extra])
+
+    for m in (jax_ms, metrics_sync):
+        monkeypatch.setattr(m, "_process_count", lambda: procs)
+        monkeypatch.setattr(m, "_allgather_rows", gather)
+    monkeypatch.setattr(jax_ms.jax, "process_index", lambda: 0)
+    row = {"train_loss": 1.25, "val_loss": None, "acc": 0.5, "n": 4.0,
+           "name": "kept"}
+    for kw in ({}, {"average": False}, {"weight_key": "n"}):
+        assert metrics_sync.sync_metrics(row, **kw) == jax_ms.sync_metrics(
+            row, **kw), kw
+    epoch = {"epoch": 2, "train_loss": 0.75, "val_loss": 1.5}
+    assert metrics_sync.sync_epoch_row(epoch, 3) == jax_ms.sync_epoch_row(
+        epoch, 3)
+    assert metrics_sync.global_min_int(9) == jax_ms.global_min_int(9)
+    ours, theirs = metrics_sync.SmoothedValue(), jax_ms.SmoothedValue()
+    for m in (ours, theirs):
+        m.update(2.0, n=3)
+        m.synchronize_between_processes()
+    assert (ours.count, ours.total) == (theirs.count, theirs.total)

@@ -128,12 +128,6 @@ def test_bool_flag_parsing():
         cli.get_args_parser().parse_args(["--norm_last_layer", "maybe"])
 
 
-def test_more_than_one_process_is_refused(tmp_path, monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="Slice 7"):
-        cli.main(argv(tmp_path, "--epochs=1"))
-
-
 def test_no_gpu_raises_for_the_default_device(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
