@@ -195,12 +195,13 @@ per kernel, all at once), then:
      step at bench.py's training point (d=384, 4 heads, Λ=512, depth 2,
      bf16, 8 bags padded to 10240) as 4 bags a rank, against one rank
      stepping all 8 from the same weights at ρ=0 and no dropout (losses,
-     bag and instance scores, parameters), then a tail batch of 3 real
+     bag and instance scores, the gradients before the clip, parameters),
+     then a tail batch of 3 real
      bags (rank 1 holds only dummies), then an epoch at ρ=0.5 and rate
      0.1: finite, replicas bitwise equal; (b) two DINO steps at the CLI's
      defaults (ViT-S/16 + adapter, bf16, out_dim 65536, 2×224 + 8×96
      crops drawn once and split), 32 a rank against 64 on one rank: loss,
-     centre, student and teacher; (c) two MAE steps likewise (ViT-B/16 +
+     centre, the gradients the update receives, student and teacher; (c) two MAE steps likewise (ViT-B/16 +
      adapters, mask 0.75, the noise passed in); each with the step walls
      (2 ranks sharing the card, and 1), each gradient bucket's all-reduce
      time and bytes, and each rank's peak memory; (d) the extraction CLI
@@ -3697,7 +3698,10 @@ def phase_mae_gpu_vs_cpu(cli, dev, batch, calls):
 # card: gloo over CUDA tensors, both on cuda:0 (NCCL refuses two ranks on
 # one device); then NCCL in a group of one rank. Each launch kills its
 # ranks past MULTI_RANK_TIMEOUT s. The tolerances of (a)-(c) are the
-# worker's (LOSS_TOL, PARAM_TOL, PARAM_SHARE: bf16 at these widths).
+# worker's (LOSS_TOL, CENTER_TOL, GRAD_TOL, PARAM_TOL, PARAM_SHARE: bf16
+# at these widths). The gradients each step hands its optimizer carry
+# the check of the averaging: Adam's update and MIL's clip do not change
+# when a gradient is scaled, so the parameters cannot show a factor of W.
 MULTI_RANK_TIMEOUT = 300
 # (d): phase 11c's 300-tile bag (its seed) split into 4 bags of 75 tiles,
 # two classes, the extraction CLI at ViT-S/8 + adapter in bf16
@@ -3734,6 +3738,13 @@ def check_multi_step(ranks, label, mpw, smi, lr, steps):
     r0, r1 = ranks
     if r0[f"{label}_digest"] != r1[f"{label}_digest"]:
         raise AssertionError(f"{label}: the replicas differ after the step")
+    grads, tol = r0[f"{label}_grads"], mpw.GRAD_TOL["bfloat16"]
+    log(f"  {label}: the gradients each step hands its optimizer (after "
+        f"the all-reduce, before any clip), 2 ranks vs 1: "
+        f"{[f'{e:.3e}' for e in grads]} of max |g| (tol {tol:.0e})")
+    if len(grads) != steps or max(grads) > tol:
+        raise AssertionError(f"{label}: 2 ranks' gradients are not 1 "
+                             "rank's")
     worst, share = r0[f"{label}_params" if label != "dino"
                       else "dino_student"]
     tol = mpw.PARAM_TOL["bfloat16"]
@@ -3844,8 +3855,10 @@ def phase_multi_rank(dev, kernels, smi):
             if abs(loss - loss1) > tol * abs(loss1):
                 raise AssertionError(f"{label}: 2 ranks and 1 disagree")
             if label == "dino":
-                log(f"    centre rel {r0['dino_center']:.3e}; teacher max "
-                    f"|diff| {r0['dino_teacher'][0]:.3e}")
+                tol = mpw.CENTER_TOL["bfloat16"]
+                log(f"    centre rel {r0['dino_center']:.3e} (tol "
+                    f"{tol:.0e}); teacher max |diff| "
+                    f"{r0['dino_teacher'][0]:.3e}")
                 if r0["dino_center"] > tol:
                     raise AssertionError("DINO centre: 2 ranks and 1 differ")
             check_multi_step(ranks, label, mpw, smi, mpw.SSL_LR,

@@ -6,8 +6,10 @@ The port's copy of `snuffy_tpu/parallel/mesh.py`: `MeshSpec`,
 `tests/test_torch_copies.py`). `make_mesh` has no device array to lay out:
 with one process per GPU, the batch axes ("dcn", "dp") are every rank,
 and their collective is the default process group of
-`parallel/distributed.py`. Sequence (sp) and tensor (tp) parallelism are
-Slice 7b: a spec with sp or tp above 1 raises.
+`parallel/distributed.py`; one process (no process group) has no mesh,
+None, which every collective takes as the identity. Sequence (sp) and
+tensor (tp) parallelism are Slice 7b: a spec with sp or tp above 1
+raises.
 """
 
 from __future__ import annotations
@@ -72,22 +74,20 @@ def validate_spec(spec: MeshSpec, num_heads: Optional[int] = None,
 @dataclass(frozen=True)
 class Mesh:
     """The batch axes of a dp mesh over `size` ranks: this process is
-    `rank`, and `group` is their process group (None: one process and no
-    process group, where every collective is the identity)."""
+    `rank`, and `group` is their process group."""
 
-    spec: MeshSpec
     group: Any
     rank: int
     size: int
 
 
-def make_mesh(spec: MeshSpec, num_heads: Optional[int] = None) -> Mesh:
+def make_mesh(spec: MeshSpec) -> Optional[Mesh]:
     """The mesh of `spec` over the ranks of the process group that
-    `parallel.distributed.initialize` started (or one process). One
-    process per device: spec.n_devices must be the world size."""
+    `parallel.distributed.initialize` started; None in one process
+    without a group. One process per device: spec.n_devices must be the
+    world size."""
     from snuffy_tpu_torch.parallel import distributed
 
-    validate_spec(spec, num_heads)
     if spec.sp > 1 or spec.tp > 1:
         raise NotImplementedError(
             f"{spec}: sequence (sp) and tensor (tp) parallelism are not "
@@ -98,4 +98,7 @@ def make_mesh(spec: MeshSpec, num_heads: Optional[int] = None) -> Mesh:
         raise ValueError(
             f"{spec} spans {spec.n_devices} devices; this run has {world} "
             "rank(s), one device each")
-    return Mesh(spec, distributed.default_group(), distributed.rank(), world)
+    group = distributed.default_group()
+    if group is None:
+        return None
+    return Mesh(group, distributed.rank(), world)

@@ -41,8 +41,7 @@ def make_global_batch(mesh: Mesh, feats_b, masks_b, labels_b, bag_w):
 def global_bag_weight(bag_w: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Σ bag_w over every rank's bags (one all-reduce of a scalar)."""
     total = bag_w.sum()
-    if mesh.group is not None:
-        dist.all_reduce(total, group=mesh.group)
+    dist.all_reduce(total, group=mesh.group)
     return total
 
 
@@ -60,8 +59,6 @@ def sum_gradients(params: List[torch.Tensor], mesh: Mesh) -> None:
 def fetch_batch_outputs(mesh: Mesh, *tensors: torch.Tensor):
     """Each rank's per-bag outputs (its block of the batch) → the whole
     batch's, on the CPU, on every rank."""
-    if mesh.group is None:
-        return tuple(t.detach().cpu() for t in tensors)
     return tuple(torch.cat(distributed.host_allgather_tensor(t))
                  for t in tensors)
 

@@ -74,7 +74,7 @@ def _buckets(tensors: List[torch.Tensor], bucket_bytes: int):
 def replicate_state(tree: Any, mesh: Optional[Mesh]) -> None:
     """Every tensor of `tree` (modules' state dicts, dicts, lists, tensors)
     set to rank 0's, in place, by flat broadcasts."""
-    if mesh is None or mesh.group is None:
+    if mesh is None:
         return
     tensors = _tensors(tree)
     for idx in _buckets(tensors, BUCKET_BYTES):
@@ -88,18 +88,18 @@ def replicate_state(tree: Any, mesh: Optional[Mesh]) -> None:
 @torch.no_grad()
 def allreduce_gradients(grads: List[torch.Tensor], mesh: Optional[Mesh],
                         average: bool = True,
-                        bucket_bytes: int = BUCKET_BYTES,
                         stats: Optional[List[Dict[str, float]]] = None
                         ) -> List[torch.Tensor]:
     """`grads` summed over the ranks (divided by their count when
-    `average`), as new tensors, by one all-reduce a bucket. Every rank
-    gets the same bits, so replicas that apply them stay equal. With a
-    `stats` list, appends each bucket's bytes and all-reduce seconds (the
-    device synchronised around it)."""
-    if mesh is None or mesh.group is None:
+    `average`), as new tensors, by one all-reduce a bucket of
+    BUCKET_BYTES. Every rank gets the same bits, so replicas that apply
+    them stay equal. With a `stats` list, appends each bucket's bytes and
+    all-reduce seconds (the device synchronised around it). No mesh (one
+    process): `grads`."""
+    if mesh is None:
         return list(grads)
     out = list(grads)
-    for idx in _buckets(out, bucket_bytes):
+    for idx in _buckets(out, BUCKET_BYTES):
         flat = torch.cat([out[i].reshape(-1) for i in idx])
         if stats is not None:
             _sync(flat.device)

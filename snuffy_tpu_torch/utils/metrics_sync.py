@@ -141,8 +141,8 @@ def global_min_int(value: int) -> int:
 def mesh_metric_mean(x: torch.Tensor, mesh) -> torch.Tensor:
     """Mean of `x` over the ranks of `mesh` (a new tensor, the same bits
     on every rank): one all-reduce, then a division by the rank count.
-    No mesh, or one without a process group: `x`."""
-    if mesh is None or mesh.group is None:
+    No mesh (one process): `x`."""
+    if mesh is None:
         return x
     out = x.detach().clone()
     dist.all_reduce(out, group=mesh.group)

@@ -11,11 +11,14 @@ hanging the suite. Held:
     rank only, `sync_epoch_row`'s writer, the meters);
   * the packed MIL step over 2 ranks against 1 rank stepping the same 8
     bags from the same weights, f32, ρ = 0, no dropout: losses, bag
-    scores, instance scores, then the parameters (a tail batch included,
-    whose last rank holds only zero-weight dummy bags); the replicas
-    bitwise equal after each scenario;
+    scores, instance scores, the gradients before the clip, then the
+    parameters (a tail batch included, whose last rank holds only
+    zero-weight dummy bags); the replicas bitwise equal after each
+    scenario;
   * two DINO and two MAE steps over 2 ranks (batch 4 a rank) against 1
-    rank on the 8 images;
+    rank on the 8 images, the gradients each update receives included
+    (Adam's step and MIL's clip do not see a gradient's scale: these
+    do);
   * the DINO and MAE CLIs and the MIL Runner on 2 ranks, with unequal
     per-rank validation counts: no hang, the same steps everywhere, and
     every file written by rank 0 alone;
@@ -30,6 +33,8 @@ import numpy as np
 import pytest
 
 from snuffy_tpu_torch.tools.multiproc_worker import (
+    CENTER_TOL,
+    GRAD_TOL,
     LOSS_TOL,
     MIL_LR,
     PARAM_SHARE,
@@ -94,6 +99,8 @@ def test_mil_packed_step_over_two_ranks_is_the_one_rank_step(mil):
     assert r0["mil_dtype"] == F32
     for step in r0["mil_errors"]:         # full batch, then the tail batch
         assert max(step) <= LOSS_TOL[F32], step
+    assert len(r0["mil_grads"]) == 2
+    assert max(r0["mil_grads"]) <= GRAD_TOL[F32], r0["mil_grads"]
     held_params(r0["mil_params"], MIL_LR, 2)
     same_on_both(mil, "mil_digest", "mil_rand_digest", "mil_rand_order")
     assert r0["mil_rand_finite"]
@@ -117,7 +124,9 @@ def test_dino_steps_over_two_ranks_are_the_one_rank_steps(dino):
     r0, _ = dino
     loss, loss1 = r0["dino_loss"]
     assert abs(loss - loss1) <= LOSS_TOL[F32] * abs(loss1)
-    assert r0["dino_center"] <= PARAM_TOL[F32]
+    assert r0["dino_center"] <= CENTER_TOL[F32]
+    assert len(r0["dino_grads"]) == SSL_STEPS
+    assert max(r0["dino_grads"]) <= GRAD_TOL[F32], r0["dino_grads"]
     held_params(r0["dino_student"], SSL_LR, SSL_STEPS)
     held_params(r0["dino_teacher"], SSL_LR, SSL_STEPS)
     same_on_both(dino, "dino_digest")
@@ -139,6 +148,8 @@ def test_mae_steps_over_two_ranks_are_the_one_rank_steps(mae):
     r0, _ = mae
     loss, loss1 = r0["mae_loss"]
     assert abs(loss - loss1) <= LOSS_TOL[F32] * abs(loss1)
+    assert len(r0["mae_grads"]) == SSL_STEPS
+    assert max(r0["mae_grads"]) <= GRAD_TOL[F32], r0["mae_grads"]
     held_params(r0["mae_params"], SSL_LR, SSL_STEPS)
     same_on_both(mae, "mae_digest")
 
