@@ -219,7 +219,11 @@ CLI's two runs and its checkpoint's extraction, the MAE CLI's four runs
 and its checkpoint's extraction, and in each rank of phase 15 its MIL,
 DINO, MAE and extraction runs) runs with the launch counts set to 0 just
 before it and read just after.
-Every phase asserts; any failure exits non-zero. The line before the last
+Every phase asserts; any failure exits non-zero. torch.profiler may record
+no device time on a machine, from a run's first trace on: each trace gets
+a second try, then its readings and the checks that read them (the passes
+split, the body against the kernel names, the idle share) are reported as
+not traced, and the CUDA-event times stand alone. The line before the last
 is the kernels' JSON record, the last line the device record. It exits
 non-zero at once without a CUDA device.
 """
@@ -405,6 +409,38 @@ def check_body(fa, kernel, kernel_times, want) -> None:
                              f"{want} body, the trace shows {got}")
 
 
+def traced(fn):
+    """`device_profile(fn)`, or None where torch.profiler records no device
+    time even at a second try. On an H100 machine it has recorded none from
+    a run's first trace on, and late in a run; the checks that read the
+    trace (`pass_split`, `check_body`) then report the passes as not traced
+    and the CUDA-event times stand alone."""
+    from snuffy_tpu_torch.tools.profile_serve import device_profile
+
+    for _ in range(2):
+        try:
+            return device_profile(fn)
+        except RuntimeError as e:
+            if "no device time" not in str(e):
+                raise
+    log("    torch.profiler recorded no device time: the passes are not "
+        "traced here")
+    return None
+
+
+def traced_split(fa, kernel, fn, segments, body) -> str:
+    """The device ms of `fn` (one call of `kernel`) and of each pass, its
+    passes checked against `body`; "not traced" where the profiler records
+    no device time."""
+    trace = traced(fn)
+    if trace is None:
+        return "device not traced"
+    device, _, passes = trace
+    split = pass_split(fa, kernel, passes, segments)
+    check_body(fa, kernel, passes, body)
+    return f"device {device:.4f}: {split}"
+
+
 def pass_split(fa, kernel, kernel_times, segments) -> str:
     """The device ms per call of each of `kernel`'s passes, from
     torch.profiler's kernel times; raises if a pass the call launches
@@ -420,8 +456,6 @@ def pass_split(fa, kernel, kernel_times, segments) -> str:
 
 def phase_kernel(fa, plain, dev):
     import torch
-
-    from snuffy_tpu_torch.tools.profile_serve import device_profile
 
     log("== phase 2: forward kernel vs plain PyTorch "
         f"(h={H}, N={N} with {N_VALID} valid, S={S}, dk={DK})")
@@ -453,11 +487,9 @@ def phase_kernel(fa, plain, dev):
                     ms = time_ms(kernel)
                     plain_ms = time_ms(lambda: plain(*args, segments, **kw))
                     # device ms per call, and of each pass (torch.profiler)
-                    device, _, passes = device_profile(kernel)
+                    split = traced_split(fa, fa.FWD, kernel, segments, body)
                     b2b = back_to_back_ms(kernel)
-                split = pass_split(fa, fa.FWD, passes, segments)
-                check_body(fa, fa.FWD, passes, body)
-                log(f"    kernel {ms:.4f} ms (device {device:.4f}: {split}; "
+                log(f"    kernel {ms:.4f} ms ({split}; "
                     f"b2b {b2b:.4f})  plain {plain_ms:.4f} ms  (bitwise "
                     "equal over two launches)")
                 worst = max(worst, err)
@@ -473,8 +505,6 @@ def phase_kernel(fa, plain, dev):
 
 def phase_backward(fa, plain_bwd, dev):
     import torch
-
-    from snuffy_tpu_torch.tools.profile_serve import device_profile
 
     log("== phase 3: backward kernel vs plain PyTorch "
         f"(h={H}, N={N} with {N_VALID} valid, S={S}, dk={DK})")
@@ -518,11 +548,9 @@ def phase_backward(fa, plain_bwd, dev):
                                              "differ")
                     ms, plain_ms = time_ms(kernel), time_ms(plain)
                     # device ms per call, and of each pass (torch.profiler)
-                    device, _, passes = device_profile(kernel)
+                    split = traced_split(fa, fa.BWD, kernel, segments, body)
                     b2b = back_to_back_ms(kernel)
-                split = pass_split(fa, fa.BWD, passes, segments)
-                check_body(fa, fa.BWD, passes, body)
-                log(f"    kernel {ms:.4f} ms (device {device:.4f}: {split}; "
+                log(f"    kernel {ms:.4f} ms ({split}; "
                     f"b2b {b2b:.4f})  plain {plain_ms:.4f} ms  (bitwise "
                     "equal over two launches)")
                 if (name, segments, rate) == ("bfloat16", 1, 0.0):
@@ -544,7 +572,6 @@ def phase_dense(fa, dev):
         dense_attention_reference,
         fused_self_attention,
     )
-    from snuffy_tpu_torch.tools.profile_serve import device_profile
     from snuffy_tpu_torch.tools.profile_vit_attention import dense_work, sdpa
 
     log("== phase 4: dense-attention kernel vs plain PyTorch")
@@ -575,15 +602,18 @@ def phase_dense(fa, dev):
                 plain_ms = time_ms(
                     lambda: dense_attention_reference(q, k, v, n_valid))
                 # device ms per call (torch.profiler), and 20 calls b2b
-                device, _, kernel_times = device_profile(kernel)
-                lib_device = device_profile(library)[0]
+                trace, lib_trace = traced(kernel), traced(library)
                 b2b, lib_b2b = (back_to_back_ms(f) for f in (kernel, library))
-            check_body(fa, kernels.DENSE, kernel_times, body)
+            if trace is not None:
+                check_body(fa, kernels.DENSE, trace[2], body)
+            device, lib_device = (
+                "not traced" if t is None else f"{t[0]:.4f}"
+                for t in (trace, lib_trace))
             bound, by, note = kernel_bound(
                 fa, body, *dense_work(z, n, n_valid, dk, dtype))
-            log(f"    kernel {ms:.4f} ms (device {device:.4f}, b2b "
+            log(f"    kernel {ms:.4f} ms (device {device}, b2b "
                 f"{b2b:.4f})  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms "
-                f"(device {lib_device:.4f}, b2b {lib_b2b:.4f})  bound "
+                f"(device {lib_device}, b2b {lib_b2b:.4f})  bound "
                 f"{bound:.4f} ms ({by}; {note}; {100 * bound / b2b:.1f} % "
                 "of b2b)")
             if (name, label) == ("bfloat16", "S/8 extract"):
@@ -2023,7 +2053,8 @@ def traced_in_fresh_process(cases) -> list:
     """For each (q, k, v, n_valid) of `cases`, the [(device kernel, ms)]
     that torch.profiler records for K5 on those inputs, traced in one
     fresh Python process: late in a run this process's profiler records
-    no device time (at phases 11, 12d and 14)."""
+    no device time (at phases 11, 12d and 14). None for a case where the
+    fresh process's profiler records none either, at a second try."""
     import os
     import subprocess
     import tempfile
@@ -2034,12 +2065,19 @@ def traced_in_fresh_process(cases) -> list:
             "from snuffy_tpu_torch.ops.dense_attention import "
             "fused_self_attention\n"
             "from snuffy_tpu_torch.tools.profile_serve import device_profile\n"
+            "def trace(q, k, v, n_valid):\n"
+            "    for _ in range(2):\n"
+            "        try:\n"
+            "            return device_profile(lambda: fused_self_attention(\n"
+            "                q, k, v, n_valid))[2]\n"
+            "        except RuntimeError as e:\n"
+            "            if 'no device time' not in str(e):\n"
+            "                raise\n"
             "out = []\n"
             "for d in torch.load(sys.argv[1]):\n"
             "    q, k, v = (d[x].cuda() for x in 'qkv')\n"
             "    with torch.inference_mode():\n"
-            "        out.append(device_profile(lambda: fused_self_attention(\n"
-            "            q, k, v, d['n_valid']))[2])\n"
+            "        out.append(trace(q, k, v, d['n_valid']))\n"
             "print(json.dumps(out))\n")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "qkv.pt")
@@ -2051,8 +2089,8 @@ def traced_in_fresh_process(cases) -> list:
             cwd=os.path.dirname(os.path.abspath(__file__)))
     if proc.returncode != 0:
         raise AssertionError(f"the traced K5 calls failed:\n{proc.stderr}")
-    return [[tuple(x) for x in kernels] for kernels in
-            json.loads(proc.stdout.strip().splitlines()[-1])]
+    return [None if kernels is None else [tuple(x) for x in kernels]
+            for kernels in json.loads(proc.stdout.strip().splitlines()[-1])]
 
 
 def kernel_traces(cases) -> list:
@@ -2062,21 +2100,29 @@ def kernel_traces(cases) -> list:
     import torch
 
     from snuffy_tpu_torch.ops.dense_attention import fused_self_attention
-    from snuffy_tpu_torch.tools.profile_serve import device_profile
 
     out = []
     for i, (q, k, v, n_valid) in enumerate(cases):
-        try:
-            with torch.inference_mode():
-                out.append(device_profile(
-                    lambda: fused_self_attention(q, k, v, n_valid))[2])
-        except RuntimeError as e:
-            if "no device time" not in str(e):
-                raise
-            log(f"    this process's profiler recorded no device time: "
-                f"the other {len(cases) - i} traces in a fresh process")
+        with torch.inference_mode():
+            trace = traced(lambda: fused_self_attention(q, k, v, n_valid))
+        if trace is None:
+            log(f"    the other {len(cases) - i} traces in a fresh process")
             return out + traced_in_fresh_process(cases[i:])
+        out.append(trace[2])
     return out
+
+
+def check_traced_bodies(fa, bodies, cases) -> None:
+    """`check_body` for K5 at each of `cases` that a profiler traced."""
+    from snuffy_tpu_torch.ops import kernels
+
+    traces = kernel_traces(cases)
+    for body, kernel_times in zip(bodies, traces):
+        if kernel_times is not None:
+            check_body(fa, kernels.DENSE, kernel_times, body)
+    log(f"    K5's body checked against the trace at "
+        f"{sum(t is not None for t in traces)} of {len(cases)} shapes "
+        "(the others not traced)")
 
 
 def time_dense(label, q, k, v, n_valid, trace=False):
@@ -2108,8 +2154,10 @@ def time_dense(label, q, k, v, n_valid, trace=False):
                                                              n_valid))
         device, lib_device = (back_to_back_ms(f) for f in (kernel, library))
     if trace:
-        check_body(fa, kernels.DENSE,
-                   traced_in_fresh_process([(q, k, v, n_valid)])[0], body)
+        kernel_times = traced_in_fresh_process([(q, k, v, n_valid)])[0]
+        trace = kernel_times is not None
+        if trace:
+            check_body(fa, kernels.DENSE, kernel_times, body)
     z, n, dk = q.shape
     bound, by, note = kernel_bound(fa, body, *dense_work(z, n, n_valid, dk,
                                                          q.dtype))
@@ -3011,7 +3059,9 @@ def profile_step(augment, step, attention, dev):
                 kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
         busy = sum(kinds.values())
         if busy <= 0:
-            raise AssertionError("the profiler recorded no device time")
+            log(f"    profile, {label}: torch.profiler recorded no device "
+                "time; device busy and idle not measured")
+            continue
         busy_of[label] = busy
         log(f"    profile, {label}: device busy {busy:.3f} ms; " +
             ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f} %)"
@@ -3023,8 +3073,10 @@ def profile_step(augment, step, attention, dev):
                      reverse=True)[:8]
         for ms, count, name in top:
             log(f"      {ms:8.3f} ms  {count:4d}x  {name[:110]}")
-    log(f"    device idle over the warm step's {wall:.2f} ms wall: "
-        f"{100 * (1 - busy_of['augment + step'] / wall):.1f} %")
+    traced_all = len(busy_of) == 2
+    if traced_all:
+        log(f"    device idle over the warm step's {wall:.2f} ms wall: "
+            f"{100 * (1 - busy_of['augment + step'] / wall):.1f} %")
     total = 0.0
     for label, z, n, dk, blocks in attention:
         q, k, v = (torch.randn((z, n, dk), device=dev, dtype=torch.bfloat16,
@@ -3040,6 +3092,10 @@ def profile_step(augment, step, attention, dev):
         log(f"    plain attention backward at the {label} (z={z}, n={n}, "
             f"dk={dk}, bf16): {ms:.4f} ms b2b (recompute + gradient), × "
             f"{blocks} blocks = {ms * blocks:.3f} ms a step")
+    if not traced_all:
+        log(f"    plain attention backward: {total:.3f} ms a step; its share "
+            "of the step's device busy not measured")
+        return
     step_busy = busy_of["augment + step"] - busy_of["augment"]
     log(f"    plain attention backward: {total:.3f} ms of the step's "
         f"{step_busy:.3f} ms device busy ({100 * total / step_busy:.1f} %)")
@@ -3085,7 +3141,7 @@ def check_phase_calls(fa, kernels, label, calls, want_shapes) -> float:
     activations) within one ulp of max |plain| (2^-7) as in phase 11, two
     launches bitwise equal, the body against the profiler's kernel names,
     one-call and b2b times beside plain, SDPA and the bound (the bodies
-    checked after them, by `kernel_traces`). Raises if a shape of
+    checked after them, by `check_traced_bodies`). Raises if a shape of
     `want_shapes` never ran; returns the largest error."""
     import torch
 
@@ -3136,8 +3192,7 @@ def check_phase_calls(fa, kernels, label, calls, want_shapes) -> float:
             bodies.append(fa.kernel_body(q, k, v, got))
         cases.append((q, k, v, n_valid))
         time_dense(f"{label} {shape}", q, k, v, n_valid)
-    for body, kernel_times in zip(bodies, kernel_traces(cases)):
-        check_body(fa, kernels.DENSE, kernel_times, body)
+    check_traced_bodies(fa, bodies, cases)
     missing = want_shapes - set(calls)
     if missing:
         raise AssertionError(f"K5 never ran at {sorted(missing)}; it ran at "

@@ -269,6 +269,44 @@ def test_chip_smoke_tells_the_body_from_the_traced_kernel_names():
     assert bound == pytest.approx(1e3 * 10**10 / (495e12 / 3))
 
 
+def test_chip_smoke_reports_untraced_passes_where_the_profiler_sees_none(
+        monkeypatch):
+    """Where torch.profiler records no device time, chip_smoke tries once
+    more, then reports the passes as not traced; any other profiler error
+    still fails the run, and a trace that comes back is still checked."""
+    import chip_smoke
+    from snuffy_tpu_torch.tools import profile_serve
+
+    tries = []
+
+    def empty(fn):
+        tries.append(fn)
+        raise RuntimeError("the profiler recorded no device time; it "
+                           "cannot trace this GPU")
+
+    monkeypatch.setattr(profile_serve, "device_profile", empty)
+    assert chip_smoke.traced(len) is None and tries == [len, len]
+    assert chip_smoke.traced_split(fa, fa.FWD, len, 1,
+                                   fa.BODIES[0]) == "device not traced"
+
+    def broken(fn):
+        raise RuntimeError("CUPTI failed")
+
+    monkeypatch.setattr(profile_serve, "device_profile", broken)
+    with pytest.raises(RuntimeError, match="CUPTI"):
+        chip_smoke.traced(len)
+
+    passes = [("void row_stats_kernel<float>(float const*)", 0.5),
+              ("void slot_accumulate_kernel<float, 16>(float const*)", 0.25),
+              ("void split_reduce_kernel<float>(float const*)", 0.25)]
+    monkeypatch.setattr(profile_serve, "device_profile",
+                        lambda fn: (1.0, [], passes))
+    assert chip_smoke.traced_split(
+        fa, fa.FWD, len, 1, fa.BODIES[2]).startswith("device 1.0000: ")
+    with pytest.raises(AssertionError, match="dispatch rule"):
+        chip_smoke.traced_split(fa, fa.FWD, len, 1, fa.BODIES[0])
+
+
 def test_forward_splits_fill_the_card_and_cover_n():
     """The kernels split N until their slot grid has 256 blocks (8 splits
     at one bag of the operating widths, 1 at 8 packed bags), never into
