@@ -211,6 +211,27 @@ per kernel, all at once), then:
      all-reduce, and a DINO step under the mesh bit for bit the step
      without a group. Each rank holds its K1, K2 and K5 first launches at
      each shape against the plain versions.
+  16. sequence and tensor parallelism, remat and sharded checkpoints,
+     run after 15 (two ranks of multiproc_worker sharing the card over
+     gloo, as 15) at bench.py's training point: (a) one MIL step of 8
+     bags with use_mesh=1 factored as sp=2 (K1/K2 at h=4 on 5120 rows a
+     rank, S=512) against one rank stepping them packed at ρ=0 and no
+     dropout (losses, scores, the gradients before the clip, parameters),
+     a warm step with each all-reduce timed (calls, MiB, ms by what they
+     carry), a step at ρ=0.5 and rate 0.1 (finite, every rank's whole
+     model bitwise equal); (b) the same at tp=2 (K1/K2 at h=2 on 10240
+     rows); (c) in this process, one packed step with remat against one
+     without at ρ=0.5 and rate 0.1: bitwise, peak memory, the
+     recompute's K1 launches; (d) one bag of 40960 rows forward and
+     backward over sp=2 against one rank: scores, gradients, peak memory
+     a rank; (e) a tp=2 checkpoint saved, the processes gone, read back
+     by two fresh ranks (started with the first launch, waiting until
+     its ranks have exited): each rank's shards' checksums, each rank
+     its own blocks; (f) DINO with use_bn_in_head, 32 a rank against 64
+     on one rank, in bf16 and in f32 (BN_TOL). The limits are set from
+     the readings (MESH_LOSS_TOL, MESH_GRAD_TOL, LONG_TOL, BN_TOL). Each
+     rank holds its K1/K2 first launches at each new shape against the
+     plain versions (2^-7).
 
 Each path of the main path (serve, whole slide, eval, extraction, train,
 each training-CLI run, the SimCLR slide CLI and requests, the SimCLR and
@@ -3763,6 +3784,14 @@ MULTI_RANK_TIMEOUT = 300
 MULTI_EXTRACT_BAGS = 4
 
 
+def launch_timing(launch, ranks) -> str:
+    """When each rank's group was up, from the launch's start, and each
+    scenario's seconds on rank 0."""
+    ready = [round(r["ready_at"] - launch.started_at, 1) for r in ranks]
+    spent = {k: round(v, 1) for k, v in ranks[0]["scenario_s"].items()}
+    return f"ranks up after {ready} s; scenarios (rank 0) {spent} s"
+
+
 def write_multi_extract_tree(root):
     """Phase 11c's 300 tiles (seed 8) as q90 JPEGs in MULTI_EXTRACT_BAGS
     bags under camelyon16/single/fold1/train/<class>/<bag>."""
@@ -3853,11 +3882,13 @@ def phase_multi_rank(dev, kernels, smi):
     with tempfile.TemporaryDirectory() as root:
         write_multi_extract_tree(os.path.join(root, "datasets"))
         t0 = time.perf_counter()
-        ranks = mpw.launch("mil,dino,mae,extract", root, world=2,
+        first = mpw.Launch("mil,dino,mae,extract", root, world=2,
                            size="full", device="cuda:0", backend="gloo",
                            timeout=MULTI_RANK_TIMEOUT)
+        ranks = first.results()
         log(f"  (a)-(d) on 2 ranks: {time.perf_counter() - t0:.1f} s of "
-            "wall, the processes' start included")
+            f"wall, the processes' start included; "
+            f"{launch_timing(first, ranks)}")
         r0, r1 = ranks
         if [r["backend"] for r in ranks] != ["gloo", "gloo"] or \
                 [r["device"] for r in ranks] != ["cuda:0", "cuda:0"]:
@@ -3964,6 +3995,273 @@ def phase_multi_rank(dev, kernels, smi):
     log(f"  each rank's K1, K2 and K5 first launches at each shape against "
         f"the plain versions: largest error {errors}")
     log(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, errors
+
+
+# Phase 16: sequence and tensor parallelism, remat and sharded checkpoints
+# (Slice 7b), two ranks of multiproc_worker sharing the card over gloo as
+# in phase 15, at bench.py's training point; each rank's K1/K2 first
+# launches at the new shapes to KERNEL_TOL (2^-7). The limits below were
+# set from the readings of these checks on an NVIDIA H100 80GB HBM3 at
+# 700 W (two runs, equal to 4 digits), at 2.5-9× the reading; the
+# parameters after one Adam step keep phase 15's bound 2·lr and share
+# within PARAM_TOL (Adam moves each element by at most lr, so a tighter
+# bound would sit on Adam's own ceiling).
+# (a), (b): losses and scores read at most 1.47e-5 of max |x|; the
+# gradients before the clip 1.64e-5 (sp) and 1.03e-5 (tp) of max |g|.
+MESH_LOSS_TOL = 5e-5
+MESH_GRAD_TOL = 1e-4
+# (d): the long bag's instance scores read 0 and its bag score 2.47e-7 of
+# max |score| apart; its gradients 3.43e-5 of max |g| (MESH_GRAD_TOL).
+LONG_TOL = 1e-6
+MESH_SCENARIOS = "sp,tp,long,ckpt:save,dino_bn,dino_bn:f32"
+# (f): in bf16, the CLI's dtype, the head's BatchNorms divide by small
+# batch deviations, which turns the bf16 rounding of 2 ranks against 1
+# into a second step's gradient 7.84e-2 of max |g| apart (step 1 2.98e-3;
+# without BatchNorms 4.1e-3); in f32 the same two steps read 1.18e-6 and
+# 2.62e-5, the student parameters 2.79e-6 apart. Per dtype: the loss
+# (relative), the centre (of max |centre|), each step's gradients (of
+# max |g|), and (f32) the parameters' largest |diff|; bf16's parameters
+# keep phase 15's bound and share.
+BN_TOL = {"bfloat16": dict(loss=2e-5, center=2e-3, grads=(1e-2, 2e-1),
+                           params=None),
+          "float32": dict(loss=1e-6, center=1e-6, grads=(5e-6, 1e-4),
+                          params=1e-5)}
+
+
+def audit_summary(rows):
+    """The timed all-reduces of a step, by axis, what they carried and
+    shape: → {key: (calls, MiB a call, ms in all)}."""
+    out = {}
+    for axis, what, shape, numel, nbytes, secs in rows:
+        key = (axis, what, tuple(shape))
+        n, _, s = out.get(key, (0, 0.0, 0.0))
+        out[key] = (n + 1, nbytes / 2**20, s + 1e3 * secs)
+    return out
+
+
+def phase_remat(dev, kernels, smi):
+    """16c: one packed step of 8 bags at bench.py's point, ρ=0.5 and
+    rate 0.1, with remat and without, from the same weights and
+    generators: → K1/K2 launches of the step with remat."""
+    import torch
+
+    from snuffy_tpu_torch.tools import multiproc_worker as mpw
+
+    feats, masks, labels = mpw.mil_bags("full", 384, dev)
+    got, launches = {}, {}
+    for remat in (False, True):
+        trainer = mpw.mesh_trainer(mpw.mesh_cfg("full", 0.5, 0.1, remat,
+                                                use_mesh=0), dev)
+        grads = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with mpw.gradients_before_clip(trainer, grads):
+            out = trainer.packed_train_step(
+                feats, masks, labels, torch.ones(8, device=dev),
+                *mpw.mil_gens(dev, 5))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[remat] = kernels.launch_counts()
+        got[remat] = (out, grads, torch.cuda.max_memory_allocated(dev), wall)
+        del trainer
+    (o0, g0, peak0, s0), (o1, g1, peak1, s1) = got[False], got[True]
+    same = (all(torch.equal(a, b) for a, b in zip(o0, o1))
+            and all(torch.equal(a, b) for a, b in zip(g0, g1)))
+    fwd = kernels.FWD.name
+    log(f"  (c) remat, one rank, 8 bags packed: losses, scores and the "
+        f"gradients bitwise the step without it: {same}; peak memory "
+        f"{peak1 / 2**30:.2f} GiB with remat, {peak0 / 2**30:.2f} GiB "
+        f"without; K1 launches {launches[True][fwd]} with remat, "
+        f"{launches[False][fwd]} without (the recompute's "
+        f"{launches[True][fwd] - launches[False][fwd]}); step wall "
+        f"{s1:.3f} s with, {s0:.3f} s without (first steps) ({smi})")
+    if not same:
+        raise AssertionError("remat: the step differs from the step "
+                             "without it")
+    if launches[True][fwd] <= launches[False][fwd]:
+        raise AssertionError("remat: no K1 launch of a recompute")
+    return launches[True]
+
+
+def check_mesh_step(ranks, kind, mpw, smi):
+    """16a/b: the sp or tp step against one rank; → the all-reduces of a
+    layer (timed step)."""
+    r0, r1 = ranks
+    tol = MESH_LOSS_TOL
+    errs = r0[f"{kind}_errors"]
+    log(f"  ({'ab'[kind == 'tp']}) {kind}=2, mesh (batch, size, sp, sp "
+        f"size, tp, tp size) {r0[f'{kind}_mesh']} / {r1[f'{kind}_mesh']}: "
+        f"losses, bag scores, instance scores vs 1 rank "
+        f"{[f'{e:.3e}' for e in errs]} of max |x| (tol {tol:.0e})")
+    if max(errs) > tol:
+        raise AssertionError(f"{kind}: 2 ranks and 1 disagree")
+    grads, tol = r0[f"{kind}_grads"], MESH_GRAD_TOL
+    worst, share = r0[f"{kind}_params"]
+    log(f"    gradients before the clip {grads[0]:.3e} of max |g| (tol "
+        f"{tol:.0e}); parameters max |diff| {worst:.3e} (bound 2·lr "
+        f"{2 * mpw.MIL_LR:.0e}), least share within "
+        f"{mpw.PARAM_TOL['bfloat16']:.0e}·(1 + |x|) {share:.5f}")
+    if grads[0] > tol or worst > 2 * mpw.MIL_LR or share < mpw.PARAM_SHARE:
+        raise AssertionError(f"{kind}: 2 ranks and 1 disagree")
+    if r0[f"{kind}_digest"] != r1[f"{kind}_digest"] or \
+            r0[f"{kind}_rand_digest"] != r1[f"{kind}_rand_digest"] or \
+            not (r0[f"{kind}_rand_finite"] and r1[f"{kind}_rand_finite"]):
+        raise AssertionError(f"{kind}: the ranks' whole models differ, or "
+                             "rho 0.5 is not finite")
+    log("    whole model bitwise equal on both ranks after the step and "
+        "after one at rho 0.5, rate 0.1 (finite)")
+    log(f"    parameters a rank {r0[f'{kind}_local_params']} of "
+        f"{r0[f'{kind}_n_params']}; step wall, s ({smi}): 2 ranks "
+        f"{[round(x, 4) for x in r0[f'{kind}_step_s_ranks']]} (first, "
+        f"warm with each all-reduce synchronised), 1 rank "
+        f"{[round(x, 4) for x in r0[f'{kind}_step_s_one']]} (8 bags "
+        f"packed, first); peak memory, GiB: rank 0 "
+        f"{r0[f'{kind}_peak_bytes'] / 2**30:.2f}, rank 1 "
+        f"{r1[f'{kind}_peak_bytes'] / 2**30:.2f}, 1 rank "
+        f"{r0[f'{kind}_peak_bytes_one'] / 2**30:.2f}")
+    summary = audit_summary(r0[f"{kind}_audit_timed"])
+    log("    the warm step's all-reduces on rank 0 (8 bags, 2 layers; gloo "
+        "over CUDA tensors, the device synchronised around each):")
+    for (axis, what, shape), (n, mib, ms) in sorted(summary.items()):
+        log(f"      over {axis}, {what} {list(shape)}: {n} call(s), "
+            f"{mib:.4f} MiB each, {ms:.3f} ms in all")
+    return summary
+
+
+def phase_mesh(dev, kernels, smi):
+    """16 (module docstring): → (the launch counts of 16's paths, summed
+    over the ranks; each kernel's largest error on either rank)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from snuffy_tpu_torch.parallel.sharded_train import tp_dim
+    from snuffy_tpu_torch.tools import multiproc_worker as mpw
+
+    log("== phase 16: sequence and tensor parallelism, remat, sharded "
+        "checkpoints: 2 ranks sharing the card (gloo over CUDA tensors) at "
+        "bench.py's point, 8 bags padded to 10240: (a) sp=2, (b) tp=2, "
+        "(c) remat on one rank, (d) a 40960-row bag over sp=2, (e) a tp=2 "
+        f"checkpoint restored by fresh ranks, (f) DINO use_bn_in_head  "
+        f"[{smi}]")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    errors = {k.name: 0.0 for k in kernels.KERNELS}
+    with tempfile.TemporaryDirectory() as root:
+        # (e)'s restoring ranks start now, so that their start-up overlaps
+        # the first launch; they read the checkpoint once its ranks exited
+        restore = mpw.Launch("ckpt:restore", root, world=2, size="full",
+                             device="cuda:0", backend="gloo",
+                             timeout=2 * MULTI_RANK_TIMEOUT)
+        try:
+            first = mpw.Launch(MESH_SCENARIOS, root, world=2, size="full",
+                               device="cuda:0", backend="gloo",
+                               timeout=MULTI_RANK_TIMEOUT)
+            ranks = first.results()
+            t0 = time.perf_counter()
+            mpw.saved_and_exited(root)
+            log(f"  (a), (b), (d), (e) save, (f) on 2 ranks: "
+                f"{t0 - t_phase:.1f} s of wall from the phase's start; "
+                f"{launch_timing(first, ranks)}")
+            restored = restore.results()
+        finally:
+            restore.close()
+        log(f"  (e) restore on 2 fresh ranks, started with the first: "
+            f"{time.perf_counter() - t0:.1f} s of wall after the savers "
+            f"exited; {launch_timing(restore, restored)}")
+    r0, r1 = ranks
+    for r in ranks:
+        for key in ("sp", "tp", "long", "dino_bn", "dino_bn32"):
+            for name, n in r[f"{key}_launches"].items():
+                launches[name] += n
+            for name, e in r[f"{key}_kernel_errors"].items():
+                errors[name] = max(errors[name], e)
+        log(f"  rank {r['rank']} launches: " + ", ".join(
+            f"{key} {r[f'{key}_launches']}" for key in (
+                "sp", "tp", "long", "dino_bn", "dino_bn32")))
+        for key in ("sp", "tp"):   # K1 and K2: one a layer of each bag
+            for kernel in (kernels.FWD, kernels.BWD):
+                if r[f"{key}_launches"][kernel.name] < 8 * 2:
+                    raise AssertionError(
+                        f"rank {r['rank']} {key}: {kernel.name} launched "
+                        f"{r[f'{key}_launches'][kernel.name]} < 16 times")
+    for kind in ("sp", "tp"):
+        check_mesh_step(ranks, kind, mpw, smi)
+    launches_c = phase_remat(dev, kernels, smi)
+    for name, n in launches_c.items():
+        launches[name] += n
+    # (d)
+    errs, gerr = r0["long_errors"], r0["long_grads"]
+    log(f"  (d) one bag of {r0['long_rows']} rows, forward and backward, "
+        f"sp=2 vs 1 rank: instance and bag scores {errs[0]:.3e}, "
+        f"{errs[1]:.3e} of max |score| (tol {LONG_TOL:.0e}); gradients "
+        f"{gerr:.3e} of max |g| (tol {MESH_GRAD_TOL:.0e}); peak memory, GiB: rank 0 "
+        f"{r0['long_peak_bytes'] / 2**30:.3f}, rank 1 "
+        f"{r1['long_peak_bytes'] / 2**30:.3f}, 1 rank "
+        f"{r0['long_peak_bytes_one'] / 2**30:.3f}; wall s: sp "
+        f"{r0['long_s_ranks']:.3f}, 1 rank {r0['long_s_one']:.3f} ({smi})")
+    if max(errs) > LONG_TOL or gerr > MESH_GRAD_TOL:
+        raise AssertionError("the long bag: sp=2 and 1 rank disagree")
+    # (e)
+    for saved, back in zip(ranks, restored):
+        if back["ckpt_restore_shards"] != saved["ckpt_save_shards"] or \
+                back["ckpt_tp_rank"] != saved["ckpt_tp_rank"]:
+            raise AssertionError(f"checkpoint: rank {saved['rank']}'s "
+                                 "shards differ after the restore")
+    s0, s1 = (r["ckpt_save_shards"] for r in ranks)
+    split = [k for k in s0 if tp_dim(k) is not None]
+    own = all(s0[k][0] != s1[k][0] for k in split)
+    files = [sorted(os.path.basename(w) for w in r["ckpt_writes"])
+             for r in ranks]
+    log(f"  (e) tp=2 checkpoint: saved in {r0['ckpt_save_s']:.3f} s, "
+        f"restored by 2 fresh ranks in {restored[0]['ckpt_restore_s']:.3f}"
+        f" s ({smi}); each rank's {len(s0)} tensors' checksums equal after "
+        f"the restore; {len(split)} split tensors, each rank its own block "
+        f"({own}); files by rank: {files}")
+    if not own or not split:
+        raise AssertionError("checkpoint: the ranks do not hold their own "
+                             "blocks")
+    # (f)
+    bound = 2 * mpw.SSL_LR * mpw.SSL_STEPS
+    for key, dtype in (("dino_bn", "bfloat16"), ("dino_bn32", "float32")):
+        tol = BN_TOL[dtype]
+        loss, loss1 = r0[f"{key}_loss"]
+        rel_loss = abs(loss - loss1) / abs(loss1)
+        grads = r0[f"{key}_grads"]
+        worst, share = r0[f"{key}_student"]
+        name, where, _ = r0[f"{key}_grad_worst"]
+        log(f"  (f) DINO use_bn_in_head, {dtype}, 32 a rank vs 64 on one "
+            f"rank: loss {loss:.6f} vs {loss1:.6f}, {rel_loss:.3e} apart "
+            f"(tol {tol['loss']:.0e}); gradients "
+            f"{[f'{e:.3e}' for e in grads]} of max |g| (tol "
+            f"{[f'{t:.0e}' for t in tol['grads']]}; the second's farthest "
+            f"tensor {name}); centre {r0[f'{key}_center']:.3e} (tol "
+            f"{tol['center']:.0e}); student max |diff| {worst:.3e} (tol "
+            f"{tol['params'] or bound:.0e}), share {share:.5f} (the "
+            f"pre-BatchNorm biases {r0[f'{key}_noise_biases']:.3e}); "
+            f"running statistics and replicas bitwise equal on both ranks:"
+            f" {r0[f'{key}_running'] == r1[f'{key}_running']}; step wall s "
+            f"{[round(x, 4) for x in r0[f'{key}_step_s_ranks']]} (1 rank "
+            f"{[round(x, 4) for x in r0[f'{key}_step_s_one']]}); peak GiB "
+            f"{r0[f'{key}_peak_bytes'] / 2**30:.2f}")
+        if rel_loss > tol["loss"] or len(grads) != len(tol["grads"]) or \
+                any(e > t for e, t in zip(grads, tol["grads"])) or \
+                r0[f"{key}_center"] > tol["center"] or \
+                worst > (tol["params"] or bound) or \
+                share < mpw.PARAM_SHARE or \
+                r0[f"{key}_noise_biases"] > bound or \
+                r0[f"{key}_running"] != r1[f"{key}_running"] or \
+                r0[f"{key}_digest"] != r1[f"{key}_digest"]:
+            raise AssertionError(f"DINO use_bn_in_head ({dtype}): 2 ranks "
+                                 "and 1 disagree")
+    log(f"  each rank's K1, K2 and K5 first launches at each new shape "
+        f"against the plain versions: largest error {errors}")
+    log(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
     return launches, errors
 
 
@@ -4088,6 +4386,7 @@ def main() -> int:
         fa, packed_inverted_sparse_attention,
         packed_inverted_sparse_attention_bwd, kernels, dev)
     multi_launches, multi_err = phase_multi_rank(dev, kernels, smi)
+    mesh_launches, mesh_err = phase_mesh(dev, kernels, smi)
 
     log(f"  main-path kernel launches: serve {serve_launches}, whole slide "
         f"{slide_launches}, eval {eval_launches}, extraction "
@@ -4096,26 +4395,30 @@ def main() -> int:
         f"{simclr_launches}, SimCLR/MAE extraction {embedders_launches}, "
         f"ROI heat maps {roi_launches}, DINO pretraining {dino_launches}, "
         f"MAE pretraining {mae_launches}, 2 ranks (phase 15) "
-        f"{multi_launches}")
+        f"{multi_launches}, sp/tp/remat/DINO BatchNorm (phase 16) "
+        f"{mesh_launches}")
     log(f"  K1 at dk=128, one bag: kernel {k1_dk128_record[0]:.4f} ms "
         f"(device {k1_dk128_record[4]:.4f}), bound {k1_dk128_record[2]:.4f} "
         f"ms ({k1_dk128_record[3]})")
     paths = (serve_launches, slide_launches, eval_launches, extract_launches,
              train_launches, cli_launches, simclr_launches,
              embedders_launches, roi_launches, dino_launches, mae_launches,
-             multi_launches)
+             multi_launches, mesh_launches)
     no_library = None  # no one PyTorch call computes the slot sums σᵀv
     records = []
     for kernel, err, (ms, plain_ms, bound, bound_by, library_ms) in (
             (kernels.FWD, max(fwd_err, k1_cli_err, k1_dk128_err,
-                              k1_roi_err, multi_err[kernels.FWD.name]),
+                              k1_roi_err, multi_err[kernels.FWD.name],
+                              mesh_err[kernels.FWD.name]),
              (*fwd_record, no_library)),
             (kernels.BWD, max(bwd_err, k2_cli_err,
-                              multi_err[kernels.BWD.name]),
+                              multi_err[kernels.BWD.name],
+                              mesh_err[kernels.BWD.name]),
              (*bwd_record, no_library)),
             (kernels.DENSE, max(dense_err, k5_vitl_err, k5_roi_err,
                                 k5_dino_err, k5_mae_err,
-                                multi_err[kernels.DENSE.name]),
+                                multi_err[kernels.DENSE.name],
+                                mesh_err[kernels.DENSE.name]),
              dense_record)):
         records.append({
             "name": kernel.name,

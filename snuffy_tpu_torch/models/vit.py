@@ -390,7 +390,10 @@ class BatchNorm(nn.Module):
     batch's mean and its biased variance E[x²] − E[x]² (clipped at 0) and
     moves the running averages by 0.1 toward them; the running variance
     takes the biased batch variance, where torch's takes the unbiased
-    one."""
+    one. With `mesh` set, the batch is every rank's rows: f32 sums, sums
+    of squares and the count all-reduced over the batch axes, with
+    autograd through them (each rank's gradient of the sums is summed
+    too), so the running statistics are the same bits on every rank."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -403,10 +406,27 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
 
+    # a mesh (`parallel/mesh.py`) whose batch axes hold the batch's rows:
+    # training statistics over every rank's rows (the reference's
+    # SyncBatchNorm), set by the DINO trainer
+    mesh = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+        if self.training and self.mesh is not None and self.mesh.size > 1:
+            from snuffy_tpu_torch.parallel.collectives import sum_over
+
+            xf = x.float()
+            c = x.shape[1]
+            sums = sum_over(torch.cat([xf.sum(dim=0), (xf * xf).sum(dim=0),
+                                       xf.new_full((1,), x.shape[0])]),
+                            self.mesh, "batch", "BatchNorm sums")
+            mean = sums[:c] / sums[-1]
+            var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
+            mean, var = mean.to(x.dtype), var.to(x.dtype)
+        elif self.training:
             mean = x.mean(dim=0)
             var = ((x * x).mean(dim=0) - mean * mean).clamp_min(0.0)
+        if self.training:
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1 - m) * mean)

@@ -204,11 +204,13 @@ def global_mesh_spec() -> MeshSpec:
 
 
 def process_batch_slice(global_batch: int,
-                        process_index: Optional[int] = None) -> slice:
-    """Rows [p·B/P, (p+1)·B/P) of a (global_batch, ...) array: rank p's
-    contiguous block."""
+                        process_index: Optional[int] = None,
+                        process_count: Optional[int] = None) -> slice:
+    """Rows [p·B/P, (p+1)·B/P) of a (global_batch, ...) array: block p of
+    P (by default this rank's of the world; a mesh passes its batch-axis
+    index and extent)."""
     p = rank() if process_index is None else process_index
-    n = world_size()
+    n = world_size() if process_count is None else process_count
     if global_batch % n:
         raise ValueError(
             f"global batch {global_batch} not divisible by {n} processes")

@@ -1,15 +1,23 @@
-"""The (dcn, dp, sp, tp) factoring of the devices, and the batch axes as
-a process group.
+"""The (dcn, dp, sp, tp) factoring of the devices, and its axes as
+process groups.
 
 The port's copy of `snuffy_tpu/parallel/mesh.py`: `MeshSpec`,
 `factor_devices` and `validate_spec` are copies (held to the originals in
-`tests/test_torch_copies.py`). `make_mesh` has no device array to lay out:
-with one process per GPU, the batch axes ("dcn", "dp") are every rank,
-and their collective is the default process group of
-`parallel/distributed.py`; one process (no process group) has no mesh,
-None, which every collective takes as the identity. Sequence (sp) and
-tensor (tp) parallelism are Slice 7b: a spec with sp or tp above 1
-raises.
+`tests/test_torch_copies.py`). With one process per GPU the mesh is a
+layout of the ranks: `make_mesh` lays them out as the JAX package lays
+its devices out, `reshape(dcn, dp, sp, tp)` row-major, so a rank's
+coordinates are
+
+    batch = rank // (sp·tp)     (the dcn and dp axes together)
+    sp    = (rank // tp) % sp
+    tp    = rank % tp
+
+and gives each axis a process group (on the default group's backend).
+The batch axes' group is `group`, this rank's batch index `rank` and their
+extent `size`, the names the data-parallel code reads. A mesh of the
+batch axes alone (sp = tp = 1) takes the default process group for them,
+as it did before sp and tp were ported; one process (no process group)
+has no mesh, None, which every collective takes as the identity.
 """
 
 from __future__ import annotations
@@ -71,28 +79,57 @@ def validate_spec(spec: MeshSpec, num_heads: Optional[int] = None,
         raise ValueError(f"tp={spec.tp} does not divide FFN hidden={mlp_hidden}")
 
 
+AXIS_NAMES = ("batch", "sp", "tp")
+
+
 @dataclass(frozen=True)
 class Mesh:
-    """The batch axes of a dp mesh over `size` ranks: this process is
-    `rank`, and `group` is their process group."""
+    """This rank's place in a mesh: `group` is the process group of the
+    batch axes (dcn × dp), `rank` this rank's index along them and `size`
+    their extent; `sp_group`/`sp_rank`/`sp` and `tp_group`/`tp_rank`/`tp`
+    likewise for sequence and tensor parallelism."""
 
     group: Any
     rank: int
     size: int
+    sp_group: Any = None
+    sp_rank: int = 0
+    sp: int = 1
+    tp_group: Any = None
+    tp_rank: int = 0
+    tp: int = 1
+
+    def axis(self, name: str):
+        """(group, extent, this rank's index) of axis "batch", "sp" or
+        "tp"."""
+        if name == "batch":
+            return self.group, self.size, self.rank
+        if name == "sp":
+            return self.sp_group, self.sp, self.sp_rank
+        if name == "tp":
+            return self.tp_group, self.tp, self.tp_rank
+        raise ValueError(f"no mesh axis {name!r}; axes {AXIS_NAMES}")
 
 
-def make_mesh(spec: MeshSpec) -> Optional[Mesh]:
+def coordinates(rank: int, spec: MeshSpec):
+    """(batch index, sp index, tp index) of `rank` in the row-major
+    (dcn, dp, sp, tp) layout."""
+    return rank // (spec.sp * spec.tp), (rank // spec.tp) % spec.sp, \
+        rank % spec.tp
+
+
+def make_mesh(spec: MeshSpec, num_heads: Optional[int] = None,
+              mlp_hidden: Optional[int] = None) -> Optional[Mesh]:
     """The mesh of `spec` over the ranks of the process group that
     `parallel.distributed.initialize` started; None in one process
     without a group. One process per device: spec.n_devices must be the
-    world size."""
+    world size. Every rank must call it, in the same order (each axis's
+    groups are made by `dist.new_group`, which every rank joins)."""
+    import torch.distributed as dist
+
     from snuffy_tpu_torch.parallel import distributed
 
-    if spec.sp > 1 or spec.tp > 1:
-        raise NotImplementedError(
-            f"{spec}: sequence (sp) and tensor (tp) parallelism are not "
-            "ported yet (Slice 7b, ROADMAP.md Queue 1); the port's mesh is "
-            "data-parallel, (dcn, dp) over the ranks")
+    validate_spec(spec, num_heads, mlp_hidden)
     world = distributed.world_size()
     if spec.n_devices != world:
         raise ValueError(
@@ -101,4 +138,25 @@ def make_mesh(spec: MeshSpec) -> Optional[Mesh]:
     group = distributed.default_group()
     if group is None:
         return None
-    return Mesh(group, distributed.rank(), world)
+    rank = distributed.rank()
+    if spec.sp == 1 and spec.tp == 1:
+        return Mesh(group, rank, world)
+    batch = spec.dcn * spec.dp
+    backend = dist.get_backend()
+    coords = [coordinates(r, spec) for r in range(world)]
+
+    def groups_along(axis: int):
+        """One group for each line of ranks along `axis` (0 batch, 1 sp,
+        2 tp); → this rank's."""
+        mine, lines = None, {}
+        for r, c in enumerate(coords):
+            lines.setdefault(c[:axis] + c[axis + 1:], []).append(r)
+        for key in sorted(lines):
+            g = dist.new_group(lines[key], backend=backend)
+            if rank in lines[key]:
+                mine = g
+        return mine
+
+    b, s, t = coords[rank]
+    return Mesh(groups_along(0), b, batch, groups_along(1), s, spec.sp,
+                groups_along(2), t, spec.tp)

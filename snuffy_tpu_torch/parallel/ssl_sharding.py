@@ -34,12 +34,14 @@ BUCKET_BYTES = 25 * 2 ** 20
 
 def shard_images(batch: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """(B, ...) → this rank's (B/W, ...) block."""
-    return batch[process_batch_slice(batch.shape[0], mesh.rank)]
+    return batch[process_batch_slice(batch.shape[0], mesh.rank,
+                                     mesh.size)]
 
 
 def shard_crops(crops: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """(V, B, ...) multi-crop stack → this rank's (V, B/W, ...) block."""
-    return crops[:, process_batch_slice(crops.shape[1], mesh.rank)]
+    return crops[:, process_batch_slice(crops.shape[1], mesh.rank,
+                                         mesh.size)]
 
 
 def _tensors(tree: Any) -> List[torch.Tensor]:

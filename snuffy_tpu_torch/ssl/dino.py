@@ -38,7 +38,10 @@ its own rows: the gradients are averaged over the ranks before the clip
 (the reference clips after DDP's all-reduce), the batch centre is the
 global batch's mean (reference main_dino_adapter.py:666-668), and
 `eval_loss` the ranks' mean. Every rank holds the same batch size, so the
-mean of the ranks' means is the global mean.
+mean of the ranks' means is the global mean. The head's BatchNorms (with
+`use_bn_in_head`) normalise the student's and the teacher's rows with
+the global batch's statistics, as the JAX step's over its dp-sharded
+batch (`models/vit.BatchNorm` with the mesh set).
 """
 
 from __future__ import annotations
@@ -53,7 +56,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from snuffy_tpu_torch.models.vit import DINOHead, VisionTransformer
+from snuffy_tpu_torch.models.vit import (
+    BatchNorm,
+    DINOHead,
+    VisionTransformer,
+)
 from snuffy_tpu_torch.parallel.mesh import Mesh
 from snuffy_tpu_torch.parallel.ssl_sharding import allreduce_gradients
 from snuffy_tpu_torch.ssl.adam import adam_directions, init_adam_state
@@ -129,11 +136,6 @@ class DINOTrainer:
         if optimizer not in OPTIMIZERS:
             raise KeyError(f"Optimizer not found. Given: {optimizer}, "
                            f"Have: {list(OPTIMIZERS)}")
-        if use_bn_in_head and mesh is not None and mesh.size > 1:
-            raise ValueError(
-                "use_bn_in_head over more than one rank needs the head's "
-                "BatchNorm synchronised across ranks (the reference's "
-                "SyncBatchNorm): not ported yet (Slice 7b)")
         self.mesh = mesh
         self.backbone = backbone
         self.head_kw = dict(out_dim=out_dim, hidden_dim=head_hidden_dim,
@@ -177,6 +179,9 @@ class DINOTrainer:
         teacher = copy.deepcopy(student)
         for p in teacher.parameters():
             p.requires_grad_(False)
+        for m in (*student.head.modules(), *teacher.head.modules()):
+            if isinstance(m, BatchNorm):
+                m.mesh = self.mesh
         for name, p in student.named_parameters():
             p.requires_grad_(self.trainable(name))
         return DINOState(student, teacher,

@@ -32,6 +32,28 @@ Scenarios, each on every rank:
   extract  the extraction CLI (`compute_feats.main`) over the ranks.
   nccl1    (card) a group of one rank on NCCL: an all-reduce, and one DINO
            step under the mesh bit for bit the step without a group.
+  sp, tp, sptp
+           one MIL step of 8 bags with `use_mesh=1` factored as sp=2, tp=2
+           or sp=2 × tp=2 (4 ranks) at ρ = 0 and no dropout against one
+           rank stepping them packed (outputs, the gradients before the
+           clip, the parameters); the step's collectives (the audit of
+           `parallel/collectives`), then a warm step with each all-reduce
+           timed; a step at ρ = 0.5 and dropout 0.1; every rank's whole
+           model's checksum; (sp, tiny) the training CLI with
+           `--use_mesh 1 --remat 1`.
+  remat    an sp=2 step at ρ = 0.5 and dropout 0.1 with remat and
+           without: outputs, gradients and parameters bitwise.
+  long     one bag of 4× the largest rows (40960 on the card) forward and
+           backward over sp=2 against one rank: scores, gradients, peak
+           memory.
+  ckpt:save, ckpt:restore
+           (two launches) a tp=2 trainer's state after a step saved by
+           `train/checkpoint.ShardedCheckpointManager`; fresh ranks read
+           it back once `saved_and_exited` says the savers have exited
+           (they may start before): each rank's shards' checksums and
+           shapes.
+  dino_bn  `dino` with the head's BatchNorms over the ranks
+           (`--use_bn_in_head`); keys prefixed dino_bn.
 
 Each rank reports the files it opened for writing under the workdir (an
 audit hook), its kernels' launch counts on the scenario's path (from 0
@@ -44,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import hashlib
 import json
 import os
@@ -69,6 +92,8 @@ MIL_ROWS = {"full": (10240, 10000, 10000), "tiny": (64, 40, 64)}
 MIL_BAGS, MIL_LR, MIL_CLIP = 8, 1e-3, 0.05
 # two SSL steps on the same batch: the second one's wall is a warm step's
 SSL_LR, SSL_STEPS = 1e-4, 2
+# the DINO head's Linear biases that a BatchNorm follows (use_bn_in_head)
+PRE_BN_BIASES = ("head.mlp.0.bias", "head.mlp.3.bias")
 # 2 ranks against 1 on the same global batch: the same arithmetic but for
 # where the gradient's sums are split, so f32 within a few roundings; bf16
 # activations round at other points when a GEMM's row count changes.
@@ -99,60 +124,95 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(scenario: str, workdir: str, world: int = 2, size: str = "tiny",
-           device: str = "cpu", backend: Optional[str] = None,
-           timeout: float = 120.0) -> List[dict]:
-    """Run `scenario` (or several, comma-separated, in one run) on `world`
-    ranks, each a process of this module with torchrun's environment and
-    2 OpenMP threads; returns their RESULT dicts in rank order.
-    Raises when a rank fails, prints no result, or any is still running
-    after `timeout` seconds (then every rank is killed)."""
-    port = str(free_port())
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
-                        "MASTER_PORT")}
-    env.update(MASTER_ADDR="localhost", MASTER_PORT=port,
-               WORLD_SIZE=str(world), OMP_NUM_THREADS="2",
-               PYTHONPATH=REPO + os.pathsep + env.get("PYTHONPATH", ""))
-    cmd = [sys.executable, "-m", "snuffy_tpu_torch.tools.multiproc_worker",
-           scenario, workdir, "--size", size, "--device", device]
-    if backend:
-        cmd += ["--backend", backend]
-    logs = [tempfile.TemporaryFile("w+") for _ in range(world)]
-    procs = []
-    try:
-        for r in range(world):
-            procs.append(subprocess.Popen(
-                cmd, env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
-                stdout=logs[r], stderr=subprocess.STDOUT, text=True,
-                cwd=REPO))
-        deadline = time.monotonic() + timeout
-        for p in procs:
-            try:
-                p.wait(timeout=max(deadline - time.monotonic(), 0.1))
-            except subprocess.TimeoutExpired:
-                raise TimeoutError(
-                    f"{scenario}: a rank is still running after {timeout} s "
-                    f"(a collective waiting on a rank?)\n"
-                    + _tails(logs)) from None
-        results = []
-        for r, (p, f) in enumerate(zip(procs, logs)):
-            f.seek(0)
-            text = f.read()
-            lines = [ln for ln in text.splitlines()
-                     if ln.startswith("RESULT ")]
-            if p.returncode != 0 or not lines:
-                raise RuntimeError(f"{scenario}: rank {r} exited "
-                                   f"{p.returncode}\n" + _tails(logs))
-            results.append(json.loads(lines[-1][len("RESULT "):]))
-        return results
-    finally:
-        for p in procs:
+class Launch:
+    """`scenario` (or several, comma-separated, in one run) started on
+    `world` ranks, each a process of this module with torchrun's
+    environment and 2 OpenMP threads. `results()` waits for them and
+    returns their RESULT dicts in rank order (each with "ready_at", the
+    time.time() at which its group was up, against this object's
+    `started_at`, and "scenario_s", each scenario's seconds); it raises when a rank
+    fails, prints no result, or any is still running `timeout` seconds
+    after the start (then every rank is killed). `close()` kills what
+    still runs."""
+
+    def __init__(self, scenario: str, workdir: str, world: int = 2,
+                 size: str = "tiny", device: str = "cpu",
+                 backend: Optional[str] = None, timeout: float = 120.0):
+        self.scenario, self.timeout = scenario, timeout
+        port = str(free_port())
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                            "MASTER_ADDR", "MASTER_PORT")}
+        env.update(MASTER_ADDR="localhost", MASTER_PORT=port,
+                   WORLD_SIZE=str(world), OMP_NUM_THREADS="2",
+                   PYTHONPATH=REPO + os.pathsep + env.get("PYTHONPATH", ""))
+        cmd = [sys.executable, "-m", "snuffy_tpu_torch.tools.multiproc_worker",
+               scenario, workdir, "--size", size, "--device", device]
+        if backend:
+            cmd += ["--backend", backend]
+        self.logs = [tempfile.TemporaryFile("w+") for _ in range(world)]
+        self.procs: List[subprocess.Popen] = []
+        self.deadline = time.monotonic() + timeout
+        self.started_at = time.time()
+        try:
+            for r in range(world):
+                self.procs.append(subprocess.Popen(
+                    cmd, env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+                    stdout=self.logs[r], stderr=subprocess.STDOUT,
+                    text=True, cwd=REPO))
+        except BaseException:
+            self.close()
+            raise
+
+    def results(self) -> List[dict]:
+        try:
+            for p in self.procs:
+                try:
+                    p.wait(timeout=max(self.deadline - time.monotonic(),
+                                       0.1))
+                except subprocess.TimeoutExpired:
+                    raise TimeoutError(
+                        f"{self.scenario}: a rank is still running after "
+                        f"{self.timeout} s (a collective waiting on a "
+                        "rank?)\n" + _tails(self.logs)) from None
+            results = []
+            for r, (p, f) in enumerate(zip(self.procs, self.logs)):
+                f.seek(0)
+                lines = [ln for ln in f.read().splitlines()
+                         if ln.startswith("RESULT ")]
+                if p.returncode != 0 or not lines:
+                    raise RuntimeError(f"{self.scenario}: rank {r} exited "
+                                       f"{p.returncode}\n"
+                                       + _tails(self.logs))
+                results.append(json.loads(lines[-1][len("RESULT "):]))
+            return results
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        for p in self.procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        for f in logs:
-            f.close()
+        for f in self.logs:
+            if not f.closed:
+                f.close()
+
+
+def launch(scenario: str, workdir: str, world: int = 2, size: str = "tiny",
+           device: str = "cpu", backend: Optional[str] = None,
+           timeout: float = 120.0) -> List[dict]:
+    """`Launch(...).results()`: start the ranks and wait for them."""
+    return Launch(scenario, workdir, world, size, device, backend,
+                  timeout).results()
+
+
+def saved_and_exited(workdir: str) -> None:
+    """Tell the ranks of a `ckpt:restore` launch, started early so that
+    their start-up overlaps other work, that the ranks of `ckpt:save`
+    have exited: they restore only then."""
+    with open(os.path.join(workdir, CKPT_GO), "w"):
+        pass
 
 
 def _tails(logs, n: int = 4000) -> str:
@@ -240,16 +300,21 @@ def flat_f32(tensors) -> torch.Tensor:
 def gradients_before_clip(trainer, kept: List[torch.Tensor]):
     """Inside it, each MIL step of `trainer` appends to `kept` the model's
     gradients as its clip receives them (summed over the ranks under a
-    mesh), and w's, flat."""
+    mesh; under tp the whole model's, gathered), and w's, flat."""
+    from snuffy_tpu_torch.parallel import collectives
+    from snuffy_tpu_torch.parallel.sharded_train import gather_state
     from snuffy_tpu_torch.train import trainer as trainer_mod
 
     clip = trainer_mod.clip_by_global_norm
 
-    def keeping(params, max_norm):
+    def keeping(params, max_norm, mesh=None, names=None):
         params = list(params)
-        kept.append(flat_f32([*(p.grad for p in params if p.grad is not None),
-                              trainer.w.grad]))
-        return clip(params, max_norm)
+        names = names or [str(i) for i in range(len(params))]
+        with collectives.audit():   # the check's gather, not the step's
+            grads = gather_state({n: p.grad for n, p in zip(names, params)
+                                  if p.grad is not None}, mesh)
+        kept.append(flat_f32([*grads.values(), trainer.w.grad]))
+        return clip(params, max_norm, mesh, names)
 
     trainer_mod.clip_by_global_norm = keeping
     try:
@@ -431,6 +496,22 @@ class KernelPath:
 
 # --------------------------------------------------------------- scenarios
 
+def mil_bags(size: str, d: int, device: torch.device, bags: int = MIL_BAGS,
+             rows=None, seed: int = 0):
+    """(feats (bags, n, d), masks, labels (bags, 1)): the same bags on
+    every rank, `rows` (n, least valid, most valid) or MIL_ROWS[size]."""
+    n_pad, lo, hi = rows or MIL_ROWS[size]
+    rng = np.random.default_rng(seed)
+    feats = torch.from_numpy(rng.standard_normal(
+        (bags, n_pad, d)).astype(np.float32)).to(device)
+    valid = rng.integers(lo, hi + 1, bags)
+    masks = (torch.arange(n_pad)[None] < torch.from_numpy(valid)[:, None]
+             ).to(device)
+    labels = torch.from_numpy(rng.integers(0, 2, (bags, 1)).astype(
+        np.float32)).to(device)
+    return feats, masks, labels
+
+
 def scenario_mil(out: dict, size: str, device: torch.device, work: str,
                  audit: WriteAudit) -> None:
     import dataclasses
@@ -479,15 +560,7 @@ def scenario_mil(out: dict, size: str, device: torch.device, work: str,
         model=model, soft_average=True, bag_batch_size=MIL_BAGS, seed=1,
         optim=OptimizerConfig(optimizer="adamw", lr=MIL_LR,
                               weight_decay=5e-2, clip_grad=MIL_CLIP))
-    rng = np.random.default_rng(0)   # the same bags on every rank
-    d = cfg.model.feats_size
-    feats = torch.from_numpy(rng.standard_normal(
-        (MIL_BAGS, n_pad, d)).astype(np.float32)).to(device)
-    valid = rng.integers(lo, hi + 1, MIL_BAGS)
-    masks = (torch.arange(n_pad)[None] < torch.from_numpy(valid)[:, None]
-             ).to(device)
-    labels = torch.from_numpy(rng.integers(0, 2, (MIL_BAGS, 1)).astype(
-        np.float32)).to(device)
+    feats, masks, labels = mil_bags(size, cfg.model.feats_size, device)
     tail_w = (torch.arange(MIL_BAGS) < 3).float().to(device)
     tail = [torch.where(tail_w.bool().view(-1, *[1] * (t.dim() - 1)), t,
                         torch.zeros_like(t)) for t in (feats, masks, labels)]
@@ -643,7 +716,8 @@ MAE_TINY = ["--model=mae_vit_base_patch16", "--batch_size=4",
 
 
 def scenario_dino(out: dict, size: str, device: torch.device, work: str,
-                  audit: WriteAudit) -> None:
+                  audit: WriteAudit, use_bn: bool = False,
+                  dtype: Optional[str] = None) -> None:
     from snuffy_tpu_torch import main_dino_adapter as cli
     from snuffy_tpu_torch.parallel import distributed
     from snuffy_tpu_torch.parallel.ssl_sharding import (
@@ -656,7 +730,9 @@ def scenario_dino(out: dict, size: str, device: torch.device, work: str,
     mesh = distributed_mesh()
     flags = (DINO_TINY + ["--compute_dtype=float32"] if size == "tiny"
              else ["--batch_size_per_gpu", str(64 // mesh.size)])
-    flags = flags + ["--drop_path_rate=0", f"--device={device}"]
+    flags = flags + ["--drop_path_rate=0", f"--device={device}"] + (
+        ["--use_bn_in_head=true"] if use_bn else []) + (
+        [f"--compute_dtype={dtype}"] if dtype else [])
     args = cli.get_args_parser().parse_args(flags)
     n = args.batch_size_per_gpu * mesh.size
     u8 = torch.from_numpy(np.random.default_rng(1).integers(
@@ -714,15 +790,33 @@ def scenario_dino(out: dict, size: str, device: torch.device, work: str,
         tol = PARAM_TOL[args.compute_dtype]
         out["dino_loss"] = [loss, float(loss1)]
         out["dino_grads"] = [rel_err(a, b) for a, b in zip(grads, grads1)]
+        named = trainer1.trainable_params(state1.student)
+        out["dino_grad_worst"] = worst_tensor(
+            [n for n, _ in named], [p.numel() for _, p in named], grads[-1],
+            grads1[-1])
         out["dino_center"] = rel_err(state.center, state1.center)
+        want = state1.student.state_dict()
+        # with BatchNorms in the head, the biases of the Linears before
+        # them have a true gradient of 0: Adam moves them by up to lr a
+        # step on rounding noise alone (held to 2·lr·steps by themselves)
+        noise = [k for k in want if use_bn and k.endswith(PRE_BN_BIASES)]
         out["dino_student"] = compare_params(
-            state.student.state_dict(), state1.student.state_dict(), tol)
+            state.student.state_dict(),
+            {k: v for k, v in want.items() if k not in noise}, tol)
+        if noise:
+            out["dino_noise_biases"] = compare_params(
+                state.student.state_dict(),
+                {k: want[k] for k in noise}, tol)[0]
         out["dino_teacher"] = compare_params(
             state.teacher.state_dict(), state1.teacher.state_dict(), tol)
         del trainer1, state1, grads1
     out["dino_kernel_errors"] = path.checked()
+    if use_bn:
+        out["dino_running"] = digest(
+            [b for net in (state.student, state.teacher)
+             for n, b in net.named_buffers() if "running" in n])
     del trainer, state, g, loc, u8, grads
-    if size == "tiny":
+    if size == "tiny" and not use_bn:
         out["dino_cli"] = dino_cli(cli, work, audit)
 
 
@@ -914,9 +1008,398 @@ def scenario_nccl1(out: dict, size: str, device: torch.device, work: str,
     out["nccl1_bitwise"] = digests[0] == digests[1]
 
 
+
+# ------------------------------------------------ sp, tp, remat, checkpoints
+
+# the factoring each scenario forces on use_mesh=1: (dp, sp, tp)
+MESH_SPECS = {"sp": (1, 2, 1), "tp": (1, 1, 2), "sptp": (1, 2, 2)}
+# the card's long bag: 4× the largest bucket, its rows split over sp=2
+LONG_ROWS = 40960
+CKPT_DIR = "ckpt"
+CKPT_GO = "ckpt.go"     # written by `saved_and_exited`
+# the one-rank step the sp, tp and sp×tp steps are held to, kept in the
+# process (rank 0) for the next scenario of the same launch
+_ONE_RANK: Dict[str, dict] = {}
+
+
+@contextlib.contextmanager
+def factored_as(spec):
+    """Inside it, the trainer's use_mesh=1 factors the ranks as `spec` (a
+    MeshSpec) in place of `factor_devices`' default."""
+    from snuffy_tpu_torch.train import trainer as trainer_mod
+
+    factor = trainer_mod.factor_devices
+    trainer_mod.factor_devices = lambda n, procs=1: spec
+    try:
+        yield
+    finally:
+        trainer_mod.factor_devices = factor
+
+
+def mesh_cfg(size: str, rho: float = 0.0, rate: float = 0.0,
+             remat: bool = False, use_mesh: int = 1):
+    from snuffy_tpu_torch.configs import (
+        MILTrainConfig,
+        OptimizerConfig,
+        SnuffyModelConfig,
+    )
+
+    model = SnuffyModelConfig(**MIL[size], random_patch_share=rho,
+                              attention_dropout=rate, remat=remat)
+    return MILTrainConfig(
+        model=model, soft_average=True, bag_batch_size=MIL_BAGS, seed=1,
+        use_mesh=use_mesh,
+        optim=OptimizerConfig(optimizer="adamw", lr=MIL_LR,
+                              weight_decay=5e-2, clip_grad=MIL_CLIP))
+
+
+def mesh_trainer(cfg, device, spec=None):
+    """A trainer on `spec`'s mesh (None: no mesh), at its init state."""
+    from snuffy_tpu_torch.train.trainer import SnuffyTrainer
+
+    if spec is None:
+        trainer = SnuffyTrainer(cfg, device)
+    else:
+        with factored_as(spec):
+            trainer = SnuffyTrainer(cfg, device)
+    trainer.init_state(cfg.seed)
+    trainer.model.train()
+    trainer.set_lr(MIL_LR)
+    return trainer
+
+
+def mil_gens(device: torch.device, i: int):
+    return (torch.Generator(device).manual_seed(11 + i),
+            torch.Generator().manual_seed(12 + i))
+
+
+def whole_params(trainer) -> Dict[str, torch.Tensor]:
+    state, w = trainer.state_dict()
+    return {**state, "w": torch.tensor(w)}
+
+
+def audit_rows(records) -> List[list]:
+    """[axis, what, shape, elements, bytes(, seconds)] a collective."""
+    return [[r["axis"], r["what"], r["shape"], r["numel"], r["bytes"]]
+            + ([r["s"]] if "s" in r else []) for r in records]
+
+
+def one_rank_reference(size: str, device: torch.device, batch) -> dict:
+    """One rank stepping all the bags packed, from the same weights: the
+    outputs, the gradients before the clip and the parameters."""
+    key = f"{size}:{device}"
+    if key not in _ONE_RANK:
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        trainer = mesh_trainer(mesh_cfg(size, use_mesh=0), device)
+        grads = []
+        t0 = time.perf_counter()
+        with gradients_before_clip(trainer, grads):
+            got = trainer.packed_train_step(*batch, *mil_gens(device, 0))
+        sync(device)
+        _ONE_RANK[key] = {"out": [t.cpu() for t in got], "grads": grads,
+                          "params": whole_params(trainer),
+                          "s": time.perf_counter() - t0,
+                          "peak": peak_memory(device)}
+    return _ONE_RANK[key]
+
+
+def scenario_mesh(kind: str, out: dict, size: str, device: torch.device,
+                  work: str, audit: WriteAudit) -> None:
+    """One step of 8 bags on the `kind` mesh (use_mesh=1 factored as
+    MESH_SPECS[kind]) at ρ = 0 and no dropout against one rank stepping
+    them packed; the collectives of the step; a step at ρ = 0.5 and rate
+    0.1; K1/K2's first launches at the new shapes."""
+    from snuffy_tpu_torch.parallel import collectives, distributed
+    from snuffy_tpu_torch.parallel.mesh import MeshSpec
+    from snuffy_tpu_torch.parallel.sharded_train import (
+        make_sharded_batch_train_step,
+    )
+
+    spec = MeshSpec(*MESH_SPECS[kind])
+    cfg = mesh_cfg(size)
+    feats, masks, labels = mil_bags(size, cfg.model.feats_size, device)
+    batch = (feats, masks, labels, torch.ones(MIL_BAGS, device=device))
+    trainer = mesh_trainer(cfg, device, spec)
+    mesh = trainer.mesh
+    out[f"{kind}_mesh"] = [mesh.rank, mesh.size, mesh.sp_rank, mesh.sp,
+                           mesh.tp_rank, mesh.tp]
+    out[f"{kind}_dtype"] = cfg.model.compute_dtype
+    step = make_sharded_batch_train_step(trainer, mesh)
+    path, grads = KernelPath(device), []
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with path.run(), gradients_before_clip(trainer, grads), \
+            collectives.audit() as records:
+        got = step(*batch, *mil_gens(device, 0))
+    sync(device)
+    out[f"{kind}_step_s_ranks"] = [time.perf_counter() - t0]
+    out[f"{kind}_peak_bytes"] = peak_memory(device)
+    out[f"{kind}_launches"] = path.launches
+    out[f"{kind}_audit"] = audit_rows(records)
+    params = whole_params(trainer)
+    out[f"{kind}_digest"] = digest(params.values())
+    out[f"{kind}_n_params"] = sum(p.numel() for p in params.values())
+    out[f"{kind}_local_params"] = sum(
+        p.numel() for p in trainer.model.parameters()) + 1
+    if distributed.rank() == 0:
+        one = one_rank_reference(size, device, batch)
+        out[f"{kind}_step_s_one"] = [one["s"]]
+        out[f"{kind}_peak_bytes_one"] = one["peak"]
+        out[f"{kind}_errors"] = [rel_err(a, b)
+                                 for a, b in zip(got, one["out"])]
+        out[f"{kind}_grads"] = [rel_err(a, b)
+                                for a, b in zip(grads, one["grads"])]
+        out[f"{kind}_params"] = compare_params(
+            params, one["params"], PARAM_TOL[cfg.model.compute_dtype])
+    out[f"{kind}_kernel_errors"] = path.checked()
+    # a warm step, each all-reduce timed (the device synchronised around)
+    t0 = time.perf_counter()
+    with collectives.audit(timed=True) as records:
+        step(*batch, *mil_gens(device, 1))
+    sync(device)
+    out[f"{kind}_step_s_ranks"].append(time.perf_counter() - t0)
+    out[f"{kind}_audit_timed"] = audit_rows(records)
+    del trainer, step, got, grads
+    # the training point's randomness: every replica the same bits
+    rand = mesh_trainer(mesh_cfg(size, rho=0.5, rate=0.1), device, spec)
+    losses, scores, _ = make_sharded_batch_train_step(rand, rand.mesh)(
+        *batch, *mil_gens(device, 2))
+    out[f"{kind}_rand_finite"] = bool(torch.isfinite(losses).all()
+                                      and torch.isfinite(scores).all())
+    out[f"{kind}_rand_digest"] = digest(whole_params(rand).values())
+    del rand
+
+
+def scenario_sp(out, size, device, work, audit):
+    scenario_mesh("sp", out, size, device, work, audit)
+    if size == "tiny":
+        out["mesh_cli"] = mesh_cli(work, audit)
+
+
+def scenario_tp(out, size, device, work, audit):
+    scenario_mesh("tp", out, size, device, work, audit)
+
+
+def scenario_sptp(out, size, device, work, audit):
+    scenario_mesh("sptp", out, size, device, work, audit)
+
+
+def scenario_remat(out: dict, size: str, device: torch.device, work: str,
+                   audit: WriteAudit) -> None:
+    """One step on the sp mesh at ρ = 0.5 and rate 0.1 with remat and
+    without, from the same weights and generators: outputs and gradients
+    bitwise equal; K1's launches and the peak memory of each."""
+    from snuffy_tpu_torch.parallel.mesh import MeshSpec
+    from snuffy_tpu_torch.parallel.sharded_train import (
+        make_sharded_batch_train_step,
+    )
+
+    spec = MeshSpec(*MESH_SPECS["sp"])
+    feats, masks, labels = mil_bags(size, MIL[size]["feats_size"], device)
+    batch = (feats, masks, labels, torch.ones(MIL_BAGS, device=device))
+    got = {}
+    for remat in (False, True):
+        trainer = mesh_trainer(mesh_cfg(size, 0.5, 0.1, remat), device, spec)
+        step = make_sharded_batch_train_step(trainer, trainer.mesh)
+        path, grads = KernelPath(device), []
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        with path.run(), gradients_before_clip(trainer, grads):
+            outs = step(*batch, *mil_gens(device, 3))
+        got[remat] = (outs, grads, whole_params(trainer))
+        out[f"remat{int(remat)}_launches"] = path.launches
+        out[f"remat{int(remat)}_peak_bytes"] = peak_memory(device)
+        del trainer, step
+    (o0, g0, p0), (o1, g1, p1) = got[False], got[True]
+    out["remat_bitwise"] = {
+        "outputs": all(torch.equal(a, b) for a, b in zip(o0, o1)),
+        "grads": all(torch.equal(a, b) for a, b in zip(g0, g1)),
+        "params": all(torch.equal(p0[k], p1[k]) for k in p0)}
+
+
+def scenario_long(out: dict, size: str, device: torch.device, work: str,
+                  audit: WriteAudit) -> None:
+    """One bag of LONG_ROWS rows (the CPU: 4× the tiny bucket), forward
+    and backward under sp = 2 against one rank: scores, the gradients,
+    peak memory."""
+    from snuffy_tpu_torch.models.snuffy import build_milnet
+    from snuffy_tpu_torch.parallel import distributed
+    from snuffy_tpu_torch.parallel.collectives import all_reduce_
+    from snuffy_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from snuffy_tpu_torch.parallel.sharded_train import partial_axes
+    from snuffy_tpu_torch.train.losses import mixed_mil_loss
+
+    rows = LONG_ROWS if size == "full" else 4 * MIL_ROWS["tiny"][0]
+    cfg = mesh_cfg(size).model
+    feats, masks, labels = mil_bags(size, cfg.feats_size, device, bags=1,
+                                    rows=(rows, rows - 7, rows - 7), seed=5)
+    mesh = make_mesh(MeshSpec(*MESH_SPECS["sp"]))
+    w = torch.tensor(0.5, device=device)
+
+    def fwd_bwd(model, f, m, msh):
+        model.train()
+        if device.type == "cuda":
+            sync(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        ins, bag = model(f, m, generator=torch.Generator(device).manual_seed(
+            1), seed_generator=torch.Generator().manual_seed(2))
+        loss, score = mixed_mil_loss(ins, bag, labels[0], m, w, mesh=msh)
+        loss.backward()
+        sync(device)
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        return (torch.sigmoid(ins.detach()), score.detach(), grads,
+                time.perf_counter() - t0, peak_memory(device))
+
+    per = rows // 2
+    mine = slice(mesh.sp_rank * per, (mesh.sp_rank + 1) * per)
+    model = build_milnet(cfg, 1, device, mesh=mesh)
+    path = KernelPath(device)
+    with path.run():
+        ins, score, grads, s, peak = fwd_bwd(model, feats[0, mine],
+                                             masks[0, mine], mesh)
+    out["long_launches"] = path.launches
+    for name, g in grads.items():
+        if "sp" in partial_axes(name, mesh):
+            all_reduce_(g, mesh, "sp", "gradients")
+    ins_all = torch.cat(distributed.host_allgather_tensor(ins), dim=0)
+    out["long_s_ranks"], out["long_peak_bytes"] = s, peak
+    out["long_rows"] = rows
+    if distributed.rank() == 0:
+        one = build_milnet(cfg, 1, device)
+        ins1, score1, grads1, s1, peak1 = fwd_bwd(one, feats[0], masks[0],
+                                                  None)
+        out["long_s_one"], out["long_peak_bytes_one"] = s1, peak1
+        out["long_errors"] = [rel_err(ins_all, ins1), rel_err(score, score1)]
+        out["long_grads"] = rel_err(flat_f32(grads.values()),
+                                    flat_f32(grads1.values()))
+    out["long_kernel_errors"] = path.checked()
+    del model, grads
+
+
+def scenario_ckpt(out: dict, size: str, device: torch.device, work: str,
+                  audit: WriteAudit, phase: str) -> None:
+    """save: a step on the tp mesh, then the sharded checkpoint of its
+    state (each rank its blocks); restore (a fresh launch): the state of
+    a fresh trainer read back from it. Each rank reports its shards'
+    checksums and shapes, and (save) the files it wrote."""
+    from snuffy_tpu_torch.parallel.mesh import MeshSpec
+    from snuffy_tpu_torch.parallel.sharded_train import (
+        make_sharded_batch_train_step,
+    )
+    from snuffy_tpu_torch.train.checkpoint import ShardedCheckpointManager
+
+    trainer = mesh_trainer(mesh_cfg(size), device,
+                           MeshSpec(*MESH_SPECS["tp"]))
+    while phase == "restore" and not os.path.exists(
+            os.path.join(work, CKPT_GO)):
+        time.sleep(0.1)    # the launch's timeout ends a wait that hangs
+    mgr = ShardedCheckpointManager(os.path.join(work, CKPT_DIR),
+                                   max_to_keep=2, mesh=trainer.mesh)
+    if phase == "save":
+        feats, masks, labels = mil_bags(size, MIL[size]["feats_size"],
+                                        device)
+        make_sharded_batch_train_step(trainer, trainer.mesh)(
+            feats, masks, labels, torch.ones(MIL_BAGS, device=device),
+            *mil_gens(device, 4))
+        state = trainer.sharded_state()
+        audit.take()
+        t0 = time.perf_counter()
+        mgr.save(1, state, metrics={"valid_auc": 0.75})
+        out["ckpt_save_s"] = time.perf_counter() - t0
+        out["ckpt_writes"] = audit.take()
+    else:
+        t0 = time.perf_counter()
+        state = mgr.restore(mgr.latest_step(), trainer.sharded_state())
+        out["ckpt_restore_s"] = time.perf_counter() - t0
+        trainer.load_sharded_state(state)
+        state = trainer.sharded_state()
+        out["ckpt_steps"] = [mgr.all_steps(), mgr.best_step()]
+    out[f"ckpt_{phase}_shards"] = {k: [digest([v]), list(v.shape)]
+                                   for k, v in state.items()}
+    out["ckpt_tp_rank"] = trainer.mesh.tp_rank
+
+
+def scenario_dino_bn(out: dict, size: str, device: torch.device, work: str,
+                     audit: WriteAudit, dtype: Optional[str] = None) -> None:
+    """`scenario_dino` with the head's BatchNorms (`--use_bn_in_head`),
+    their statistics over the ranks, in `dtype` (the CLI's default, or
+    float32); its keys prefixed dino_bn (dino_bn32 in float32)."""
+    got: dict = {}
+    scenario_dino(got, size, device, work, audit, use_bn=True, dtype=dtype)
+    prefix = "dino_bn32" if dtype == "float32" else "dino_bn"
+    out.update({k.replace("dino", prefix, 1): v for k, v in got.items()})
+
+
+def worst_tensor(names, numels, got, want) -> list:
+    """[name, |diff| / max |want| of the tensor, its max |want|] of the
+    tensor of the flat `got` farthest from `want`, relative to max |want|
+    of the whole."""
+    scale = max(float(want.abs().max()), 1e-30)
+    worst = ["", 0.0, 0.0]
+    for name, a, b in zip(names, got.split(numels), want.split(numels)):
+        err = float((a - b).abs().max()) / scale
+        if err > worst[1]:
+            worst = [name, err, float(b.abs().max())]
+    return worst
+
+
+def mesh_cli(work: str, audit: WriteAudit) -> dict:
+    """The training CLI with --use_mesh 1 --remat 1 over the ranks on a
+    tiny Camelyon16-layout tree: → the files this rank wrote, the summary's
+    best epoch, and the best .pth's digest as the one-rank model loads
+    it."""
+    from snuffy_tpu_torch.embed.pipeline import (
+        save_class_features,
+        write_bag_csv,
+    )
+    from snuffy_tpu_torch.parallel import distributed
+    from snuffy_tpu_torch.train import cli
+
+    root = os.path.join(work, "cli")
+    if distributed.rank() == 0:
+        rng = np.random.default_rng(9)
+        out_dir = os.path.join(root, "embeddings", "camelyon16", "dino")
+        for split, count in (("train", 8), ("valid", 4), ("test", 4)):
+            for i in range(count):
+                x = rng.standard_normal((18, 16)).astype(np.float32)
+                x[:4] += 2.0 * (i % 2)
+                write_bag_csv(os.path.join(out_dir, split, f"class{i % 2}",
+                                           f"{split}_{i}.csv"), x)
+        save_class_features(out_dir, "camelyon16.csv", seed=1)
+    distributed.barrier("cli tree written")
+    cwd = os.getcwd()
+    os.chdir(root)
+    audit.take()
+    try:
+        summary = cli.main([
+            "--dataset=camelyon16", "--embedding=dino", "--feats_size=16",
+            "--num_heads=2", "--big_lambda=8", "--random_patch_share=0.5",
+            "--num_epochs=2", "--lr=2e-3", "--optimizer=adamw",
+            "--bag_batch_size=2", "--use_mesh=1", "--remat=1",
+            "--wandb_run=run", "--use_mp=0", "--device=cpu"])
+    finally:
+        os.chdir(cwd)
+    writes = audit.take()
+    pth = os.path.join(root, "runs", "camelyon16", "run",
+                       f"{summary['best_epoch']}.pth")
+    return {"writes": writes, "best_epoch": summary["best_epoch"],
+            "pth": os.path.relpath(pth, work)}
+
+
 SCENARIOS = {"mil": scenario_mil, "dino": scenario_dino,
              "mae": scenario_mae, "extract": scenario_extract,
-             "nccl1": scenario_nccl1}
+             "nccl1": scenario_nccl1, "sp": scenario_sp,
+             "tp": scenario_tp, "sptp": scenario_sptp,
+             "remat": scenario_remat, "long": scenario_long,
+             "ckpt:save": functools.partial(scenario_ckpt, phase="save"),
+             "ckpt:restore": functools.partial(scenario_ckpt,
+                                               phase="restore"),
+             "dino_bn": scenario_dino_bn,
+             "dino_bn:f32": functools.partial(scenario_dino_bn,
+                                              dtype="float32")}
 
 
 def main(argv=None) -> int:
@@ -945,12 +1428,15 @@ def main(argv=None) -> int:
         out = {"rank": distributed.rank(),
                "world": distributed.world_size(),
                "backend": str(torch.distributed.get_backend()),
-               "device": str(device)}
+               "device": str(device), "ready_at": time.time(),
+               "scenario_s": {}}
         for name in names:
             if device.type == "cuda":
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
             SCENARIOS[name](out, args.size, device, args.workdir, audit)
+            out["scenario_s"][name] = time.perf_counter() - t0
         distributed.barrier("scenario done")
     print("RESULT " + json.dumps(out), flush=True)
     return 0

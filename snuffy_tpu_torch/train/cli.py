@@ -20,9 +20,8 @@ official`, `embeddings/<dataset>/official/<Dataset>.csv` split by
 `--split`. Runs, checkpoints and metrics go to `runs/<dataset>/<run>/`.
 
 Flags that select machinery only the JAX package has are accepted at
-their defaults and refused at any other value: `--bag_batch_impl vmap`,
-`--use_mesh 1` and `--remat 1` (sp/tp meshes and remat are Slice 7b), and
-`--use_pallas 0` on the card (the card runs the attention kernels; the
+their defaults and refused at any other value: `--bag_batch_impl vmap`
+and `--use_pallas 0` on the card (the card runs the attention kernels; the
 CPU runs their plain versions whatever the flag). `--gpu_index` picks the
 card when `--device` is `cuda`; `--num_processes` is the loader's pool
 size; `--wandb_run` names the run.
@@ -32,6 +31,13 @@ Several GPUs: `torchrun --nproc_per_node N -m snuffy_tpu_torch.train ...
 each rank on `cuda:LOCAL_RANK`); with B a multiple of N each packed step
 of B bags splits into B/N bags a rank and one optimizer step, and rank 0
 alone writes the run's files. Otherwise every rank runs the whole run.
+`--use_mesh 1` factors the N ranks into dp × sp × tp
+(`parallel/mesh.factor_devices`, the hosts from torchrun's
+LOCAL_WORLD_SIZE): sp takes 2 where a host's ranks are even (each bag's
+rows split over 2 ranks), tp 2 where 8 or more remain (the encoder's
+heads and FFN columns split), dp the rest, and B must divide over dp.
+`--remat 1` recomputes each encoder layer's activations in the backward.
+rank 0 writes one whole-model `.pth`, which the one-card CLIs load.
 """
 
 from __future__ import annotations
@@ -130,11 +136,12 @@ def get_args_parser():
                         help="packed only ('vmap' is the JAX package's)")
     parser.add_argument("--use_mesh", default=None, type=int,
                         choices=[0, 1],
-                        help="unset or 0: one card (1, the JAX package's "
-                             "dp*sp*tp mesh, is refused)")
+                        help="unset: a dp mesh over the ranks when "
+                             "bag_batch_size divides over them; 0: none; "
+                             "1: the dp*sp*tp factoring of the ranks")
     parser.add_argument("--remat", default=0, choices=[0, 1], type=int,
-                        help="0 only (1, the JAX package's rematerialised "
-                             "encoder, is refused)")
+                        help="rematerialise each encoder layer in the "
+                             "backward (torch.utils.checkpoint)")
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (the card, --gpu_index) or cpu")
     return parser
@@ -205,13 +212,6 @@ def resolve_device(args) -> torch.device:
         (args.bag_batch_impl != "packed",
          "--bag_batch_impl vmap maps a per-bag graph with jax.vmap; the "
          "port packs bags on the row axis (packed)"),
-        (args.use_mesh == 1,
-         "--use_mesh 1 builds the JAX package's dp*sp*tp device mesh; the "
-         "port's mesh is data-parallel over the ranks (sp and tp are Slice "
-         "7b)"),
-        (args.remat == 1,
-         "--remat 1 rematerialises encoder layers with jax.checkpoint; "
-         "the port does not yet (Slice 7b)"),
     ]
     device = distributed.rank_device(args.device)
     if device.type == "cuda":

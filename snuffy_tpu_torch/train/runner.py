@@ -25,7 +25,8 @@ masks by `eval/froc.froc_for_slides`; `reference.csv` is read with the
 csv module.
 
 Over several ranks (`parallel/distributed.py`) every rank trains and
-evaluates (the trainer splits the packed steps over them); rank 0 alone
+evaluates (the trainer splits the packed steps over them; under an sp/tp
+mesh every rank gathers the whole model before a save); rank 0 alone
 writes the checkpoints, threshold files, ROC dumps, `summary.json` and
 the clean-up (`primary_only`), and the ranks meet at a barrier before
 they read the best and last epochs' files back. `save_path` is shared by
@@ -318,9 +319,14 @@ class Runner:
         return os.path.join(self.save_dir,
                             f"{epoch}_single_weight_parameter.pth")
 
-    @distributed.primary_only
     def save_checkpoint(self, epoch: int, valid_res: dict) -> None:
-        model_state, w = self.trainer.state_dict()
+        """Every rank: the whole model (under tp the ranks gather it
+        together); rank 0 writes it."""
+        self._write_checkpoint(epoch, valid_res, *self.trainer.state_dict())
+
+    @distributed.primary_only
+    def _write_checkpoint(self, epoch: int, valid_res: dict, model_state,
+                          w: float) -> None:
         torch.save(model_state, self._ckpt_path(epoch))
         torch.save(torch.tensor(w, dtype=torch.float32), self._w_path(epoch))
         thresholds = {

@@ -27,22 +27,21 @@ from snuffy_tpu_torch.data.bags import load_split
 from snuffy_tpu_torch.embed.pipeline import extract_dataset
 
 
-@pytest.fixture(scope="module")
-def jax_native():
-    """`snuffy_tpu.native` with its library loaded. Another process may be
-    building or writing `libsnuffy_native.so` when this one first asks,
-    and the JAX module then remembers the failure for the whole process
-    (`_build_failed`): under a lock that keeps this file's processes to
-    one build at a time, clear the flag and ask again until a complete
-    library loads, for up to 300 s."""
+def load_jax_native(mp: pytest.MonkeyPatch, seconds: float = 300.0):
+    """`snuffy_tpu.native`'s library, or None after `seconds`. Another
+    process may be building or writing `libsnuffy_native.so` when this one
+    first asks, and the JAX module then remembers the failure for the
+    whole process (`_build_failed`): under a lock that keeps the test
+    processes to one build at a time, clear the flag (by `mp`) and ask
+    again until a complete library loads."""
     from snuffy_tpu import native as jax_mod
 
     lock_path = os.path.join(tempfile.gettempdir(),
                              "snuffy_tpu_native_build.lock")
-    with pytest.MonkeyPatch.context() as mp, open(lock_path, "w") as lock:
+    with open(lock_path, "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
-            deadline = time.monotonic() + 300.0
+            deadline = time.monotonic() + seconds
             lib = jax_mod.get_lib()
             while lib is None and time.monotonic() < deadline:
                 time.sleep(1.0)
@@ -50,7 +49,17 @@ def jax_native():
                 lib = jax_mod.get_lib()
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
-        if lib is None:
+    return lib
+
+
+@pytest.fixture(scope="module")
+def jax_native():
+    """`snuffy_tpu.native` with its library loaded (`load_jax_native`), or
+    the test fails."""
+    from snuffy_tpu import native as jax_mod
+
+    with pytest.MonkeyPatch.context() as mp:
+        if load_jax_native(mp) is None:
             pytest.fail(f"snuffy_tpu.native could not build or load "
                         f"{jax_mod._SO} within 300 s")
         yield jax_mod

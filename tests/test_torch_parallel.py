@@ -2,8 +2,8 @@
 
 In-process: the bootstrap without torchrun's environment (nothing
 changes), WORLD_SIZE=2 with no rendezvous address (a clear error), the
-rank's device and batch block, the mesh's refusals of sp and tp (Slice
-7b), the collectives' identity without a group, and the 1-rank steps the
+rank's device and batch block, the trainer's mesh rule, the collectives'
+identity without a group, and the 1-rank steps the
 2-rank tests (tests/test_torch_multiproc.py) are held to, against the JAX
 package's data-parallel steps on its 8 virtual CPU devices (the pattern of
 tests/test_parallel.py:114,174,213): the MIL packed step against
@@ -137,13 +137,6 @@ def test_gradient_buckets_split_by_dtype_and_size():
 
 # ------------------------------------------------------------- the mesh
 
-@pytest.mark.parametrize("spec", [MeshSpec(1, 2, 1), MeshSpec(1, 1, 2),
-                                  MeshSpec(2, 2, 2, dcn=2)])
-def test_sequence_and_tensor_parallel_meshes_are_slice_7b(spec):
-    with pytest.raises(NotImplementedError, match="Slice 7b"):
-        make_mesh(spec)
-
-
 def test_mesh_spans_the_ranks():
     with pytest.raises(ValueError, match="1 rank"):
         make_mesh(MeshSpec(dcn=2))
@@ -159,15 +152,17 @@ def test_trainer_mesh_follows_the_jax_rule(monkeypatch):
     monkeypatch.setattr(distributed, "world_size", lambda: 2)
     made = []
     monkeypatch.setattr(trainer_mod, "make_mesh",
-                        lambda spec: made.append(spec) or "mesh")
+                        lambda spec, **kw: made.append(spec) or "mesh")
     assert trainer_mod._maybe_mesh(cfg) == "mesh"
     assert made == [MeshSpec(1, 1, 1, dcn=2)]
     for kw in (dict(bag_batch_size=1), dict(bag_batch_size=3),
                dict(bag_batch_size=4, use_mesh=0)):
         assert trainer_mod._maybe_mesh(
             dataclasses.replace(cfg, **kw)) is None, kw
-    with pytest.raises(NotImplementedError, match="Slice 7b"):
-        trainer_mod._maybe_mesh(dataclasses.replace(cfg, use_mesh=1))
+    # use_mesh=1: the dp×sp×tp factoring, sp = 2 on two ranks of a host
+    assert trainer_mod._maybe_mesh(
+        dataclasses.replace(cfg, use_mesh=1)) == "mesh"
+    assert made[-1] == MeshSpec(1, 2, 1)
 
 
 # ------------------------------------ 1-rank steps against the JAX dp steps

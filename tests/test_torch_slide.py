@@ -45,11 +45,27 @@ from snuffy_tpu_torch.tiling.deepzoom import (
     area_resize,
     edge_energy,
 )
+from tests.test_torch_bags import load_jax_native
 from tests.test_torch_serve import CFG, REPO, TOL, VIT
 
-needs_native = pytest.mark.skipif(
-    not (native.available() and jax_native.available()),
-    reason="native slide reader unavailable (g++, libtiff or libjpeg)")
+
+
+@pytest.fixture(scope="module")
+def native_libs():
+    """The port's slide reader and the JAX package's library, both loaded:
+    the JAX build is waited for as tests/test_torch_bags.py waits for it
+    (another test process may be writing it), and a library that does not
+    load fails the test."""
+    if not native.available():
+        pytest.fail("the port's slide reader did not build or load (g++, "
+                    "libtiff or libjpeg)")
+    with pytest.MonkeyPatch.context() as mp:
+        if load_jax_native(mp) is None:
+            pytest.fail("snuffy_tpu.native did not build or load in 300 s")
+        yield
+
+
+needs_native = pytest.mark.usefixtures("native_libs")
 NATIVE_DIR = os.path.dirname(native.SOURCE)
 # The slide geometry of tests/test_slide_inference.py: level 0 read at its
 # own size, so the tile grid is aligned and the streaming path applies.
@@ -408,9 +424,7 @@ def models():
 
 
 @pytest.fixture(scope="module")
-def jpeg_slide():
-    if not (native.available() and jax_native.available()):
-        pytest.skip("native slide reader unavailable")
+def jpeg_slide(native_libs):
     d = tempfile.mkdtemp()
     path = os.path.join(d, "tumor_002.tif")
     tissue, _ = make_jpeg_slide(path, grid=6)

@@ -235,8 +235,6 @@ def test_cli_runs_with_jax_blocked(tmp_path, monkeypatch, recipe):
 
 @pytest.mark.parametrize("flags, reason", [
     (["--bag_batch_impl=vmap"], "vmap"),
-    (["--use_mesh=1"], "mesh"),
-    (["--remat=1"], "remat"),
     (["--use_pallas=0"], "kernels"),
     (["--gpu_index", "0", "1"], "one card"),
 ])
@@ -244,6 +242,19 @@ def test_refused_flags_raise_with_the_reason(flags, reason):
     args = cli.get_args_parser().parse_args(flags)
     with pytest.raises(ValueError, match=reason):
         cli.resolve_device(args)
+
+
+@pytest.mark.parametrize("flags, field, value", [
+    (["--use_mesh=1", "--bag_batch_size=4"], "use_mesh", 1),
+    (["--remat=1"], "remat", True),
+])
+def test_mesh_and_remat_flags_reach_the_config(flags, field, value):
+    """--use_mesh 1 (the dp×sp×tp factoring over torchrun's ranks) and
+    --remat 1 run: the device resolves and the flag reaches the config."""
+    args = cli.get_args_parser().parse_args(flags + ["--device=cpu"])
+    assert str(cli.resolve_device(args)) == "cpu"
+    cfg = cli.build_config(args)
+    assert getattr(cfg.model if field == "remat" else cfg, field) == value
 
 
 def test_device_flags():
