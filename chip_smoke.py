@@ -232,14 +232,27 @@ per kernel, all at once), then:
      the readings (MESH_LOSS_TOL, MESH_GRAD_TOL, LONG_TOL, BN_TOL). Each
      rank holds its K1/K2 first launches at each new shape against the
      plain versions (2^-7).
+  17. a traced serve request, run right after phase 5 with its models:
+     the first TRACE_TILES tiles of phase 5's 10000-tile request (two
+     embed batches of 256, one classify) through
+     `tools/profile_serve.traced_request`, under
+     `utils/profiling.device_trace` with the spans "embed" and "classify";
+     the trace file read back: its size, each span once, each K5 launch's
+     kernel in "embed" and each pass of each K1 launch in "classify" (by
+     the pass names, each kernel placed by the launch call it correlates
+     with); the scores bit for bit the same request's outside the trace,
+     and that request's first K1 call (bf16, h=4, N=640, S=512, dk=96:
+     a bucket no other phase gives K1) against the plain version (2^-7
+     of max |plain|); "not traced" where torch.profiler records no
+     device kernel at a second try.
 
-Each path of the main path (serve, whole slide, eval, extraction, train,
-each training-CLI run, the SimCLR slide CLI and requests, the SimCLR and
-MAE extraction CLI runs and the ViT-L batch, each ROI run, the DINO
-CLI's two runs and its checkpoint's extraction, the MAE CLI's four runs
-and its checkpoint's extraction, and in each rank of phase 15 its MIL,
-DINO, MAE and extraction runs) runs with the launch counts set to 0 just
-before it and read just after.
+Each path of the main path (serve, the traced serve request, whole slide,
+eval, extraction, train, each training-CLI run, the SimCLR slide CLI and
+requests, the SimCLR and MAE extraction CLI runs and the ViT-L batch,
+each ROI run, the DINO CLI's two runs and its checkpoint's extraction,
+the MAE CLI's four runs and its checkpoint's extraction, and in each rank
+of phase 15 its MIL, DINO, MAE and extraction runs) runs with the launch
+counts set to 0 just before it and read just after.
 Every phase asserts; any failure exits non-zero. torch.profiler may record
 no device time on a machine, from a run's first trace on: each trace gets
 a second try, then its readings and the checks that read them (the passes
@@ -310,6 +323,8 @@ CLI_SLIDE_GRID = 40
 # sums run in other orders than the CPU's, and the norms rescale them.
 CONV_TOL = 1e-3
 REQUESTS = (10000, 2500, 300)
+# Phase 17: the first tiles of phase 5's 10000-tile request, traced.
+TRACE_TILES = 512
 EVAL_BAGS = 30
 TRAIN_BAGS, TRAIN_BATCH, PACKED_BAGS = 8, 8, 16
 # The H100 SXM's datasheet peaks (NVIDIA), at a 700 W power limit: HBM3
@@ -431,22 +446,18 @@ def check_body(fa, kernel, kernel_times, want) -> None:
 
 
 def traced(fn):
-    """`device_profile(fn)`, or None where torch.profiler records no device
-    time even at a second try. On an H100 machine it has recorded none from
-    a run's first trace on, and late in a run; the checks that read the
-    trace (`pass_split`, `check_body`) then report the passes as not traced
-    and the CUDA-event times stand alone."""
-    from snuffy_tpu_torch.tools.profile_serve import device_profile
+    """`profiling.traced(fn)`: `device_profile(fn)`, or None where
+    torch.profiler records no device time even at a second try. On an H100
+    machine it has recorded none from a run's first trace on, and late in
+    a run; the checks that read the trace (`pass_split`, `check_body`) then
+    report the passes as not traced and the CUDA-event times stand alone."""
+    from snuffy_tpu_torch.utils import profiling
 
-    for _ in range(2):
-        try:
-            return device_profile(fn)
-        except RuntimeError as e:
-            if "no device time" not in str(e):
-                raise
-    log("    torch.profiler recorded no device time: the passes are not "
-        "traced here")
-    return None
+    trace = profiling.traced(fn)
+    if trace is None:
+        log("    torch.profiler recorded no device time: the passes are not "
+            "traced here")
+    return trace
 
 
 def traced_split(fa, kernel, fn, segments, body) -> str:
@@ -675,8 +686,11 @@ def phase_serve(cfg, dev, kernels):
     torch.cuda.synchronize()
 
     kernels.reset_launches()
+    trace_batch = None
     for n in REQUESTS:
         batch = tiles(n)
+        if trace_batch is None:  # phase 17's request
+            trace_batch = batch[:TRACE_TILES].clone()
         torch.cuda.synchronize()
         before = kernels.launch_counts()
         pred = predict_tiles(batch, embedder, milnet)
@@ -724,7 +738,84 @@ def phase_serve(cfg, dev, kernels):
                  bg.cpu().numpy(), bc.numpy(), SCORE_TOL)
     check_scores("MILNet f32 instance logits, GPU vs CPU",
                  ig.cpu().numpy(), ic.numpy(), SCORE_TOL)
-    return milnet, serve_launches
+    return milnet, serve_launches, embedder, trace_batch
+
+
+def phase_traced_serve(cfg, embedder, milnet, batch, fa, plain, kernels):
+    """Phase 17: phase 5's models answer a request of its tiles under
+    `device_trace` (`tools/profile_serve.traced_request`: the spans
+    "embed" and "classify"); the trace read back holds each launch of K5
+    in "embed" and of K1 in "classify", by the pass names `pass_split`
+    matches; the scores bit for bit the same request's outside the
+    trace, whose first K1 call (a bucket no other phase gives K1) is held
+    to the plain version (2^-7 of max |plain|). Returns the launches and
+    K1's error."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from snuffy_tpu_torch.data.bucketing import bucket_length
+    from snuffy_tpu_torch.pipeline.slide_inference import predict_tiles
+    from snuffy_tpu_torch.tools.profile_serve import read_trace, traced_request
+
+    n = int(batch.shape[0])
+    log(f"== phase 17: a traced serve request ({n} tiles: "
+        f"{math.ceil(n / 256)} embed batches of 256, one classify)")
+    t0 = time.perf_counter()
+    calls = {}
+    with capture_calls(fa, calls):
+        want = predict_tiles(batch, embedder, milnet)  # outside the trace
+    spans = {"embed": (kernels.DENSE, kernels.DENSE.passes),
+             "classify": (kernels.FWD, fa.launched_passes(
+                 kernels.FWD, bucket_length(n), cfg.big_lambda,
+                 cfg.num_heads))}
+    with tempfile.TemporaryDirectory() as tmp:
+        for attempt in (1, 2):
+            kernels.reset_launches()
+            ins, bag, path = traced_request(
+                batch, embedder, milnet, os.path.join(tmp, str(attempt)))
+            launches = kernels.launch_counts()
+            host, traced_kernels = read_trace(path, tuple(spans))
+            size = os.path.getsize(path)
+            if traced_kernels:
+                break
+    log(f"  trace {os.path.basename(path)}: {size / 2**20:.2f} MiB, "
+        f"{len(traced_kernels)} device kernels, spans "
+        + ", ".join(f"{k} x{len(v)}" for k, v in host.items())
+        + f" (try {attempt}); launches {launches}")
+    if any(len(v) != 1 for v in host.values()):
+        raise AssertionError(f"the trace's spans: {host}")
+    if not (np.array_equal(ins, want.instance_scores)
+            and bag == want.bag_score):
+        raise AssertionError("the traced request's scores differ from the "
+                             "same request's outside the trace")
+    if (launches[kernels.DENSE.name] != 12 * math.ceil(n / 256)
+            or launches[kernels.FWD.name] != cfg.depth):
+        raise AssertionError(f"the traced request launched {launches}")
+    if not traced_kernels:
+        log("  K5 in embed, K1 in classify: not traced (torch.profiler "
+            "recorded no device kernels at a second try)")
+    for span, (kernel, passes) in spans.items():
+        if not traced_kernels:
+            break
+        for p in passes:
+            where = [s for name, s in traced_kernels if p in name]
+            if where != [span] * kernel.launches:
+                raise AssertionError(
+                    f"{kernel.name}'s {p} kernels ran in the spans {where}, "
+                    f"not {kernel.launches} times in {span!r}")
+        log(f"  {kernel.name} ({', '.join(passes)}): each of its "
+            f"{kernel.launches} launches in the span {span!r}")
+    log("  K1's first call of the request outside the trace against the "
+        "plain version:")
+    ((h, kn, ks, dk, seg, rate), call), = calls.items()
+    if kn != bucket_length(n) * seg:
+        raise AssertionError(f"the request gave K1 {kn} rows, not its bucket")
+    k1_err, _ = check_cli_call(fa, plain, None, call, seg, rate, False)
+    log(f"  scores bit for bit the request's outside the trace; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches, k1_err
 
 
 def write_slide(path, grid, seed, background=SLIDE_BACKGROUND, levels=1):
@@ -2085,15 +2176,10 @@ def traced_in_fresh_process(cases) -> list:
     code = ("import json, sys, torch\n"
             "from snuffy_tpu_torch.ops.dense_attention import "
             "fused_self_attention\n"
-            "from snuffy_tpu_torch.tools.profile_serve import device_profile\n"
+            "from snuffy_tpu_torch.utils.profiling import traced\n"
             "def trace(q, k, v, n_valid):\n"
-            "    for _ in range(2):\n"
-            "        try:\n"
-            "            return device_profile(lambda: fused_self_attention(\n"
-            "                q, k, v, n_valid))[2]\n"
-            "        except RuntimeError as e:\n"
-            "            if 'no device time' not in str(e):\n"
-            "                raise\n"
+            "    t = traced(lambda: fused_self_attention(q, k, v, n_valid))\n"
+            "    return None if t is None else t[2]\n"
             "out = []\n"
             "for d in torch.load(sys.argv[1]):\n"
             "    q, k, v = (d[x].cuda() for x in 'qkv')\n"
@@ -4364,7 +4450,12 @@ def main() -> int:
         random_patch_share=0.5, activation="gelu", depth=2,
         compute_dtype="bfloat16",
     )
-    milnet, serve_launches = phase_serve(cfg, dev, kernels)
+    milnet, serve_launches, embedder, trace_batch = phase_serve(
+        cfg, dev, kernels)
+    traced_launches, k1_traced_err = phase_traced_serve(
+        cfg, embedder, milnet, trace_batch, fa,
+        packed_inverted_sparse_attention, kernels)
+    del embedder, trace_batch
     slide_launches = phase_slide(cfg, milnet, dev, kernels)
     eval_launches, bags_per_s = phase_eval(cfg, milnet, dev, kernels)
     extract_launches = phase_extract(dev, kernels)
@@ -4388,7 +4479,8 @@ def main() -> int:
     multi_launches, multi_err = phase_multi_rank(dev, kernels, smi)
     mesh_launches, mesh_err = phase_mesh(dev, kernels, smi)
 
-    log(f"  main-path kernel launches: serve {serve_launches}, whole slide "
+    log(f"  main-path kernel launches: serve {serve_launches}, traced "
+        f"serve (phase 17) {traced_launches}, whole slide "
         f"{slide_launches}, eval {eval_launches}, extraction "
         f"{extract_launches}, train {train_launches}, training CLI "
         f"{cli_launches}, SimCLR serve (slide CLI and requests) "
@@ -4400,15 +4492,16 @@ def main() -> int:
     log(f"  K1 at dk=128, one bag: kernel {k1_dk128_record[0]:.4f} ms "
         f"(device {k1_dk128_record[4]:.4f}), bound {k1_dk128_record[2]:.4f} "
         f"ms ({k1_dk128_record[3]})")
-    paths = (serve_launches, slide_launches, eval_launches, extract_launches,
-             train_launches, cli_launches, simclr_launches,
+    paths = (serve_launches, traced_launches, slide_launches, eval_launches,
+             extract_launches, train_launches, cli_launches, simclr_launches,
              embedders_launches, roi_launches, dino_launches, mae_launches,
              multi_launches, mesh_launches)
     no_library = None  # no one PyTorch call computes the slot sums σᵀv
     records = []
     for kernel, err, (ms, plain_ms, bound, bound_by, library_ms) in (
-            (kernels.FWD, max(fwd_err, k1_cli_err, k1_dk128_err,
-                              k1_roi_err, multi_err[kernels.FWD.name],
+            (kernels.FWD, max(fwd_err, k1_traced_err, k1_cli_err,
+                              k1_dk128_err, k1_roi_err,
+                              multi_err[kernels.FWD.name],
                               mesh_err[kernels.FWD.name]),
              (*fwd_record, no_library)),
             (kernels.BWD, max(bwd_err, k2_cli_err,

@@ -134,6 +134,32 @@ def load_split(
     return BagData(labels, feats, feats_labels, positions, names)
 
 
+def split_rows_by_folder(
+    rows: Sequence[Sequence], path_prefix: str
+) -> Tuple[List, List, List]:
+    """Train/valid/test rows of a dataset CSV by path prefix: the rows whose
+    path starts with `{path_prefix}/train`, `/valid` and `/test`
+    (`snuffy_tpu/data/bags.py` `split_dataframe_by_folder` on the
+    DataFrame of the same rows; reference train.py:586-593)."""
+    return tuple(
+        [r for r in rows if r[0].startswith(f"{path_prefix}/{name}")]
+        for name in ("train", "valid", "test")
+    )
+
+
+def split_rows_by_ratio(
+    rows: Sequence[Sequence], split: float
+) -> Tuple[List, List, List]:
+    """The first ⌊n·(1−split)⌋ rows train, the rest halved into valid and
+    test (`snuffy_tpu/data/bags.py` `split_dataframe_by_ratio`; reference
+    train.py:595-602)."""
+    rows = list(rows)
+    n_train = int(len(rows) * (1 - split))
+    rest = rows[n_train:]
+    half = len(rest) // 2
+    return rows[:n_train], rest[:half], rest[half:]
+
+
 def l2_normalize_rows(feats: np.ndarray) -> np.ndarray:
     """Per-patch L2 norm (reference train.py:251-252)."""
     return feats / np.linalg.norm(feats, axis=1, keepdims=True)

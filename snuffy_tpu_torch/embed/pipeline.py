@@ -38,6 +38,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from snuffy_tpu_torch.embed import registry
+
+# The JAX module's float32 arrays, from registry's tuples.
+IMAGENET_MEAN = np.asarray(registry.IMAGENET_MEAN, np.float32)
+IMAGENET_STD = np.asarray(registry.IMAGENET_STD, np.float32)
+
 _POSITION_RE = re.compile(r"(\d+)_(\d+)(?:-(\d+))?\.jpe?g$", re.IGNORECASE)
 
 
@@ -146,6 +152,14 @@ def decode_batch(paths: Sequence[str], size: int, pool=None) -> np.ndarray:
     else:
         imgs = [_decode_one(j) for j in jobs]
     return np.stack(imgs)
+
+
+def normalize_batch(batch: np.ndarray, imagenet: bool) -> np.ndarray:
+    """Host-side normalization fallback; the embedders normalize on the
+    device (`Embedder`), so batches normally stay uint8."""
+    if imagenet:
+        return (batch.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+    return batch
 
 
 def list_bags(dataset_path: str, fold: str) -> List[str]:

@@ -17,7 +17,7 @@ not the same numbers.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -102,6 +102,22 @@ def binary_selection_draw(
     )
 
 
+def binary_lambda_selection(
+    generator: Optional[torch.Generator],
+    instance_logits: torch.Tensor,  # (…, N) single-class logits
+    valid: torch.Tensor,            # (…, N) bool
+    k_top: int,
+    k_rand: int,
+) -> Selection:
+    """The binary Λ pattern in one call (prepare, then draw): S = k_top +
+    k_rand slots. Surplus top slots (n_valid < k_top) are invalid; the
+    random share draws from the valid rows outside the top share, capped
+    at their count by slot validity (reference snuffy.py:126-153)."""
+    return binary_selection_draw(
+        generator, binary_selection_prepare(instance_logits, valid, k_top),
+        k_rand)
+
+
 def _unique_ascending(flat_idx: torch.Tensor, flat_valid: torch.Tensor,
                       n: int):
     """The distinct valid values of `flat_idx` (…, L) (in [0, n)) in
@@ -156,6 +172,20 @@ def multiclass_selection_draw(
         torch.cat([prep.top.indices, rand.indices], dim=-1),
         torch.cat([prep.top.slot_valid, rand_valid], dim=-1),
     )
+
+
+def multiclass_lambda_selection(
+    generator: Optional[torch.Generator],
+    instance_logits: torch.Tensor,  # (…, N, C)
+    valid: torch.Tensor,            # (…, N) bool
+    k_top: int,
+) -> Tuple[Selection, torch.Tensor]:
+    """The multiclass Λ pattern in one call (reference
+    snuffy_multiclass.py:130-160) → (Selection of S = 2·min(k_top·C, N)
+    slots, ref_dim): the first ref_dim rows of the classes' ascending
+    top-k union, then ref_dim rows drawn from the valid rows outside it."""
+    prep = multiclass_selection_prepare(instance_logits, valid, k_top)
+    return multiclass_selection_draw(generator, prep), prep.ref_dim
 
 
 def packed_selection_prepare(

@@ -30,8 +30,9 @@ time blocked on the reader), read_decode_s (the reader's own time,
 streaming path), embed_s (streaming: the synchronised tail after the last
 batch was dispatched; per tile: the whole embed), classify_s, total_s,
 n_patches, and decode_path (`grid_jpeg_scaled`, `grid` or `per_tile`).
-`predict_tiles` reports embed_s (upload + embed, synchronised),
-classify_s, total_s and n_patches.
+`predict_tiles` runs `embed_bag` then `classify_bag` (the two stages
+`tools/profile_serve.traced_request` traces) and reports embed_s (upload +
+embed, synchronised), classify_s, total_s and n_patches.
 """
 
 from __future__ import annotations
@@ -149,6 +150,50 @@ def device_resize(images: torch.Tensor, size: int) -> torch.Tensor:
 
 
 @torch.inference_mode()
+def embed_bag(
+    tiles: torch.Tensor,           # (n, t, t, 3) uint8, n ≥ 1, any device
+    embedder: torch.nn.Module,     # images → (feats, logits)
+    device: torch.device,
+    *,
+    embed_batch: int = 256,
+    embed_size: int = 224,
+) -> torch.Tensor:
+    """The tiles' features in batches of `embed_batch` on `device`, into
+    the padded f32 bag (bucket_length(n), d) whose rows past n are zero;
+    returns once the device has finished them."""
+    n = int(tiles.shape[0])
+    bag = None
+    for start in range(0, n, embed_batch):
+        chunk = tiles[start:start + embed_batch].to(device, non_blocking=True)
+        if chunk.shape[1] != embed_size or chunk.shape[2] != embed_size:
+            chunk = device_resize(chunk, embed_size)
+        feats, _ = embedder(chunk)
+        if bag is None:
+            bag = torch.zeros((bucket_length(n), feats.shape[1]),
+                              dtype=torch.float32, device=device)
+        bag[start:start + feats.shape[0]] = feats
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return bag
+
+
+@torch.inference_mode()
+def classify_bag(
+    bag: torch.Tensor,             # (n_pad, d) f32, the first n rows valid
+    n: int,
+    milnet: torch.nn.Module,       # (feats, mask, generator=…) → logits
+    seed: int = 0,
+) -> Tuple[np.ndarray, float]:
+    """The bag's (instance scores (n,), bag score), the random share drawn
+    from a generator seeded with `seed` on the bag's device."""
+    mask = torch.arange(bag.shape[0], device=bag.device) < n
+    gen = torch.Generator(bag.device).manual_seed(seed)
+    ins_logits, bag_logits = milnet(bag, mask, generator=gen)
+    return (torch.sigmoid(ins_logits[:n, 0]).cpu().numpy(),
+            float(torch.sigmoid(bag_logits[0])))
+
+
+@torch.inference_mode()
 def predict_tiles(
     tiles: torch.Tensor,           # (n, t, t, 3) uint8, any device
     embedder: torch.nn.Module,     # images → (feats, logits)
@@ -160,8 +205,6 @@ def predict_tiles(
 ) -> SlidePrediction:
     """Embed and classify one bag of tiles on the models' device."""
     device = next(milnet.parameters()).device
-    sync = (torch.cuda.synchronize if device.type == "cuda"
-            else (lambda *a: None))
     timings = {}
     t_start = time.perf_counter()
     tiles = torch.as_tensor(tiles)
@@ -172,26 +215,12 @@ def predict_tiles(
                        total_s=time.perf_counter() - t_start)
         return SlidePrediction(0.0, np.zeros((0,), np.float32), [], timings)
 
-    n_pad = bucket_length(n)
-    bag = None
-    for start in range(0, n, embed_batch):
-        chunk = tiles[start:start + embed_batch].to(device, non_blocking=True)
-        if chunk.shape[1] != embed_size or chunk.shape[2] != embed_size:
-            chunk = device_resize(chunk, embed_size)
-        feats, _ = embedder(chunk)
-        if bag is None:
-            bag = torch.zeros((n_pad, feats.shape[1]), dtype=torch.float32,
-                              device=device)
-        bag[start:start + feats.shape[0]] = feats
-    sync()
+    bag = embed_bag(tiles, embedder, device, embed_batch=embed_batch,
+                    embed_size=embed_size)
     timings["embed_s"] = time.perf_counter() - t_start
 
     t0 = time.perf_counter()
-    mask = torch.arange(n_pad, device=device) < n
-    gen = torch.Generator(device).manual_seed(seed)
-    ins_logits, bag_logits = milnet(bag, mask, generator=gen)
-    ins_scores = torch.sigmoid(ins_logits[:n, 0]).cpu().numpy()
-    bag_score = float(torch.sigmoid(bag_logits[0]))
+    ins_scores, bag_score = classify_bag(bag, n, milnet, seed)
     timings["classify_s"] = time.perf_counter() - t0
     timings["total_s"] = time.perf_counter() - t_start
     timings["n_patches"] = n
@@ -375,11 +404,7 @@ def _stream(slide, level, read, cols, rows, embedder, milnet, cfg,
     timings["embed_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    mask = torch.arange(n_pad, device=device) < n
-    gen = torch.Generator(device).manual_seed(seed)
-    ins_logits, bag_logits = milnet(bag[:n_pad], mask, generator=gen)
-    ins_scores = torch.sigmoid(ins_logits[:n, 0]).cpu().numpy()
-    bag_score = float(torch.sigmoid(bag_logits[0]))
+    ins_scores, bag_score = classify_bag(bag[:n_pad], n, milnet, seed)
     timings["classify_s"] = time.perf_counter() - t0
     timings["total_s"] = time.perf_counter() - t_start
     timings["n_patches"] = n

@@ -1,6 +1,6 @@
 """Profile one warm serve request of the port on a CUDA GPU.
 
-    python -m snuffy_tpu_torch.tools.profile_serve [--out FILE]
+    python -m snuffy_tpu_torch.tools.profile_serve [--out FILE] [--trace DIR]
 
 Builds ViT-S/16 + MILNet at the serving widths chip_smoke.py uses (d=384,
 4 heads, Λ=512, ρ=0.5, depth 2, gelu, bf16; seeded weights), warms a
@@ -16,20 +16,31 @@ request of 10000 uint8 224² tiles through `predict_tiles`, then prints:
   * the sparse-attention kernel's passes (row_stats, slot_accumulate and
     split_reduce, the sum of its N splits).
 
-`--out` also writes the full per-op tables to FILE. Needs one CUDA GPU.
+`--out` also writes the full per-op tables to FILE. `--trace` writes a
+trace of the warm request under DIR (`traced_request`: a Chrome/Perfetto
+`*.pt.trace.json` with the spans "embed" and "classify") and prints the
+device kernels each span holds. Needs one CUDA GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
+import json
+import os
 import statistics
 import sys
 
 import torch
 
+from snuffy_tpu_torch.utils.profiling import (
+    annotate,
+    device_profile,
+    device_trace,
+)
+
 TILES = 10000
 EMBED_BATCH = 256
-ITERS = 5
 
 
 def vit_flops_per_tile(dim=384, depth=12, patch=16, size=224) -> int:
@@ -61,46 +72,6 @@ def wall_ms(fn, reps=10) -> float:
     return statistics.median(times)
 
 
-def _self_device_us(e) -> float:
-    t = getattr(e, "self_device_time_total", None)
-    return float(t if t is not None else e.self_cuda_time_total)
-
-
-def device_profile(fn):
-    """(busy ms per call, [(op, self device ms per call, calls)] for host
-    ops, [(kernel, ms per call)]) from a torch.profiler trace of ITERS
-    calls; busy is the sum of the kernels' and copies' times."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(ITERS):
-            fn()
-        torch.cuda.synchronize()
-    ops, kernels = [], []
-    for e in prof.key_averages():
-        ms = _self_device_us(e) / 1e3 / ITERS
-        if getattr(e, "is_user_annotation", False):
-            # a record_function range drawn on the device timeline (the
-            # optimizer's step): it spans kernels counted on their own,
-            # and the gaps between them
-            continue
-        if e.device_type == DeviceType.CUDA:
-            kernels.append((e.key, ms))
-        elif ms > 0:
-            ops.append((e.key, ms, e.count / ITERS))
-    busy = sum(ms for _, ms in kernels)
-    if busy <= 0:
-        raise RuntimeError("the profiler recorded no device time; it cannot "
-                           "trace this GPU")
-    ops.sort(key=lambda r: -r[1])
-    kernels.sort(key=lambda r: -r[1])
-    return busy, ops, kernels
-
-
 def report(label, wall, busy, ops, flops=None, top=10):
     head = (f"{label}: wall {wall:.4f} ms, device busy {busy:.4f} ms, "
             f"idle {100 * (1 - busy / wall):.2f} %")
@@ -122,10 +93,75 @@ def table(label, ops, kernels):
     return out
 
 
+@torch.inference_mode()
+def traced_request(tiles, embedder, milnet, log_dir, *,
+                   embed_batch=EMBED_BATCH):
+    """`predict_tiles`' two stages, `embed_bag` and `classify_bag`, on
+    one request of n ≥ 1 tiles under `device_trace(log_dir)`, each in an
+    `annotate` span ("embed", "classify") that ends after the device has
+    finished it. → (instance scores (n,), bag score, the trace file
+    written)."""
+    from snuffy_tpu_torch.pipeline.slide_inference import (
+        classify_bag,
+        embed_bag,
+    )
+
+    device = next(milnet.parameters()).device
+    before = set(trace_files(log_dir))
+    with device_trace(log_dir):
+        with annotate("embed"):
+            bag = embed_bag(tiles, embedder, device, embed_batch=embed_batch)
+        with annotate("classify"):
+            ins_scores, bag_score = classify_bag(bag, int(tiles.shape[0]),
+                                                 milnet)
+    written = sorted(set(trace_files(log_dir)) - before)
+    if len(written) != 1:
+        raise RuntimeError(f"device_trace wrote {len(written)} trace files "
+                           f"under {log_dir}")
+    return ins_scores, bag_score, written[0]
+
+
+def trace_files(log_dir) -> list:
+    return glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+
+
+def read_trace(path, spans):
+    """The `spans` (names of `annotate` ranges) of a trace file and the
+    device kernels it recorded: ({span: [(start, end) µs on the host's
+    clock]}, [(kernel name, the span it ran in, or None)]). A kernel runs
+    in the span its launch was made in: the host-side launch call that
+    carries its correlation id; a kernel with no such call is in None."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    host = {name: [] for name in spans}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name") in host:
+            host[e["name"]].append((e["ts"], e["ts"] + e.get("dur", 0)))
+
+    def span_at(t):
+        for name, rs in host.items():
+            if any(a <= t <= b for a, b in rs):
+                return name
+        return None
+
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    kernels = []
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        at = launched.get(e.get("args", {}).get("correlation"))
+        kernels.append((e["name"], None if at is None else span_at(at)))
+    return host, kernels
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
                    help="write the full per-op tables to this file")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a trace of the warm request under DIR")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serve: needs a CUDA GPU", file=sys.stderr)
@@ -157,6 +193,14 @@ def main(argv=None) -> int:
     print(f"request n_patches={t['n_patches']} embed_s={t['embed_s']:.4f} "
           f"classify_s={t['classify_s']:.4f} total_s={t['total_s']:.4f}",
           flush=True)
+    if args.trace:
+        *_, path = traced_request(tiles, embedder, milnet, args.trace)
+        _, kernels = read_trace(path, ("embed", "classify"))
+        counts = {}
+        for _, span in kernels:
+            counts[span] = counts.get(span, 0) + 1
+        print(f"trace {path}: {os.path.getsize(path) / 2**20:.2f} MiB, "
+              f"device kernels by span {counts}", flush=True)
 
     n_pad = bucket_length(TILES)
     batch = tiles[:EMBED_BATCH]

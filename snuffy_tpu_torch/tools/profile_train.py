@@ -28,12 +28,8 @@ import torch
 
 from snuffy_tpu_torch.ops.fused_attention import launched_passes
 from snuffy_tpu_torch.ops.kernels import BWD, FWD
-from snuffy_tpu_torch.tools.profile_serve import (
-    device_profile,
-    report,
-    table,
-    wall_ms,
-)
+from snuffy_tpu_torch.tools.profile_serve import report, table, wall_ms
+from snuffy_tpu_torch.utils.profiling import device_profile
 
 ROWS, VALID, PACKED = 10240, 10000, 8
 

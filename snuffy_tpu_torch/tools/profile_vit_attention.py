@@ -31,12 +31,12 @@ import sys
 import torch
 
 from snuffy_tpu_torch.tools.profile_serve import (
-    device_profile,
     report,
     table,
     vit_flops_per_tile,
     wall_ms,
 )
+from snuffy_tpu_torch.utils.profiling import device_profile
 
 # The H100 SXM's datasheet peaks (NVIDIA) at a 700 W power limit.
 HBM_BYTES_S = 3.35e12

@@ -45,7 +45,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
 
@@ -59,7 +59,13 @@ from snuffy_tpu_torch.configs import (
     replace,
     resolve_feats_size,
 )
-from snuffy_tpu_torch.data.bags import load_split, parse_number, read_csv_rows
+from snuffy_tpu_torch.data.bags import (
+    load_split,
+    parse_number,
+    read_csv_rows,
+    split_rows_by_folder,
+    split_rows_by_ratio,
+)
 from snuffy_tpu_torch.data.mil_pickle import load_mil_data
 from snuffy_tpu_torch.parallel import distributed
 from snuffy_tpu_torch.train.runner import Runner
@@ -230,25 +236,6 @@ def resolve_device(args) -> torch.device:
     return device
 
 
-def _split_by_ratio(rows: List, split: float) -> Tuple[List, List, List]:
-    """The 'official' split (reference train.py:595-602): the first
-    ⌊n·(1−split)⌋ rows train, the rest halved into valid and test."""
-    n_train = int(len(rows) * (1 - split))
-    rest = rows[n_train:]
-    return rows[:n_train], rest[: len(rest) // 2], rest[len(rest) // 2:]
-
-
-def _split_by_folder(rows: List, prefix: str) -> Tuple[List, ...]:
-    """Train/valid/test by normalised path prefix (reference
-    train.py:586-593: 'valid' is a prefix of a 'validation' folder too)."""
-    prefix_abs = os.path.abspath(prefix)
-    return tuple(
-        [r for r in rows
-         if os.path.abspath(r[0]).startswith(os.path.join(prefix_abs, name))]
-        for name in ("train", "valid", "test")
-    )
-
-
 def load_datasets(cfg: MILTrainConfig):
     """(train, valid, test) bag tuples per the reference's source layout
     (reference train.py:529-602)."""
@@ -268,12 +255,15 @@ def load_datasets(cfg: MILTrainConfig):
             cfg.embeddings_path, cfg.dataset, "official",
             f"{cfg.dataset.capitalize()}.csv",
         ))
-        splits = _split_by_ratio(rows, cfg.split)
+        splits = split_rows_by_ratio(rows, cfg.split)
     else:
         prefix = os.path.join(".", cfg.embeddings_path, cfg.dataset,
                               cfg.embedding)
         _, rows = read_csv_rows(os.path.join(prefix, f"{cfg.dataset}.csv"))
-        splits = _split_by_folder(rows, prefix)
+        # normalised paths (reference train.py:586-593: 'valid' is a
+        # prefix of a 'validation' folder too)
+        rows = [(os.path.abspath(r[0]), *r[1:]) for r in rows]
+        splits = split_rows_by_folder(rows, os.path.abspath(prefix))
 
     return tuple(
         load_split(

@@ -687,3 +687,140 @@ def test_metric_sync_across_processes_matches(monkeypatch, procs):
         m.update(2.0, n=3)
         m.synchronize_between_processes()
     assert (ours.count, ours.total) == (theirs.count, theirs.total)
+
+
+def test_stage_timer_matches(tmp_path, monkeypatch):
+    """The same nested stages through both timers, on one tick clock:
+    keys, counts, summaries and the JSONL sink's lines equal."""
+    import time
+
+    from snuffy_tpu.utils.profiling import StageTimer as JaxStageTimer
+    from snuffy_tpu_torch.utils.profiling import StageTimer
+
+    def run(cls, sink):
+        ticks = iter(range(100))
+        monkeypatch.setattr(time, "perf_counter", lambda: 0.25 * next(ticks))
+        timer = cls(sink)
+        with timer.stage("epoch"):
+            for _ in range(2):
+                with timer.stage("train"):
+                    with timer.stage("step"):
+                        pass
+            with timer.stage("valid"):
+                pass
+        with pytest.raises(ValueError):
+            with timer.stage("failing"):
+                raise ValueError
+        return timer
+
+    got = run(StageTimer, str(tmp_path / "port" / "t.jsonl"))
+    want = run(JaxStageTimer, str(tmp_path / "jax" / "t.jsonl"))
+    assert got.counts == want.counts and got.totals == want.totals
+    assert got.summary() == want.summary()
+    assert list(got.summary()) == ["epoch", "epoch/train", "epoch/train/step",
+                                   "epoch/valid", "failing"]
+    assert (tmp_path / "port" / "t.jsonl").read_text() == \
+        (tmp_path / "jax" / "t.jsonl").read_text()
+    assert StageTimer().summary() == {}
+
+
+def test_bag_table_splits_match():
+    """The row splits against `split_dataframe_by_*` on a DataFrame of the
+    same rows: 'valid' is a prefix of 'validation', a path outside the
+    prefix goes nowhere."""
+    import pandas as pd
+
+    from snuffy_tpu.data.bags import (
+        split_dataframe_by_folder,
+        split_dataframe_by_ratio,
+    )
+    from snuffy_tpu_torch.data.bags import (
+        split_rows_by_folder,
+        split_rows_by_ratio,
+    )
+
+    prefix = "./embeddings/camelyon16/dino"
+    rows = [[f"{prefix}/{folder}/slide_{i}.csv", i % 2]
+            for i, folder in enumerate(
+                ("train", "valid", "test", "validation", "trainer", "test",
+                 "train", "other", "valid"))]
+    rows.append(["embeddings/camelyon16/dino/train/x.csv", 1])
+
+    def table(df):
+        return df.values.tolist()
+
+    df = pd.DataFrame(rows, columns=["bag_path", "label"])
+    got = split_rows_by_folder(rows, prefix)
+    assert [len(s) for s in got] == [3, 3, 2]
+    assert list(got) == [table(s) for s in
+                         split_dataframe_by_folder(df, prefix)]
+    for n in (0, 1, 2, 5, 10):
+        df = pd.DataFrame(rows[:n], columns=["bag_path", "label"])
+        for split in (0.0, 0.2, 1 / 3, 0.5, 1.0):
+            assert list(split_rows_by_ratio(rows[:n], split)) == [
+                table(s) for s in split_dataframe_by_ratio(df, split)]
+
+
+@pytest.mark.parametrize("imagenet", [True, False])
+def test_normalize_batch_matches(imagenet):
+    from snuffy_tpu.embed import pipeline as jax_pipeline
+    from snuffy_tpu_torch.embed import pipeline, registry
+
+    batch = np.random.default_rng(5).integers(
+        0, 256, (3, 16, 16, 3)).astype(np.uint8)
+    got = pipeline.normalize_batch(batch, imagenet)
+    want = jax_pipeline.normalize_batch(batch, imagenet)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    assert (got is batch) == (want is batch) == (not imagenet)
+    for name in ("IMAGENET_MEAN", "IMAGENET_STD"):
+        ours, theirs = getattr(pipeline, name), getattr(jax_pipeline, name)
+        assert ours.dtype == theirs.dtype and ours.tobytes() == theirs.tobytes()
+        assert np.array_equal(np.float32(getattr(registry, name)), ours)
+
+
+@pytest.mark.parametrize("move", [False, True])
+def test_move_camelyon16_tifs_matches(tmp_path, capsys, move):
+    """The port's copy and the root script on two copies of one download
+    tree: the same files moved or linked, the same count returned, a slide
+    already in place left as it is."""
+    import importlib
+
+    from snuffy_tpu_torch import move_camelyon16_tifs
+
+    root_script = importlib.import_module("move_camelyon16_tifs")
+    layout = ("a/normal_001.tif", "a/b/tumor_002.tif", "test_003.tif",
+              "normal_004.tif", "notes.txt", "a/tumor_005.tiff",
+              "b/normal_006.tif")
+
+    def tree(side):
+        base = tmp_path / side
+        for rel in layout:
+            path = base / "src" / rel
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(rel)
+        (base / "dst" / "0_normal").mkdir(parents=True)
+        (base / "dst" / "0_normal" / "normal_006.tif").write_text("kept")
+        return base
+
+    def listing(base):
+        out = []
+        for dirpath, _, files in sorted(os.walk(base)):
+            for name in sorted(files):
+                path = os.path.join(dirpath, name)
+                target = (os.path.relpath(os.readlink(path), base)
+                          if os.path.islink(path) else None)
+                with open(path) as f:
+                    out.append((os.path.relpath(path, base), target, f.read()))
+        return out
+
+    counts = []
+    for side, module in (("port", move_camelyon16_tifs),
+                         ("root", root_script)):
+        base = tree(side)
+        argv = ["--src", str(base / "src"), "--dst", str(base / "dst")]
+        counts.append(module.main(argv + (["--move"] if move else [])))
+    assert counts[0] == counts[1] == 4
+    printed = capsys.readouterr().out.splitlines()
+    assert printed[0].replace("port", "root") == printed[1]
+    assert listing(tmp_path / "port") == listing(tmp_path / "root")

@@ -275,16 +275,16 @@ def test_chip_smoke_reports_untraced_passes_where_the_profiler_sees_none(
     more, then reports the passes as not traced; any other profiler error
     still fails the run, and a trace that comes back is still checked."""
     import chip_smoke
-    from snuffy_tpu_torch.tools import profile_serve
+    from snuffy_tpu_torch.utils import profiling
 
     tries = []
 
     def empty(fn):
         tries.append(fn)
-        raise RuntimeError("the profiler recorded no device time; it "
-                           "cannot trace this GPU")
+        raise profiling.NoDeviceTime("the profiler recorded no device "
+                                     "time; it cannot trace this GPU")
 
-    monkeypatch.setattr(profile_serve, "device_profile", empty)
+    monkeypatch.setattr(profiling, "device_profile", empty)
     assert chip_smoke.traced(len) is None and tries == [len, len]
     assert chip_smoke.traced_split(fa, fa.FWD, len, 1,
                                    fa.BODIES[0]) == "device not traced"
@@ -292,14 +292,14 @@ def test_chip_smoke_reports_untraced_passes_where_the_profiler_sees_none(
     def broken(fn):
         raise RuntimeError("CUPTI failed")
 
-    monkeypatch.setattr(profile_serve, "device_profile", broken)
+    monkeypatch.setattr(profiling, "device_profile", broken)
     with pytest.raises(RuntimeError, match="CUPTI"):
         chip_smoke.traced(len)
 
     passes = [("void row_stats_kernel<float>(float const*)", 0.5),
               ("void slot_accumulate_kernel<float, 16>(float const*)", 0.25),
               ("void split_reduce_kernel<float>(float const*)", 0.25)]
-    monkeypatch.setattr(profile_serve, "device_profile",
+    monkeypatch.setattr(profiling, "device_profile",
                         lambda fn: (1.0, [], passes))
     assert chip_smoke.traced_split(
         fa, fa.FWD, len, 1, fa.BODIES[2]).startswith("device 1.0000: ")

@@ -13,6 +13,7 @@ import torch
 
 from snuffy_tpu.ops import selection as jsel
 from snuffy_tpu_torch.ops import selection as tsel
+from tests.oracle import reference_multiclass_selection
 
 
 def test_top_share_matches_jax_with_ties():
@@ -202,3 +203,92 @@ def test_packed_multiclass_selection_matches_jax():
         assert ((live >= b * n) & (live < (b + 1) * n)).all()
         assert len(set(live.tolist())) == len(live)
         assert len(live) == 2 * int(prep.ref_dim[b])
+
+
+# ------------------------------------------------- the composed selections
+
+@pytest.mark.parametrize("n_pad, n_valid, k_top, k_rand, ties", [
+    (64, 40, 6, 6, True),      # the top share then a full random share
+    (16, 9, 6, 6, False),      # 3 rows left: the random share capped at 3
+    (16, 4, 10, 0, False),     # n_valid < k_top, no random share
+    (16, 4, 10, 5, False),     # n_valid < k_top, nothing left to draw
+    (40, 30, 250, 250, False),  # a bucket smaller than Λ
+])
+def test_binary_lambda_selection_matches_jax(n_pad, n_valid, k_top, k_rand,
+                                             ties):
+    """After tests/test_selection.py:62-127: the top share bit for bit
+    (ties to the lowest index), every slot's validity as JAX's, the random
+    share valid, distinct and outside the top share."""
+    rng = np.random.default_rng(n_pad + n_valid + k_top)
+    logits = rng.standard_normal(n_pad).astype(np.float32)
+    if ties:
+        logits = np.round(logits, 1) + np.float32(0.0)
+    valid = np.arange(n_pad) < n_valid
+    want = jsel.binary_lambda_selection(jax.random.PRNGKey(3),
+                                        jnp.asarray(logits),
+                                        jnp.asarray(valid), k_top, k_rand)
+    got = tsel.binary_lambda_selection(torch.Generator().manual_seed(3),
+                                       torch.from_numpy(logits),
+                                       torch.from_numpy(valid), k_top, k_rand)
+    idx, sv = got.indices.numpy(), got.slot_valid.numpy()
+    assert idx.shape == sv.shape == (k_top + k_rand,)
+    np.testing.assert_array_equal(sv, np.asarray(want.slot_valid))
+    top = idx[:k_top][sv[:k_top]]
+    np.testing.assert_array_equal(
+        top, np.asarray(want.indices)[:k_top][sv[:k_top]])
+    np.testing.assert_array_equal(
+        top, np.argsort(-np.where(valid, logits, -np.inf),
+                        kind="stable")[:min(k_top, n_valid)])
+    rand = idx[k_top:][sv[k_top:]]
+    assert len(rand) == min(k_rand, max(n_valid - k_top, 0))
+    assert len(set(rand.tolist())) == len(rand)
+    assert not set(rand.tolist()) & set(top.tolist())
+    assert (rand < n_valid).all()
+    if n_valid <= k_top + k_rand:            # every valid row, once each
+        assert sorted(idx[sv].tolist()) == list(range(n_valid))
+
+
+@pytest.mark.parametrize("n_valid", [30, 64])
+def test_multiclass_lambda_selection_matches_jax(n_valid):
+    """After tests/test_selection.py:130-152 (Λ=10, ρ=0.5, C=3, 64 rows):
+    the union's first ref_dim rows and ref_dim as JAX's and the reference
+    rule's, the random half ref_dim distinct valid rows outside the whole
+    union."""
+    big_lambda, rho, c, n_pad, k_top = 10, 0.5, 3, 64, 5
+    logits, valid = multiclass_inputs(n_pad, n_valid, c, seed=8)
+    want, want_ref_dim = jsel.multiclass_lambda_selection(
+        jax.random.PRNGKey(9), jnp.asarray(logits), jnp.asarray(valid), k_top)
+    got, ref_dim = tsel.multiclass_lambda_selection(
+        torch.Generator().manual_seed(9), torch.from_numpy(logits),
+        torch.from_numpy(valid), k_top)
+    expected_top, expected_ref_dim, union = reference_multiclass_selection(
+        logits[:n_valid], big_lambda, rho)
+    assert int(ref_dim) == int(want_ref_dim) == expected_ref_dim
+    idx, sv = got.indices.numpy(), got.slot_valid.numpy()
+    np.testing.assert_array_equal(sv, np.asarray(want.slot_valid))
+    s_half = min(k_top * c, n_pad)
+    assert idx.shape == (2 * s_half,)
+    top = idx[:s_half][sv[:s_half]]
+    np.testing.assert_array_equal(
+        top, np.asarray(want.indices)[:s_half][sv[:s_half]])
+    np.testing.assert_array_equal(top, expected_top)
+    rand = idx[s_half:][sv[s_half:]]
+    assert len(rand) == len(set(rand.tolist())) == expected_ref_dim
+    assert not set(rand.tolist()) & set(union.tolist())
+    assert (rand < n_valid).all()
+
+
+def test_ops_exports_the_jax_packages_names():
+    import snuffy_tpu.ops as jax_ops
+    import snuffy_tpu_torch.ops as ops
+    from snuffy_tpu_torch.ops import kernels, sparse_attention
+
+    names = ("top_share_selection", "gumbel_without_replacement",
+             "binary_lambda_selection", "multiclass_lambda_selection",
+             "inverted_sparse_attention")
+    for name in names:
+        assert hasattr(jax_ops, name)
+    assert all(getattr(ops, n) is getattr(tsel, n) for n in names[:4])
+    assert ops.inverted_sparse_attention is (
+        sparse_attention.inverted_sparse_attention)
+    assert kernels.load_kernel.cache_info().currsize == 0

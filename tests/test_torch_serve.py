@@ -171,7 +171,8 @@ def test_package_imports_with_jax_blocked():
                 "eval.froc", "froc", "models.dsmil", "snuffy",
                 "snuffy_multiclass", "viz.png", "viz.heatmap", "roi",
                 "ssl.augment", "ssl.dino", "main_dino_adapter",
-                "ssl.adam", "ssl.mae_trainer", "main_pretrain_adapter"):
+                "ssl.adam", "ssl.mae_trainer", "main_pretrain_adapter",
+                "utils.profiling", "ops", "move_camelyon16_tifs"):
         assert f"snuffy_tpu_torch.{new}" in names.split()
 
 
