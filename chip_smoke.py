@@ -235,10 +235,11 @@ per kernel, all at once), then:
   17. a traced serve request, run right after phase 5 with its models:
      the first TRACE_TILES tiles of phase 5's 10000-tile request (two
      embed batches of 256, one classify) through
-     `tools/profile_serve.traced_request`, under
-     `utils/profiling.device_trace` with the spans "embed" and "classify";
-     the trace file read back: its size, each span once, each K5 launch's
-     kernel in "embed" and each pass of each K1 launch in "classify" (by
+     `tools/profile_serve.traced_request`, `predict_tiles` under
+     `utils/profiling.device_trace` with the program's spans;
+     the trace file read back: its size, `serve.embed` and
+     `serve.classify` once each, each K5 launch's kernel in `serve.embed`
+     and each pass of each K1 launch in `serve.classify` (by
      the pass names, each kernel placed by the launch call it correlates
      with); the scores bit for bit the same request's outside the trace,
      and that request's first K1 call (bf16, h=4, N=640, S=512, dk=96:
@@ -743,9 +744,9 @@ def phase_serve(cfg, dev, kernels):
 
 def phase_traced_serve(cfg, embedder, milnet, batch, fa, plain, kernels):
     """Phase 17: phase 5's models answer a request of its tiles under
-    `device_trace` (`tools/profile_serve.traced_request`: the spans
-    "embed" and "classify"); the trace read back holds each launch of K5
-    in "embed" and of K1 in "classify", by the pass names `pass_split`
+    `device_trace` (`tools/profile_serve.traced_request`: the program's
+    spans); the trace read back holds each launch of K5 in `serve.embed`
+    and of K1 in `serve.classify`, by the pass names `pass_split`
     matches; the scores bit for bit the same request's outside the
     trace, whose first K1 call (a bucket no other phase gives K1) is held
     to the plain version (2^-7 of max |plain|). Returns the launches and
@@ -766,14 +767,14 @@ def phase_traced_serve(cfg, embedder, milnet, batch, fa, plain, kernels):
     calls = {}
     with capture_calls(fa, calls):
         want = predict_tiles(batch, embedder, milnet)  # outside the trace
-    spans = {"embed": (kernels.DENSE, kernels.DENSE.passes),
-             "classify": (kernels.FWD, fa.launched_passes(
+    spans = {"serve.embed": (kernels.DENSE, kernels.DENSE.passes),
+             "serve.classify": (kernels.FWD, fa.launched_passes(
                  kernels.FWD, bucket_length(n), cfg.big_lambda,
                  cfg.num_heads))}
     with tempfile.TemporaryDirectory() as tmp:
         for attempt in (1, 2):
             kernels.reset_launches()
-            ins, bag, path = traced_request(
+            pred, path = traced_request(
                 batch, embedder, milnet, os.path.join(tmp, str(attempt)))
             launches = kernels.launch_counts()
             host, traced_kernels = read_trace(path, tuple(spans))
@@ -786,16 +787,16 @@ def phase_traced_serve(cfg, embedder, milnet, batch, fa, plain, kernels):
         + f" (try {attempt}); launches {launches}")
     if any(len(v) != 1 for v in host.values()):
         raise AssertionError(f"the trace's spans: {host}")
-    if not (np.array_equal(ins, want.instance_scores)
-            and bag == want.bag_score):
+    if not (np.array_equal(pred.instance_scores, want.instance_scores)
+            and pred.bag_score == want.bag_score):
         raise AssertionError("the traced request's scores differ from the "
                              "same request's outside the trace")
     if (launches[kernels.DENSE.name] != 12 * math.ceil(n / 256)
             or launches[kernels.FWD.name] != cfg.depth):
         raise AssertionError(f"the traced request launched {launches}")
     if not traced_kernels:
-        log("  K5 in embed, K1 in classify: not traced (torch.profiler "
-            "recorded no device kernels at a second try)")
+        log("  K5 in serve.embed, K1 in serve.classify: not traced "
+            "(torch.profiler recorded no device kernels at a second try)")
     for span, (kernel, passes) in spans.items():
         if not traced_kernels:
             break

@@ -30,9 +30,16 @@ time blocked on the reader), read_decode_s (the reader's own time,
 streaming path), embed_s (streaming: the synchronised tail after the last
 batch was dispatched; per tile: the whole embed), classify_s, total_s,
 n_patches, and decode_path (`grid_jpeg_scaled`, `grid` or `per_tile`).
-`predict_tiles` runs `embed_bag` then `classify_bag` (the two stages
-`tools/profile_serve.traced_request` traces) and reports embed_s (upload +
-embed, synchronised), classify_s, total_s and n_patches.
+`predict_tiles` runs `embed_bag` then `classify_bag` and reports embed_s
+(upload + embed, synchronised), classify_s, total_s and n_patches, and,
+from the spans inside them (`utils/profiling.annotate`), upload_s (the
+host's seconds in each batch's `.to(device)` of the tiles) and milnet_s
+(the MILNet forward's dispatch, before its scores are fetched to the
+host); while a profiler records on a CUDA device, upload_stream_s (the
+stream's seconds between the edges of those uploads). Under a profiler
+its spans `serve.request` ⊃ `serve.embed` ⊃ `serve.upload` (one a batch)
+and `serve.request` ⊃ `serve.classify` ⊃ `serve.milnet` carry the call's
+request id.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from snuffy_tpu_torch.tiling.deepzoom import (
     edge_energy,
     pick_read_level,
 )
+from snuffy_tpu_torch.utils.profiling import annotate, stream_seconds
 
 
 @dataclass
@@ -157,23 +165,31 @@ def embed_bag(
     *,
     embed_batch: int = 256,
     embed_size: int = 224,
+    timings: Optional[dict] = None,
 ) -> torch.Tensor:
     """The tiles' features in batches of `embed_batch` on `device`, into
     the padded f32 bag (bucket_length(n), d) whose rows past n are zero;
-    returns once the device has finished them."""
-    n = int(tiles.shape[0])
-    bag = None
-    for start in range(0, n, embed_batch):
-        chunk = tiles[start:start + embed_batch].to(device, non_blocking=True)
-        if chunk.shape[1] != embed_size or chunk.shape[2] != embed_size:
-            chunk = device_resize(chunk, embed_size)
-        feats, _ = embedder(chunk)
-        if bag is None:
-            bag = torch.zeros((bucket_length(n), feats.shape[1]),
-                              dtype=torch.float32, device=device)
-        bag[start:start + feats.shape[0]] = feats
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    returns once the device has finished them. Adds upload_s (and, under
+    a profiler on the card, upload_stream_s) to `timings` where given."""
+    with annotate("serve.embed"):
+        n = int(tiles.shape[0])
+        edges = [] if timings is not None and device.type == "cuda" else None
+        bag = None
+        for start in range(0, n, embed_batch):
+            with annotate("serve.upload", timings, stream=edges):
+                chunk = tiles[start:start + embed_batch].to(
+                    device, non_blocking=True)
+            if chunk.shape[1] != embed_size or chunk.shape[2] != embed_size:
+                chunk = device_resize(chunk, embed_size)
+            feats, _ = embedder(chunk)
+            if bag is None:
+                bag = torch.zeros((bucket_length(n), feats.shape[1]),
+                                  dtype=torch.float32, device=device)
+            bag[start:start + feats.shape[0]] = feats
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        if edges:
+            timings["upload_stream_s"] = stream_seconds(edges)
     return bag
 
 
@@ -183,14 +199,18 @@ def classify_bag(
     n: int,
     milnet: torch.nn.Module,       # (feats, mask, generator=…) → logits
     seed: int = 0,
+    timings: Optional[dict] = None,
 ) -> Tuple[np.ndarray, float]:
     """The bag's (instance scores (n,), bag score), the random share drawn
-    from a generator seeded with `seed` on the bag's device."""
-    mask = torch.arange(bag.shape[0], device=bag.device) < n
-    gen = torch.Generator(bag.device).manual_seed(seed)
-    ins_logits, bag_logits = milnet(bag, mask, generator=gen)
-    return (torch.sigmoid(ins_logits[:n, 0]).cpu().numpy(),
-            float(torch.sigmoid(bag_logits[0])))
+    from a generator seeded with `seed` on the bag's device. Adds
+    milnet_s to `timings` where given."""
+    with annotate("serve.classify"):
+        mask = torch.arange(bag.shape[0], device=bag.device) < n
+        gen = torch.Generator(bag.device).manual_seed(seed)
+        with annotate("serve.milnet", timings):
+            ins_logits, bag_logits = milnet(bag, mask, generator=gen)
+        return (torch.sigmoid(ins_logits[:n, 0]).cpu().numpy(),
+                float(torch.sigmoid(bag_logits[0])))
 
 
 @torch.inference_mode()
@@ -204,27 +224,29 @@ def predict_tiles(
     seed: int = 0,
 ) -> SlidePrediction:
     """Embed and classify one bag of tiles on the models' device."""
-    device = next(milnet.parameters()).device
-    timings = {}
-    t_start = time.perf_counter()
-    tiles = torch.as_tensor(tiles)
-    n = int(tiles.shape[0])
-    if n == 0:
-        # no tissue, no evidence: nothing to classify
-        timings.update(embed_s=0.0, classify_s=0.0, n_patches=0,
-                       total_s=time.perf_counter() - t_start)
-        return SlidePrediction(0.0, np.zeros((0,), np.float32), [], timings)
+    with annotate("serve.request", request=True):
+        device = next(milnet.parameters()).device
+        timings = {}
+        t_start = time.perf_counter()
+        tiles = torch.as_tensor(tiles)
+        n = int(tiles.shape[0])
+        if n == 0:
+            # no tissue, no evidence: nothing to classify
+            timings.update(embed_s=0.0, classify_s=0.0, n_patches=0,
+                           total_s=time.perf_counter() - t_start)
+            return SlidePrediction(0.0, np.zeros((0,), np.float32), [],
+                                   timings)
 
-    bag = embed_bag(tiles, embedder, device, embed_batch=embed_batch,
-                    embed_size=embed_size)
-    timings["embed_s"] = time.perf_counter() - t_start
+        bag = embed_bag(tiles, embedder, device, embed_batch=embed_batch,
+                        embed_size=embed_size, timings=timings)
+        timings["embed_s"] = time.perf_counter() - t_start
 
-    t0 = time.perf_counter()
-    ins_scores, bag_score = classify_bag(bag, n, milnet, seed)
-    timings["classify_s"] = time.perf_counter() - t0
-    timings["total_s"] = time.perf_counter() - t_start
-    timings["n_patches"] = n
-    return SlidePrediction(bag_score, ins_scores, [], timings)
+        t0 = time.perf_counter()
+        ins_scores, bag_score = classify_bag(bag, n, milnet, seed, timings)
+        timings["classify_s"] = time.perf_counter() - t0
+        timings["total_s"] = time.perf_counter() - t_start
+        timings["n_patches"] = n
+        return SlidePrediction(bag_score, ins_scores, [], timings)
 
 
 def _grid_geometry(slide_path: str, cfg: TilerConfig):

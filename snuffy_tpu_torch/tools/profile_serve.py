@@ -6,7 +6,8 @@ Builds ViT-S/16 + MILNet at the serving widths chip_smoke.py uses (d=384,
 4 heads, Λ=512, ρ=0.5, depth 2, gelu, bf16; seeded weights), warms a
 request of 10000 uint8 224² tiles through `predict_tiles`, then prints:
 
-  * the warm request's embed_s, classify_s and total_s;
+  * the warm request's embed_s (of it upload_s), classify_s (of it
+    milnet_s) and total_s;
   * for one 256-tile embed batch and one classify forward (the padded bag
     of the request): the wall time (median of CUDA-event timings), the
     device-busy time (sum of the kernels' and copies' durations in a
@@ -18,8 +19,9 @@ request of 10000 uint8 224² tiles through `predict_tiles`, then prints:
 
 `--out` also writes the full per-op tables to FILE. `--trace` writes a
 trace of the warm request under DIR (`traced_request`: a Chrome/Perfetto
-`*.pt.trace.json` with the spans "embed" and "classify") and prints the
-device kernels each span holds. Needs one CUDA GPU.
+`*.pt.trace.json` with the program's `serve.*` spans) and prints the
+device kernels `serve.embed` and `serve.classify` hold, and the traced
+request's upload_s and upload_stream_s. Needs one CUDA GPU.
 """
 
 from __future__ import annotations
@@ -33,11 +35,7 @@ import sys
 
 import torch
 
-from snuffy_tpu_torch.utils.profiling import (
-    annotate,
-    device_profile,
-    device_trace,
-)
+from snuffy_tpu_torch.utils.profiling import device_profile, device_trace
 
 TILES = 10000
 EMBED_BATCH = 256
@@ -93,32 +91,23 @@ def table(label, ops, kernels):
     return out
 
 
-@torch.inference_mode()
 def traced_request(tiles, embedder, milnet, log_dir, *,
                    embed_batch=EMBED_BATCH):
-    """`predict_tiles`' two stages, `embed_bag` and `classify_bag`, on
-    one request of n ≥ 1 tiles under `device_trace(log_dir)`, each in an
-    `annotate` span ("embed", "classify") that ends after the device has
-    finished it. → (instance scores (n,), bag score, the trace file
-    written)."""
-    from snuffy_tpu_torch.pipeline.slide_inference import (
-        classify_bag,
-        embed_bag,
-    )
+    """`predict_tiles` on one request of n ≥ 1 tiles under
+    `device_trace(log_dir)`: the trace holds the program's own spans
+    (`serve.request`, `serve.embed` with one `serve.upload` a batch,
+    `serve.classify` with `serve.milnet`). → (the prediction, the trace
+    file written)."""
+    from snuffy_tpu_torch.pipeline.slide_inference import predict_tiles
 
-    device = next(milnet.parameters()).device
     before = set(trace_files(log_dir))
     with device_trace(log_dir):
-        with annotate("embed"):
-            bag = embed_bag(tiles, embedder, device, embed_batch=embed_batch)
-        with annotate("classify"):
-            ins_scores, bag_score = classify_bag(bag, int(tiles.shape[0]),
-                                                 milnet)
+        pred = predict_tiles(tiles, embedder, milnet, embed_batch=embed_batch)
     written = sorted(set(trace_files(log_dir)) - before)
     if len(written) != 1:
         raise RuntimeError(f"device_trace wrote {len(written)} trace files "
                            f"under {log_dir}")
-    return ins_scores, bag_score, written[0]
+    return pred, written[0]
 
 
 def trace_files(log_dir) -> list:
@@ -191,16 +180,20 @@ def main(argv=None) -> int:
     predict_tiles(tiles, embedder, milnet)  # warm-up: allocator, GEMM plans
     t = predict_tiles(tiles, embedder, milnet).timings
     print(f"request n_patches={t['n_patches']} embed_s={t['embed_s']:.4f} "
-          f"classify_s={t['classify_s']:.4f} total_s={t['total_s']:.4f}",
+          f"(upload_s={t['upload_s']:.4f}) classify_s={t['classify_s']:.4f} "
+          f"(milnet_s={t['milnet_s']:.4f}) total_s={t['total_s']:.4f}",
           flush=True)
     if args.trace:
-        *_, path = traced_request(tiles, embedder, milnet, args.trace)
-        _, kernels = read_trace(path, ("embed", "classify"))
+        pred, path = traced_request(tiles, embedder, milnet, args.trace)
+        _, kernels = read_trace(path, ("serve.embed", "serve.classify"))
         counts = {}
         for _, span in kernels:
             counts[span] = counts.get(span, 0) + 1
+        t = pred.timings
         print(f"trace {path}: {os.path.getsize(path) / 2**20:.2f} MiB, "
-              f"device kernels by span {counts}", flush=True)
+              f"device kernels by span {counts}; traced request total_s="
+              f"{t['total_s']:.4f} upload_s={t['upload_s']:.4f} "
+              f"upload_stream_s={t['upload_stream_s']:.4f}", flush=True)
 
     n_pad = bucket_length(TILES)
     batch = tiles[:EMBED_BATCH]

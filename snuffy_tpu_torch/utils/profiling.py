@@ -1,73 +1,43 @@
 """Tracing and profiling of the port: `snuffy_tpu/utils/profiling.py` on
 torch.profiler.
 
-  * `StageTimer` — nested wall-clock scopes with a JSONL sink, a copy of
-    the JAX package's (stdlib only);
   * `device_trace` — a torch.profiler trace of the block, written under
     `log_dir` as Chrome/Perfetto JSON (`*.pt.trace.json`), where the JAX
     package writes an XLA trace for TensorBoard/Perfetto;
-  * `annotate` — a named span inside such a trace, as
-    `jax.profiler.TraceAnnotation` is;
+  * `annotate` — a named span of the program: its host seconds into a
+    `timings` dict, and, while a profiler records, a range in the trace
+    (as `jax.profiler.TraceAnnotation` is) carrying its request's id, and
+    the span's stream time by a CUDA event pair (`stream_seconds`);
   * `device_profile` and `traced` — the device time of a function by
     torch.profiler's kernel times, the readings of `tools/profile_*` and
     chip_smoke.py. torch.profiler has recorded no device time at all on
     one H100 machine, from a run's first trace on; `traced` tries once
     more, then returns None, and its callers report "not traced".
 
-`device_trace` and `annotate` do nothing without a `log_dir`, or outside a
-trace.
+`device_trace` does nothing without a `log_dir`; outside a trace,
+`annotate` only adds host seconds.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
+import contextvars
+import itertools
 import os
 import time
-from typing import Dict, Optional
+from typing import List, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # calls of the function a device profile averages over
 ITERS = 5
 
-
-class StageTimer:
-    """Nested named timers with aggregate stats and optional JSONL sink."""
-
-    def __init__(self, sink_path: Optional[str] = None):
-        self.sink_path = sink_path
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-        self._stack = []
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        full = "/".join([*self._stack, name])
-        self._stack.append(name)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self._stack.pop()
-            self.totals[full] = self.totals.get(full, 0.0) + dt
-            self.counts[full] = self.counts.get(full, 0) + 1
-            if self.sink_path:
-                os.makedirs(os.path.dirname(self.sink_path) or ".",
-                            exist_ok=True)
-                with open(self.sink_path, "a") as f:
-                    f.write(json.dumps({"stage": full, "seconds": dt}) + "\n")
-
-    def summary(self) -> Dict[str, dict]:
-        return {
-            name: {
-                "total_s": self.totals[name],
-                "count": self.counts[name],
-                "mean_s": self.totals[name] / self.counts[name],
-            }
-            for name in sorted(self.totals)
-        }
+# Request ids, drawn only while a profiler records: the process's counter,
+# and the id of the request whose spans are open in this thread or task.
+_REQUEST_IDS = itertools.count(1)
+_REQUEST: contextvars.ContextVar = contextvars.ContextVar("request",
+                                                          default=None)
 
 
 @contextlib.contextmanager
@@ -93,14 +63,82 @@ def device_trace(log_dir: Optional[str]):
                                "cannot trace it")
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities,
+    with profile(activities=activities, record_shapes=True,
                  on_trace_ready=tensorboard_trace_handler(log_dir)):
         yield
 
 
-def annotate(name: str):
-    """Named span inside a device trace (record_function)."""
-    return torch.profiler.record_function(name)
+class annotate:
+    """A named span: `with annotate("serve.upload", timings): ...`.
+
+    With no profiler recording it adds its host seconds (`perf_counter`)
+    to `into["<the name's last part>_s"]` (`timings["upload_s"]`) where
+    `into` is a dict, and does nothing else. While a profiler records it
+    also opens a range of that name in the trace (a `user_annotation` on
+    the device's clock, nested by call) whose one input is the id of its
+    request (the trace shows it as "Concrete Inputs" where the profiler
+    records shapes, as `device_trace` does): `request=True` opens a new
+    request, the spans inside it carry its id. Given a list as `stream`,
+    it records a CUDA event pair on the current stream at its edges and
+    appends it there, for `stream_seconds` to read once the stream has
+    been synchronised; the caller passes one only for a CUDA device."""
+
+    __slots__ = ("name", "into", "key", "request", "stream", "_t0",
+                 "_range", "_token", "_start")
+
+    def __init__(self, name: str, into: Optional[dict] = None, *,
+                 request: bool = False, stream: Optional[list] = None):
+        self.name = name
+        self.into = into
+        self.key = name.rsplit(".", 1)[-1] + "_s"
+        self.request = request
+        self.stream = stream
+        self._range = None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self._open()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._close()
+        if self.into is not None:
+            self.into[self.key] = self.into.get(self.key, 0.0) + dt
+        return False
+
+    def _open(self):
+        if self.request:
+            rid = next(_REQUEST_IDS)
+            self._token = _REQUEST.set(rid)
+        else:
+            rid = _REQUEST.get()
+        # record_function's `args` string reaches no trace; an int input
+        # does (as "Concrete Inputs" where shapes are recorded)
+        self._range = torch.autograd._record_function_with_args_enter(
+            self.name, *(() if rid is None else (rid,)))
+        if self.stream is not None:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+
+    def _close(self):
+        if self.stream is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.stream.append((self._start, end))
+        torch.autograd._record_function_with_args_exit(self._range)
+        self._range = None
+        if self.request:
+            _REQUEST.reset(self._token)
+
+
+def stream_seconds(pairs: List[Tuple[torch.cuda.Event, torch.cuda.Event]]
+                   ) -> float:
+    """The seconds between each recorded event pair of `annotate`'s
+    `stream` list, summed; the stream must have passed them."""
+    return sum(a.elapsed_time(b) for a, b in pairs) / 1e3
 
 
 class NoDeviceTime(RuntimeError):

@@ -689,41 +689,6 @@ def test_metric_sync_across_processes_matches(monkeypatch, procs):
     assert (ours.count, ours.total) == (theirs.count, theirs.total)
 
 
-def test_stage_timer_matches(tmp_path, monkeypatch):
-    """The same nested stages through both timers, on one tick clock:
-    keys, counts, summaries and the JSONL sink's lines equal."""
-    import time
-
-    from snuffy_tpu.utils.profiling import StageTimer as JaxStageTimer
-    from snuffy_tpu_torch.utils.profiling import StageTimer
-
-    def run(cls, sink):
-        ticks = iter(range(100))
-        monkeypatch.setattr(time, "perf_counter", lambda: 0.25 * next(ticks))
-        timer = cls(sink)
-        with timer.stage("epoch"):
-            for _ in range(2):
-                with timer.stage("train"):
-                    with timer.stage("step"):
-                        pass
-            with timer.stage("valid"):
-                pass
-        with pytest.raises(ValueError):
-            with timer.stage("failing"):
-                raise ValueError
-        return timer
-
-    got = run(StageTimer, str(tmp_path / "port" / "t.jsonl"))
-    want = run(JaxStageTimer, str(tmp_path / "jax" / "t.jsonl"))
-    assert got.counts == want.counts and got.totals == want.totals
-    assert got.summary() == want.summary()
-    assert list(got.summary()) == ["epoch", "epoch/train", "epoch/train/step",
-                                   "epoch/valid", "failing"]
-    assert (tmp_path / "port" / "t.jsonl").read_text() == \
-        (tmp_path / "jax" / "t.jsonl").read_text()
-    assert StageTimer().summary() == {}
-
-
 def test_bag_table_splits_match():
     """The row splits against `split_dataframe_by_*` on a DataFrame of the
     same rows: 'valid' is a prefix of 'validation', a path outside the

@@ -1,13 +1,19 @@
-"""The port's `utils/profiling` against `snuffy_tpu/utils/profiling.py`.
+"""The port's `utils/profiling` against `snuffy_tpu/utils/profiling.py`,
+and the serve path's spans.
 
 `device_trace` writes one trace where the JAX one writes one; a small serve
-request traced with the spans "embed" and "classify" (the card's phase 17
-of chip_smoke.py, on the CPU) holds both spans and gives the scores of the
-same request outside the trace, bit for bit; `device_profile` refuses a
-trace without device time (a stubbed profiler: there is no card here).
+request traced through `predict_tiles` (the card's phase 17 of
+chip_smoke.py, on the CPU) holds the program's spans, nested by call and
+carrying one id a request, around every op of the request, and gives the
+scores of the same request outside the trace, bit for bit; with no
+profiler the spans only add host seconds to `timings`; `device_profile`
+refuses a trace without device time (a stubbed profiler: there is no card
+here).
 """
 
 import glob
+import json
+import math
 import os
 
 import jax.numpy as jnp
@@ -25,7 +31,53 @@ from snuffy_tpu_torch.pipeline.slide_inference import predict_tiles
 from snuffy_tpu_torch.tools.profile_serve import read_trace, traced_request
 from snuffy_tpu_torch.utils import profiling
 
-SPANS = ("embed", "classify")
+SPANS = ("serve.embed", "serve.classify")
+EMBED_BATCH = 4
+
+
+@pytest.fixture(scope="module")
+def serve_models():
+    """A 2-layer ViT and a MILNet of d=32 at ρ=0.5 (the random share drawn
+    from the request's seeded generator), and 10 tiles of 240² (resized to
+    224²): three embed batches of 4."""
+    torch.manual_seed(0)
+    vit = VisionTransformer(patch_size=16, embed_dim=32, depth=2, num_heads=2)
+    embedder = Embedder(vit, 32, 1).eval()
+    cfg = SnuffyModelConfig(feats_size=32, num_classes=1, num_heads=2,
+                            big_lambda=8, random_patch_share=0.5, depth=2,
+                            activation="gelu")
+    milnet = build_milnet(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    tiles = torch.from_numpy(
+        rng.integers(0, 256, (10, 240, 240, 3)).astype(np.uint8))
+    return embedder, milnet, tiles
+
+
+@pytest.fixture(scope="module")
+def two_traced_requests(serve_models, tmp_path_factory):
+    """The events of one `device_trace` around two requests (the tiles,
+    then their first 5), and the two predictions."""
+    embedder, milnet, tiles = serve_models
+    log_dir = str(tmp_path_factory.mktemp("trace"))
+    requests = (tiles, tiles[:5])
+    with profiling.device_trace(log_dir):
+        preds = [predict_tiles(t, embedder, milnet, embed_batch=EMBED_BATCH)
+                 for t in requests]
+    path, = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        return json.load(f)["traceEvents"], preds
+
+
+def _spans(events, name):
+    """[(start, end, request id)] of the span `name`, by start."""
+    return sorted((e["ts"], e["ts"] + e["dur"],
+                   e["args"]["Concrete Inputs"][0])
+                  for e in events if e.get("cat") == "user_annotation"
+                  and e.get("name") == name)
+
+
+def _inside(outer, inner):
+    return [i for i in inner if outer[0] <= i[0] and i[1] <= outer[1]]
 
 
 def test_device_trace_without_a_dir_is_a_no_op(tmp_path):
@@ -54,32 +106,104 @@ def test_device_trace_writes_one_trace_as_the_jax_one_does(tmp_path):
     assert len(host["stage"]) == 1 and host["absent"] == [] and kernels == []
 
 
-def test_traced_serve_request_holds_both_spans_and_the_same_scores(tmp_path):
-    """8 tiles of 240² (resized to 224²) in two embed batches through a
-    2-layer ViT and a MILNet of d=32 at ρ=0.5 (the random share drawn from
-    the request's seeded generator)."""
-    torch.manual_seed(0)
-    vit = VisionTransformer(patch_size=16, embed_dim=32, depth=2, num_heads=2)
-    embedder = Embedder(vit, 32, 1).eval()
-    cfg = SnuffyModelConfig(feats_size=32, num_classes=1, num_heads=2,
-                            big_lambda=8, random_patch_share=0.5, depth=2,
-                            activation="gelu")
-    milnet = build_milnet(cfg, seed=0, device="cpu")
-    rng = np.random.default_rng(0)
-    tiles = torch.from_numpy(
-        rng.integers(0, 256, (8, 240, 240, 3)).astype(np.uint8))
-
-    want = predict_tiles(tiles, embedder, milnet, embed_batch=4)
-    ins, bag, path = traced_request(tiles, embedder, milnet,
-                                    str(tmp_path / "trace"), embed_batch=4)
+def test_traced_serve_request_holds_both_spans_and_the_same_scores(
+        serve_models, tmp_path):
+    """`traced_request` traces `predict_tiles`: the trace holds
+    `serve.embed` then `serve.classify` once each, and the scores are the
+    untraced call's bit for bit."""
+    embedder, milnet, tiles = serve_models
+    want = predict_tiles(tiles, embedder, milnet, embed_batch=EMBED_BATCH)
+    pred, path = traced_request(tiles, embedder, milnet,
+                                str(tmp_path / "trace"),
+                                embed_batch=EMBED_BATCH)
     assert os.path.dirname(path) == str(tmp_path / "trace")
-    np.testing.assert_array_equal(ins, want.instance_scores)
-    assert bag == want.bag_score
+    np.testing.assert_array_equal(pred.instance_scores, want.instance_scores)
+    assert pred.bag_score == want.bag_score
     host, kernels = read_trace(path, SPANS)
     assert [len(host[s]) for s in SPANS] == [1, 1]
-    (e0, e1), (c0, c1) = host["embed"][0], host["classify"][0]
+    (e0, e1), (c0, c1) = host["serve.embed"][0], host["serve.classify"][0]
     assert e0 < e1 <= c0 < c1
     assert kernels == []                    # no device here
+
+
+def test_spans_nest_by_call_one_upload_a_batch(two_traced_requests):
+    """serve.request ⊃ serve.embed ⊃ ⌈n / embed_batch⌉ serve.upload, and
+    serve.request ⊃ serve.classify ⊃ serve.milnet, for each request."""
+    events, _ = two_traced_requests
+    requests = _spans(events, "serve.request")
+    assert len(requests) == 2
+    for req, n in zip(requests, (10, 5)):
+        embed, = _inside(req, _spans(events, "serve.embed"))
+        classify, = _inside(req, _spans(events, "serve.classify"))
+        assert embed[1] <= classify[0]
+        uploads = _inside(embed, _spans(events, "serve.upload"))
+        assert len(uploads) == math.ceil(n / EMBED_BATCH)
+        assert len(_inside(classify, _spans(events, "serve.milnet"))) == 1
+
+
+def test_spans_of_a_request_share_its_id(two_traced_requests):
+    """Every span inside a request carries the request's id, and the two
+    requests have two ids."""
+    events, _ = two_traced_requests
+    requests = _spans(events, "serve.request")
+    inner = [s for name in ("serve.embed", "serve.upload", "serve.classify",
+                            "serve.milnet") for s in _spans(events, name)]
+    for req, n in zip(requests, (10, 5)):
+        mine = _inside(req, inner)
+        assert len(mine) == 3 + math.ceil(n / EMBED_BATCH)
+        assert {s[2] for s in mine} == {req[2]}
+    assert len({r[2] for r in requests}) == 2
+    assert len(inner) == sum(len(_inside(r, inner)) for r in requests)
+
+
+def test_every_op_of_a_traced_request_lies_in_its_span(serve_models,
+                                                       two_traced_requests):
+    """The trace puts each aten op inside a `serve.request`, and the traced
+    requests score as the untraced ones, bit for bit."""
+    embedder, milnet, tiles = serve_models
+    events, preds = two_traced_requests
+    requests = _spans(events, "serve.request")
+    ops = [(e["ts"], e["ts"] + e["dur"]) for e in events
+           if e.get("cat") == "cpu_op" and e["name"].startswith("aten::")]
+    assert ops
+    assert all(any(r[0] <= a and b <= r[1] for r in requests)
+               for a, b in ops)
+    for pred, t in zip(preds, (tiles, tiles[:5])):
+        want = predict_tiles(t, embedder, milnet, embed_batch=EMBED_BATCH)
+        np.testing.assert_array_equal(pred.instance_scores,
+                                      want.instance_scores)
+        assert pred.bag_score == want.bag_score
+
+
+def test_untraced_spans_add_host_seconds_only(serve_models, monkeypatch):
+    """With no profiler recording, the serve path opens no profiler range
+    and makes no CUDA event; `timings` carries upload_s and milnet_s, each
+    within its stage's time, and no upload_stream_s."""
+    embedder, milnet, tiles = serve_models
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("entered with no profiler recording")
+
+    monkeypatch.setattr(torch.autograd, "_record_function_with_args_enter",
+                        refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    t = predict_tiles(tiles, embedder, milnet, embed_batch=EMBED_BATCH).timings
+    assert 0.0 <= t["upload_s"] <= t["embed_s"]
+    assert 0.0 <= t["milnet_s"] <= t["classify_s"]
+    assert "upload_stream_s" not in t
+
+
+def test_annotate_adds_under_the_names_last_part():
+    """Host seconds accumulate under "<last part>_s"; a span given no
+    dict adds nothing."""
+    timings = {}
+    for _ in range(3):
+        with profiling.annotate("serve.upload", timings):
+            pass
+    with profiling.annotate("serve.classify"):
+        pass
+    assert list(timings) == ["upload_s"] and timings["upload_s"] >= 0.0
 
 
 class _Event:
