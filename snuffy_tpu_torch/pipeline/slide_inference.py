@@ -11,9 +11,9 @@ native reader:
     embed size through libjpeg's scaled IDCT (`read_grid_scaled`);
   * a one-block prefetch thread reads block i+1 while block i uploads and
     embeds (the ctypes call releases the GIL);
-  * kept tiles go up in full `embed_batch` batches through a ring of two
-    pinned host buffers, non-blocking, each refilled only after the event
-    recorded behind its last copy has passed;
+  * kept tiles go up in full `embed_batch` batches through the uploader
+    `embed_bag` uses (`_Uploads`: staged through its pinned ring, copied
+    on its copy stream);
   * embeddings land in one preallocated f32 device buffer of
     bucket_length(cols·rows) + embed_batch rows, the padded bag the
     aggregator classifies (the grid's bucket, as in JAX, not the kept
@@ -25,6 +25,13 @@ device as uint8; the resize to the embed size (when the tile size differs
 and the scaled decode does not apply), the cast and the normalisation run
 there.
 
+The upload (`_Uploads`) takes its route from where a batch lies: host
+tiles bound for the card are staged through a ring of two pinned buffers
+and copied on a copy stream of their own, so that batch i+1 is staged and
+copied while batch i embeds; tiles on the device are used as they are,
+and on the CPU nothing changes. Events alone guard the ring, never a
+synchronise of the device.
+
 Timings of `predict_slide`, with the JAX meanings: read_filter_s (wall
 time blocked on the reader), read_decode_s (the reader's own time,
 streaming path), embed_s (streaming: the synchronised tail after the last
@@ -33,18 +40,22 @@ n_patches, and decode_path (`grid_jpeg_scaled`, `grid` or `per_tile`).
 `predict_tiles` runs `embed_bag` then `classify_bag` and reports embed_s
 (upload + embed, synchronised), classify_s, total_s and n_patches, and,
 from the spans inside them (`utils/profiling.annotate`), upload_s (the
-host's seconds in each batch's `.to(device)` of the tiles) and milnet_s
-(the MILNet forward's dispatch, before its scores are fetched to the
-host); while a profiler records on a CUDA device, upload_stream_s (the
-stream's seconds between the edges of those uploads). Under a profiler
-its spans `serve.request` ⊃ `serve.embed` ⊃ `serve.upload` (one a batch)
-and `serve.request` ⊃ `serve.classify` ⊃ `serve.milnet` carry the call's
-request id.
+host's seconds staging and enqueueing each batch's upload), upload_wait_s
+(the host's seconds waiting for a ring slot), upload_staged (the batches
+staged through the pinned ring) and milnet_s (the MILNet forward's
+dispatch, before its scores are fetched to the host); while a profiler
+records on a CUDA device, upload_stream_s (the seconds of the copies
+alone, on the stream that ran them). Under a profiler its spans
+`serve.request` ⊃ `serve.embed` ⊃ `serve.upload` (one a batch, after the
+batch's `serve.upload_wait` where it is staged) and `serve.request` ⊃
+`serve.classify` ⊃ `serve.milnet` carry the call's request id.
 """
 
 from __future__ import annotations
 
+import math
 import multiprocessing as mp
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -60,7 +71,11 @@ from snuffy_tpu_torch.tiling.deepzoom import (
     edge_energy,
     pick_read_level,
 )
-from snuffy_tpu_torch.utils.profiling import annotate, stream_seconds
+from snuffy_tpu_torch.utils.profiling import (
+    annotate,
+    stream_edges,
+    stream_seconds,
+)
 
 
 @dataclass
@@ -169,16 +184,28 @@ def embed_bag(
 ) -> torch.Tensor:
     """The tiles' features in batches of `embed_batch` on `device`, into
     the padded f32 bag (bucket_length(n), d) whose rows past n are zero;
-    returns once the device has finished them. Adds upload_s (and, under
-    a profiler on the card, upload_stream_s) to `timings` where given."""
+    returns once the device has finished them.
+
+    Each batch goes up through the thread's uploader for `device`
+    (`_Uploads`): host tiles bound for the card are staged through its
+    pinned ring and copied on its copy stream while the previous batch
+    embeds, tiles on the device are used as they are. Where `timings` is
+    given it adds upload_s (the host's seconds staging and enqueueing),
+    upload_wait_s (the host's seconds waiting for a ring slot: 0 unless
+    staged), upload_staged (the batches staged through the ring: 0 on the
+    CPU and for tiles on the device) and, under a profiler on the card,
+    upload_stream_s (the copies alone, on the stream that ran them)."""
     with annotate("serve.embed"):
         n = int(tiles.shape[0])
+        upload = _uploader(device)
         edges = [] if timings is not None and device.type == "cuda" else None
+        if timings is not None:
+            timings.setdefault("upload_staged", 0)
+            timings.setdefault("upload_wait_s", 0.0)
         bag = None
         for start in range(0, n, embed_batch):
-            with annotate("serve.upload", timings, stream=edges):
-                chunk = tiles[start:start + embed_batch].to(
-                    device, non_blocking=True)
+            chunk = upload(tiles[start:start + embed_batch], embed_batch,
+                           timings, edges)
             if chunk.shape[1] != embed_size or chunk.shape[2] != embed_size:
                 chunk = device_resize(chunk, embed_size)
             feats, _ = embedder(chunk)
@@ -262,33 +289,107 @@ def _grid_geometry(slide_path: str, cfg: TilerConfig):
 
 
 class _Uploads:
-    """uint8 batches → the device. On the card: a ring of two pinned host
-    buffers, copied non-blocking; a buffer is refilled only after the
-    event recorded behind its previous copy has passed, so a copy still in
-    flight never reads a half-written buffer. On the CPU: the array as it
-    is."""
+    """uint8 tile batches → `device`, by a route taken from where each
+    batch lies:
 
-    def __init__(self, device: torch.device, shape: Tuple[int, ...]):
+      * host memory, bound for the card: the host copies the batch into
+        the next of a ring of two pinned buffers (staging), and a copy
+        stream of the uploader's own copies that into the matching one of
+        two device buffers;
+      * anything else (tiles already on the card, the CPU as target, a
+        batch that is not uint8): `.to(device)`, which leaves tiles on
+        their device as they are.
+
+    The caller's stream (the current one at each call) waits for a copy by
+    an event before it reads the device buffer. Two events a slot guard
+    the ring, and nothing synchronises the device: the host refills a
+    pinned buffer only after the event behind the buffer's last copy has
+    passed (that wait is the span `serve.upload_wait`, before and outside
+    `serve.upload`), and the copy stream overwrites a device buffer only
+    after an event that each call records on the caller's stream first,
+    behind the work enqueued since the previous call: the forward that
+    read the previous batch. The buffers hold `rows` tiles of the batch's
+    shape; they are allocated at their first use and kept, and replaced
+    by larger ones when a batch of more rows or larger tiles comes, so an
+    uploader holds two of each, of the largest batch it has staged; a
+    smaller batch uses their first bytes. `_uploader` keeps one uploader a
+    thread and device.
+
+    A call adds to `timings`, where given: the spans' upload_wait_s and
+    upload_s, and upload_staged, one a staged batch. Under a profiler,
+    `edges` (a list, for the card) takes the CUDA event pair of the copy
+    alone, recorded on the stream that runs it."""
+
+    def __init__(self, device: torch.device):
         self.device = device
-        self.ring = []
+        self.host = self.dev = None     # two flat uint8 buffers each
         if device.type == "cuda":
-            self.ring = [[torch.empty(shape, dtype=torch.uint8,
-                                      pin_memory=True), None]
-                         for _ in range(2)]
+            self.copy_stream = torch.cuda.Stream(device)
+            self.copied = [torch.cuda.Event(), torch.cuda.Event()]
+            self.consumed = [torch.cuda.Event(), torch.cuda.Event()]
         self.turn = 0
+        self.held = None    # the slot whose batch the caller last received
 
-    def __call__(self, batch: np.ndarray) -> torch.Tensor:
-        if not self.ring:
-            return torch.from_numpy(batch).to(self.device)
-        slot = self.ring[self.turn]
-        self.turn ^= 1
-        if slot[1] is not None:
-            slot[1].synchronize()
-        slot[0].numpy()[...] = batch
-        on_device = slot[0].to(self.device, non_blocking=True)
-        slot[1] = torch.cuda.Event()
-        slot[1].record()
-        return on_device
+    def __call__(self, batch: torch.Tensor, rows: int,
+                 timings: Optional[dict] = None,
+                 edges: Optional[list] = None) -> torch.Tensor:
+        if not (self.device.type == "cuda" and batch.device.type == "cpu"
+                and batch.dtype == torch.uint8):
+            with annotate("serve.upload", timings), stream_edges(edges):
+                return batch.to(self.device, non_blocking=True)
+        slot = self.turn
+        compute = torch.cuda.current_stream(self.device)
+        if self.held is not None:
+            self.consumed[self.held].record(compute)
+            self.held = None
+        with annotate("serve.upload_wait", timings):
+            self.copied[slot].synchronize()
+        with annotate("serve.upload", timings):
+            size = batch.numel()
+            need = max(size, rows * math.prod(batch.shape[1:]))
+            if self.dev is None or self.dev[0].numel() < need:
+                self._allocate(need, compute)
+            src = self.host[slot][:size].view(batch.shape)
+            src.copy_(batch)
+            out = self.dev[slot][:size].view(batch.shape)
+            with torch.cuda.stream(self.copy_stream):
+                self.copy_stream.wait_event(self.consumed[slot])
+                with stream_edges(edges):
+                    out.copy_(src, non_blocking=True)
+                self.copied[slot].record(self.copy_stream)
+            compute.wait_event(self.copied[slot])
+            if timings is not None:
+                timings["upload_staged"] = timings.get("upload_staged", 0) + 1
+            self.turn ^= 1
+            self.held = slot
+            return out
+
+    def _allocate(self, size: int, compute: torch.cuda.Stream) -> None:
+        # The old buffers go safely: the pinned ones' copies were recorded
+        # with the host allocator, the device ones belong to `compute`,
+        # whose reads of them come first. The new device buffers may reuse
+        # blocks that work on `compute` still reads: the copy stream waits
+        # for it before its first write.
+        self.host = [torch.empty(size, dtype=torch.uint8, pin_memory=True)
+                     for _ in range(2)]
+        self.dev = [torch.empty(size, dtype=torch.uint8, device=self.device)
+                    for _ in range(2)]
+        self.copy_stream.wait_stream(compute)
+
+
+_UPLOADERS = threading.local()
+
+
+def _uploader(device: torch.device) -> _Uploads:
+    """The calling thread's uploader of batches to `device`, made at its
+    first use and kept (a thread of its own each: two threads on one ring
+    would refill each other's slots)."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    kept = _UPLOADERS.__dict__.setdefault("kept", {})
+    if device not in kept:
+        kept[device] = _Uploads(device)
+    return kept[device]
 
 
 @torch.inference_mode()
@@ -344,7 +445,7 @@ def _stream(slide, level, read, cols, rows, embedder, milnet, cfg,
     :189-342) on an open slide."""
     device = next(milnet.parameters()).device
     side = embed_size if scaled else read
-    upload = _Uploads(device, (embed_batch, side, side, 3))
+    upload = _uploader(device)
     block_rows = max(1, -(-embed_batch // max(cols, 1)))
     starts = list(range(0, rows, block_rows)) if cols else []
     n_pad = bucket_length(cols * rows)
@@ -368,7 +469,7 @@ def _stream(slide, level, read, cols, rows, embedder, milnet, cfg,
         # Rows past `count` hold the padding tiles' features; the next
         # batch overwrites them or the mask leaves them out.
         nonlocal bag, n_done
-        x = upload(batch)
+        x = upload(torch.from_numpy(batch), embed_batch)
         if x.shape[1] != embed_size or x.shape[2] != embed_size:
             x = device_resize(x, embed_size)
         feats, _ = embedder(x)

@@ -6,8 +6,10 @@ torch.profiler.
     package writes an XLA trace for TensorBoard/Perfetto;
   * `annotate` — a named span of the program: its host seconds into a
     `timings` dict, and, while a profiler records, a range in the trace
-    (as `jax.profiler.TraceAnnotation` is) carrying its request's id, and
-    the span's stream time by a CUDA event pair (`stream_seconds`);
+    (as `jax.profiler.TraceAnnotation` is) carrying its request's id;
+  * `stream_edges` — while a profiler records, a CUDA event pair on the
+    current stream around a block inside a span (the copy alone of
+    `serve.upload`), summed by `stream_seconds`;
   * `device_profile` and `traced` — the device time of a function by
     torch.profiler's kernel times, the readings of `tools/profile_*` and
     chip_smoke.py. torch.profiler has recorded no device time at all on
@@ -78,21 +80,17 @@ class annotate:
     the device's clock, nested by call) whose one input is the id of its
     request (the trace shows it as "Concrete Inputs" where the profiler
     records shapes, as `device_trace` does): `request=True` opens a new
-    request, the spans inside it carry its id. Given a list as `stream`,
-    it records a CUDA event pair on the current stream at its edges and
-    appends it there, for `stream_seconds` to read once the stream has
-    been synchronised; the caller passes one only for a CUDA device."""
+    request, the spans inside it carry its id."""
 
-    __slots__ = ("name", "into", "key", "request", "stream", "_t0",
-                 "_range", "_token", "_start")
+    __slots__ = ("name", "into", "key", "request", "_t0", "_range",
+                 "_token")
 
     def __init__(self, name: str, into: Optional[dict] = None, *,
-                 request: bool = False, stream: Optional[list] = None):
+                 request: bool = False):
         self.name = name
         self.into = into
         self.key = name.rsplit(".", 1)[-1] + "_s"
         self.request = request
-        self.stream = stream
         self._range = None
 
     def __enter__(self):
@@ -119,25 +117,35 @@ class annotate:
         # does (as "Concrete Inputs" where shapes are recorded)
         self._range = torch.autograd._record_function_with_args_enter(
             self.name, *(() if rid is None else (rid,)))
-        if self.stream is not None:
-            self._start = torch.cuda.Event(enable_timing=True)
-            self._start.record()
 
     def _close(self):
-        if self.stream is not None:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            self.stream.append((self._start, end))
         torch.autograd._record_function_with_args_exit(self._range)
         self._range = None
         if self.request:
             _REQUEST.reset(self._token)
 
 
+@contextlib.contextmanager
+def stream_edges(pairs: Optional[list]):
+    """While a profiler records and `pairs` is a list (the caller passes
+    one only for a CUDA device): a CUDA event pair recorded on the current
+    stream at the block's edges, appended to `pairs` for `stream_seconds`
+    to read once the stream has passed it. Otherwise nothing."""
+    if pairs is None or not _autograd_profiler._is_profiler_enabled:
+        yield
+        return
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    pairs.append((start, end))
+
+
 def stream_seconds(pairs: List[Tuple[torch.cuda.Event, torch.cuda.Event]]
                    ) -> float:
-    """The seconds between each recorded event pair of `annotate`'s
-    `stream` list, summed; the stream must have passed them."""
+    """The seconds between each event pair of `stream_edges`' list,
+    summed; the streams must have passed them."""
     return sum(a.elapsed_time(b) for a, b in pairs) / 1e3
 
 

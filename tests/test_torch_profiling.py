@@ -141,6 +141,18 @@ def test_spans_nest_by_call_one_upload_a_batch(two_traced_requests):
         assert len(_inside(classify, _spans(events, "serve.milnet"))) == 1
 
 
+def test_no_slot_wait_on_the_cpu_route(two_traced_requests):
+    """On the CPU no batch is staged, so serve.embed holds its
+    ⌈n / embed_batch⌉ serve.upload spans and no serve.upload_wait (the
+    staged batches' waits are `tests/test_torch_upload_card.py`'s)."""
+    events, _ = two_traced_requests
+    assert not _spans(events, "serve.upload_wait")
+    for req, n in zip(_spans(events, "serve.request"), (10, 5)):
+        embed, = _inside(req, _spans(events, "serve.embed"))
+        uploads = _inside(embed, _spans(events, "serve.upload"))
+        assert len(uploads) == math.ceil(n / EMBED_BATCH)
+
+
 def test_spans_of_a_request_share_its_id(two_traced_requests):
     """Every span inside a request carries the request's id, and the two
     requests have two ids."""
@@ -192,6 +204,17 @@ def test_untraced_spans_add_host_seconds_only(serve_models, monkeypatch):
     assert 0.0 <= t["upload_s"] <= t["embed_s"]
     assert 0.0 <= t["milnet_s"] <= t["classify_s"]
     assert "upload_stream_s" not in t
+
+
+def test_untraced_timings_count_the_slot_wait_and_no_staging(serve_models):
+    """On the CPU `predict_tiles` stages no batch through the pinned ring
+    (upload_staged 0) and reports the slot wait as 0, apart from upload_s
+    and within embed_s."""
+    embedder, milnet, tiles = serve_models
+    t = predict_tiles(tiles, embedder, milnet, embed_batch=EMBED_BATCH).timings
+    assert t["upload_staged"] == 0
+    assert t["upload_wait_s"] == 0.0
+    assert t["upload_wait_s"] + t["upload_s"] <= t["embed_s"]
 
 
 def test_annotate_adds_under_the_names_last_part():
