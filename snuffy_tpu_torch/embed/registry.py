@@ -6,6 +6,10 @@ compute_feats.py:328-446):
            global-average pool
   DINO   → ViT-S/B (patch 16 or 8), CLS output, optional parallel adapter
   MAE    → MAE ViT-B/L encoder, masking off, mean-pooled patch tokens
+  Virchow2 → ViT-H/14 with 4 registers, LayerScale and packed SwiGLU
+           (`vit_huge_patch14_reg4`), the class token and the mean patch
+           token concatenated (2560-d), ImageNet-normalised always (its
+           published preprocessing)
 
 `Embedder` takes uint8 (or float in [0, 1]) images (B, H, W, 3) on its
 device, casts and normalises them there (uint8 payloads are 4× smaller to
@@ -24,7 +28,11 @@ from snuffy_tpu_torch.models.mae import (
     mae_vit_large_patch16,
 )
 from snuffy_tpu_torch.models.resnet import ResNet18
-from snuffy_tpu_torch.models.vit import vit_base, vit_small
+from snuffy_tpu_torch.models.vit import (
+    vit_base,
+    vit_huge_patch14_reg4,
+    vit_small,
+)
 from snuffy_tpu_torch.ops.init import lecun_normal
 
 EMBEDDER_FEAT_DIMS = {
@@ -33,6 +41,7 @@ EMBEDDER_FEAT_DIMS = {
     "vit_base": 768,
     "mae_vit_base_patch16": 768,
     "mae_vit_large_patch16": 1024,
+    "vit_huge_patch14_reg4": 2560,
 }
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -84,7 +93,8 @@ def build_embedder(
     passes another (weights are overlaid by a checkpoint load). The JAX
     `build_embedder`'s arguments, in its order, then `imagenet_norm` (the
     JAX `Embedder.jit_apply`'s) and `device`. compute_dtype="bfloat16" runs
-    the products in bf16; the embeddings leave in f32."""
+    the products in bf16; the embeddings leave in f32. Virchow2 is the
+    published model: patch 14, no adapter, ImageNet normalisation on."""
     adapter_kw = dict(use_adapter=use_adapter,
                       adapter_bottleneck=adapter_ffn_num,
                       adapter_scale=adapter_ffn_scalar)
@@ -97,6 +107,12 @@ def build_embedder(
         model = factory(patch_size=patch_size, compute_dtype=compute_dtype,
                         seed=seed, **adapter_kw)
         dim = model.embed_dim
+    elif embedder.upper() == "VIRCHOW2":
+        factory = {"vit_huge_patch14_reg4": vit_huge_patch14_reg4}[backbone]
+        model = factory(img_size=img_size, compute_dtype=compute_dtype,
+                        seed=seed)
+        dim = model.num_features
+        imagenet_norm = True
     elif embedder.upper() == "MAE":
         factory = {
             "mae_vit_base_patch16": mae_vit_base_patch16,

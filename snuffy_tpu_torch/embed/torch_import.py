@@ -67,8 +67,8 @@ def _take(sd: StateDict, names) -> StateDict:
 
 _VIT_BLOCK = ("norm1.weight", "norm1.bias", "attn.qkv.weight",
               "attn.qkv.bias", "attn.proj.weight", "attn.proj.bias",
-              "norm2.weight", "norm2.bias", "mlp.fc1.weight", "mlp.fc1.bias",
-              "mlp.fc2.weight", "mlp.fc2.bias",
+              "ls1.gamma", "norm2.weight", "norm2.bias", "mlp.fc1.weight",
+              "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias", "ls2.gamma",
               "adaptmlp.down_proj.weight", "adaptmlp.down_proj.bias",
               "adaptmlp.up_proj.weight", "adaptmlp.up_proj.bias",
               "adaptmlp.scale", "adaptmlp.adapter_layer_norm_before.weight",
@@ -85,10 +85,11 @@ def _blocks(sd: StateDict, stack: str = "blocks") -> list:
 
 
 def import_vit(sd: StateDict) -> StateDict:
-    """DINO-style ViT (± adapter) → the port's `VisionTransformer`."""
+    """DINO-style ViT (± adapter), or timm's Virchow2 (registers,
+    LayerScale) → the port's `VisionTransformer`."""
     sd = strip_prefixes(sd)
-    return _take(sd, ("cls_token", "pos_embed", *_PATCH, *_blocks(sd),
-                      *_NORM))
+    return _take(sd, ("cls_token", "reg_token", "pos_embed", *_PATCH,
+                      *_blocks(sd), *_NORM))
 
 
 def import_mae(sd: StateDict) -> StateDict:

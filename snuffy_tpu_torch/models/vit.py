@@ -42,6 +42,21 @@ exact zeros (`snuffy_tpu/models/vit.py:345-353,102-110`; held equal by
 no additive mask, so `'masked'` here runs the same fold; it is held to the
 JAX `'masked'` forward by the port's tests.
 
+Virchow2 (Zimmermann et al. 2024, arXiv:2408.13985; timm
+`vit_huge_patch14_224` with `reg_tokens=4`, `init_values=1e-5`,
+`mlp_layer=SwiGLUPacked`, `vit_huge_patch14_reg4` below) takes four options
+that are off for every other model, each costing nothing when off:
+`reg_tokens` register tokens (`reg_token`, between the class token and the
+patches; the position table covers [class, registers, patches], timm's
+default `no_embed_class=False`); `init_values` LayerScale (`ls1.gamma`,
+`ls2.gamma`: x + γ₁ ⊙ attn(LN(x)), then x + γ₂ ⊙ FFN(LN(x)), γ cast to the
+compute dtype); `mlp="swiglu_packed"` (timm's `GluMlp` with
+`gate_last=False`: fc1's output split in halves a, b, SiLU(a) ⊙ b into fc2
+of half the width); `pool="cls_mean"`, the final LayerNorm's class token
+and the mean of its patch tokens (registers left out), concatenated
+(`num_features` = 2 · `embed_dim`). Its timm state dict loads with
+`strict=True`. `img_size` sizes the position table (224² by default).
+
 `DINOHead` is the JAX head under the reference's torch names: a 3-layer
 MLP with exact GELU (`mlp.{0,2,4}`, or with BatchNorm `mlp.{0,3,6}` and
 `mlp.{1,4}`), L2 normalisation with +1e-12, and the weight-normed last
@@ -173,15 +188,39 @@ class Adapter(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int, drop: float = 0.0):
+    """fc1 → exact GELU → fc2, or with `gated` timm's packed SwiGLU: fc1's
+    output split in halves a, b, SiLU(a) ⊙ b into an fc2 of half fc1's
+    width."""
+
+    def __init__(self, dim: int, hidden: int, drop: float = 0.0,
+                 gated: bool = False):
         super().__init__()
         self.drop = drop
+        self.gated = gated
         self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc2 = nn.Linear(hidden // 2 if gated else hidden, dim)
 
     def forward(self, x, dtype, run: Run = EVAL):
-        x = _dropout(F.gelu(linear(x, self.fc1, dtype)), self.drop, run)
+        h = linear(x, self.fc1, dtype)
+        if self.gated:
+            a, b = h.chunk(2, dim=-1)
+            h = F.silu(a) * b
+        else:
+            h = F.gelu(h)
+        x = _dropout(h, self.drop, run)
         return _dropout(linear(x, self.fc2, dtype), self.drop, run)
+
+
+class LayerScale(nn.Module):
+    """timm's LayerScale: a branch scaled by γ (dim,), `init_values` at
+    init, in the branch's dtype."""
+
+    def __init__(self, dim: int, init_values: float):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_values)))
+
+    def forward(self, x):
+        return x * self.gamma.to(x.dtype)
 
 
 class Block(nn.Module):
@@ -191,20 +230,28 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, adapter: Optional[dict] = None,
-                 drop: float = 0.0, drop_path_rate: float = 0.0):
+                 drop: float = 0.0, drop_path_rate: float = 0.0,
+                 init_values: Optional[float] = None, gated: bool = False):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = Attention(dim, num_heads, qkv_bias, drop)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop, gated)
         self.adaptmlp = Adapter(dim, **adapter) if adapter else None
+        scaled = init_values is not None
+        self.ls1 = LayerScale(dim, init_values) if scaled else None
+        self.ls2 = LayerScale(dim, init_values) if scaled else None
 
     def forward(self, x, dtype, run: Run = EVAL):
-        x = x + drop_path(self.attn(layer_norm(x, self.norm1, dtype), dtype,
-                                    run), self.drop_path_rate, run)
-        y = drop_path(self.mlp(layer_norm(x, self.norm2, dtype), dtype, run),
-                      self.drop_path_rate, run)
+        a = self.attn(layer_norm(x, self.norm1, dtype), dtype, run)
+        if self.ls1 is not None:
+            a = self.ls1(a)
+        x = x + drop_path(a, self.drop_path_rate, run)
+        y = self.mlp(layer_norm(x, self.norm2, dtype), dtype, run)
+        if self.ls2 is not None:
+            y = self.ls2(y)
+        y = drop_path(y, self.drop_path_rate, run)
         out = x + y
         if self.adaptmlp is not None:
             out = out + self.adaptmlp(x, dtype, run)
@@ -279,28 +326,37 @@ def bicubic_weights(in_size: int, out_size: int) -> torch.Tensor:
 
 
 def interpolate_pos_encoding(pos_embed: torch.Tensor, n_patches: int,
-                             w: int, h: int, patch_size: int
-                             ) -> torch.Tensor:
-    """Bicubic-resize the grid part of a (1, 1+N0, D) position embedding to
+                             w: int, h: int, patch_size: int,
+                             prefix: int = 1) -> torch.Tensor:
+    """Bicubic-resize the grid part of a (1, prefix+N0, D) position
+    embedding (`prefix` rows of the class and register tokens first) to
     the (h // patch, w // patch) patch grid, in f32, with JAX's weights
     (`snuffy_tpu/models/vit.py` `interpolate_pos_encoding`). Returned as
     it is when the input has N0 patches."""
-    n0 = pos_embed.shape[1] - 1
+    n0 = pos_embed.shape[1] - prefix
     if n_patches == n0:
         return pos_embed
     dim = pos_embed.shape[-1]
     g0 = int(round(math.sqrt(n0)))
     gw, gh = w // patch_size, h // patch_size
-    grid = pos_embed[0, 1:].float().reshape(g0, g0, dim)
+    grid = pos_embed[0, prefix:].float().reshape(g0, g0, dim)
     wh = bicubic_weights(g0, gh).to(grid.device)
     ww = bicubic_weights(g0, gw).to(grid.device)
     grid = torch.einsum("oh,hwd,pw->opd", wh, grid, ww)
-    return torch.cat([pos_embed[:, :1].float(),
+    return torch.cat([pos_embed[:, :prefix].float(),
                       grid.reshape(1, gh * gw, dim)], dim=1)
 
 
+def class_plus_mean(y: torch.Tensor, prefix: int) -> torch.Tensor:
+    """Tokens (B, n, D) after the final LayerNorm → [y₀ | the mean of the
+    patch tokens] (B, 2D): the `prefix` class and register tokens are left
+    out of the mean (Virchow2's embedding)."""
+    return torch.cat([y[:, 0], y[:, prefix:].mean(dim=1)], dim=-1)
+
+
 class VisionTransformer(nn.Module):
-    """ViT backbone → CLS embedding (B, D) in float32."""
+    """ViT backbone → CLS embedding (B, D) in float32, or with
+    `pool="cls_mean"` the CLS and mean patch embedding (B, 2D)."""
 
     def __init__(self, patch_size: int = 16, embed_dim: int = 384,
                  depth: int = 12, num_heads: int = 6, mlp_ratio: float = 4.0,
@@ -311,20 +367,31 @@ class VisionTransformer(nn.Module):
                  compute_dtype: str = "float32", seed: int = 0,
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
                  drop_path_rate: float = 0.0, adapter_dropout: float = 0.1,
-                 pack_mode: str = "masked"):
+                 pack_mode: str = "masked", img_size: int = 224,
+                 reg_tokens: int = 0, init_values: Optional[float] = None,
+                 mlp: str = "gelu", pool: str = "cls"):
         super().__init__()
         if attn_drop_rate:
             raise ValueError("attn_drop_rate > 0: the dense attention kernel "
                              "draws no dropout on its probabilities")
         if pack_mode not in ("masked", "blocked"):
             raise ValueError(f"pack_mode {pack_mode!r}")
+        if mlp not in ("gelu", "swiglu_packed"):
+            raise ValueError(f"mlp {mlp!r}")
+        if pool not in ("cls", "cls_mean"):
+            raise ValueError(f"pool {pool!r}")
         self.embed_dim = embed_dim
+        self.num_features = embed_dim * (2 if pool == "cls_mean" else 1)
+        self.pool = pool
+        self.num_prefix = 1 + reg_tokens
         self.compute_dtype = compute_dtype
         self.drop_rate = drop_rate
         self.patch_embed = PatchEmbed(patch_size, embed_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
-        self.pos_embed = nn.Parameter(
-            torch.zeros(1, 1 + (224 // patch_size) ** 2, embed_dim))
+        self.reg_token = (nn.Parameter(torch.zeros(1, reg_tokens, embed_dim))
+                          if reg_tokens else None)
+        self.pos_embed = nn.Parameter(torch.zeros(
+            1, self.num_prefix + (img_size // patch_size) ** 2, embed_dim))
         adapter = (dict(bottleneck=adapter_bottleneck, scale=adapter_scale,
                         learnable_scale=adapter_learnable_scale,
                         layernorm_option=adapter_layernorm_option,
@@ -333,26 +400,32 @@ class VisionTransformer(nn.Module):
         dpr = np.linspace(0, drop_path_rate, depth)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, adapter,
-                  drop_rate, float(dpr[i]))
+                  drop_rate, float(dpr[i]), init_values,
+                  mlp == "swiglu_packed")
             for i in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        init_weights(self, (self.cls_token, self.pos_embed),
-                     torch.Generator().manual_seed(seed))
+        tokens = (self.cls_token, self.pos_embed)
+        if self.reg_token is not None:
+            tokens += (self.reg_token,)
+        init_weights(self, tokens, torch.Generator().manual_seed(seed))
 
     def forward(self, x: torch.Tensor, pack: int = 1,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """(B, H, W, 3) → (B, D) f32. In train mode the dropouts draw from
-        `generator` (on x's device); `pack` > 1 packs that many images a
-        sequence (module docstring) and needs B % pack == 0."""
+        """(B, H, W, 3) → (B, num_features) f32. In train mode the dropouts
+        draw from `generator` (on x's device); `pack` > 1 packs that many
+        images a sequence (module docstring) and needs B % pack == 0."""
         dtype = (torch.bfloat16 if self.compute_dtype == "bfloat16"
                  else torch.float32)
         run = Run(self.training, generator, pack)
         b, h_img, w_img, _ = x.shape
         x = self.patch_embed(x, dtype)
         pe = interpolate_pos_encoding(self.pos_embed, x.shape[1], w_img,
-                                      h_img, self.patch_embed.patch_size)
-        cls = self.cls_token.to(dtype).expand(b, -1, -1)
-        x = _dropout(torch.cat([cls, x], dim=1) + pe.to(dtype),
+                                      h_img, self.patch_embed.patch_size,
+                                      self.num_prefix)
+        prefix = [self.cls_token.to(dtype).expand(b, -1, -1)]
+        if self.reg_token is not None:
+            prefix.append(self.reg_token.to(dtype).expand(b, -1, -1))
+        x = _dropout(torch.cat(prefix + [x], dim=1) + pe.to(dtype),
                      self.drop_rate, run)
         seq = x.shape[1]
         if pack > 1:
@@ -363,6 +436,9 @@ class VisionTransformer(nn.Module):
             x = blk(x, dtype, run)
         if pack > 1:
             x = x.reshape(b, seq, self.embed_dim)
+        if self.pool == "cls_mean":
+            return class_plus_mean(layer_norm(x, self.norm, dtype).float(),
+                                   self.num_prefix)
         # LayerNorm is per token: normalise the CLS token only.
         return layer_norm(x[:, 0], self.norm, dtype).float()
 
@@ -381,6 +457,17 @@ def vit_base(**kw) -> VisionTransformer:
 
 def vit_large(**kw) -> VisionTransformer:
     return VisionTransformer(embed_dim=1024, depth=24, num_heads=16, **kw)
+
+
+def vit_huge_patch14_reg4(**kw) -> VisionTransformer:
+    """Virchow2's backbone (its model card's timm arguments): ViT-H/14 at
+    224², 1280 wide, 32 blocks of 16 heads of 80, 4 registers, LayerScale
+    from 1e-5, packed SwiGLU of 6832 = int(1280 · 5.3375), the 2560-d
+    class-plus-mean embedding."""
+    return VisionTransformer(patch_size=14, embed_dim=1280, depth=32,
+                             num_heads=16, mlp_ratio=5.3375, reg_tokens=4,
+                             init_values=1e-5, mlp="swiglu_packed",
+                             pool="cls_mean", **kw)
 
 
 class BatchNorm(nn.Module):

@@ -43,12 +43,15 @@ from the spans inside them (`utils/profiling.annotate`), upload_s (the
 host's seconds staging and enqueueing each batch's upload), upload_wait_s
 (the host's seconds waiting for a ring slot), upload_staged (the batches
 staged through the pinned ring) and milnet_s (the MILNet forward's
-dispatch, before its scores are fetched to the host); while a profiler
-records on a CUDA device, upload_stream_s (the seconds of the copies
-alone, on the stream that ran them). Under a profiler its spans
-`serve.request` ⊃ `serve.embed` ⊃ `serve.upload` (one a batch, after the
-batch's `serve.upload_wait` where it is staged) and `serve.request` ⊃
-`serve.classify` ⊃ `serve.milnet` carry the call's request id.
+dispatch, before its scores are fetched to the host) and forward_s (the
+host's seconds dispatching the embedder's forward, a batch at a time);
+while a profiler records on a CUDA device, upload_stream_s (the seconds of
+the copies alone, on the stream that ran them) and forward_stream_s (the
+forwards alone, on the compute stream). Under a profiler its spans
+`serve.request` ⊃ `serve.embed` ⊃ `serve.upload`, `serve.forward` (one
+each a batch, the upload after the batch's `serve.upload_wait` where it
+is staged) and `serve.request` ⊃ `serve.classify` ⊃ `serve.milnet` carry
+the call's request id.
 """
 
 from __future__ import annotations
@@ -193,12 +196,16 @@ def embed_bag(
     given it adds upload_s (the host's seconds staging and enqueueing),
     upload_wait_s (the host's seconds waiting for a ring slot: 0 unless
     staged), upload_staged (the batches staged through the ring: 0 on the
-    CPU and for tiles on the device) and, under a profiler on the card,
-    upload_stream_s (the copies alone, on the stream that ran them)."""
+    CPU and for tiles on the device), forward_s (the host's seconds in the
+    embedder's calls, span `serve.forward`) and, under a profiler on the
+    card, upload_stream_s (the copies alone, on the stream that ran them)
+    and forward_stream_s (the forwards alone, on the compute stream)."""
     with annotate("serve.embed"):
         n = int(tiles.shape[0])
         upload = _uploader(device)
-        edges = [] if timings is not None and device.type == "cuda" else None
+        on_card = timings is not None and device.type == "cuda"
+        edges = [] if on_card else None
+        forward_edges = [] if on_card else None
         if timings is not None:
             timings.setdefault("upload_staged", 0)
             timings.setdefault("upload_wait_s", 0.0)
@@ -208,7 +215,9 @@ def embed_bag(
                            timings, edges)
             if chunk.shape[1] != embed_size or chunk.shape[2] != embed_size:
                 chunk = device_resize(chunk, embed_size)
-            feats, _ = embedder(chunk)
+            with annotate("serve.forward", timings), \
+                    stream_edges(forward_edges):
+                feats, _ = embedder(chunk)
             if bag is None:
                 bag = torch.zeros((bucket_length(n), feats.shape[1]),
                                   dtype=torch.float32, device=device)
@@ -217,6 +226,8 @@ def embed_bag(
             torch.cuda.synchronize()
         if edges:
             timings["upload_stream_s"] = stream_seconds(edges)
+        if forward_edges:
+            timings["forward_stream_s"] = stream_seconds(forward_edges)
     return bag
 
 

@@ -12,7 +12,13 @@ the Camelyon16 ViT-S/8 + adapter can serve. Run from the repository root:
   python -m snuffy_tpu_torch.predict_slide --slide tumor_001.tif \
       --embedder DINO --backbone vit_small --feats_size 384 \
       --embedder_weights dino_vits16.pth --aggregator_weights milnet.pth
+  python -m snuffy_tpu_torch.predict_slide --slide tumor_001.tif \
+      --embedder Virchow2 --backbone vit_huge_patch14_reg4 \
+      --feats_size 2560 --num_heads 20 --embedder_weights virchow2.pth
 
+Virchow2 (timm's ViT-H/14 with registers; its 2560-d class-plus-mean
+embeddings) is ImageNet-normalised whatever `--transform` says, and
+ignores `--patch_size` and the adapter's flags.
 `--aggregator_weights` takes a reference-format `.pth` (a flax `.msgpack`
 converts with tools/export_torch_checkpoint.py). `--embedder_weights`
 takes a `.pth` of the family the flags name (a torchvision ResNet-18, an

@@ -9,7 +9,8 @@ torch.profiler.
     (as `jax.profiler.TraceAnnotation` is) carrying its request's id;
   * `stream_edges` — while a profiler records, a CUDA event pair on the
     current stream around a block inside a span (the copy alone of
-    `serve.upload`), summed by `stream_seconds`;
+    `serve.upload`, the embedder's call of `serve.forward`), summed by
+    `stream_seconds`;
   * `device_profile` and `traced` — the device time of a function by
     torch.profiler's kernel times, the readings of `tools/profile_*` and
     chip_smoke.py. torch.profiler has recorded no device time at all on

@@ -371,7 +371,8 @@ def test_build_embedder_takes_the_jax_arguments_and_defaults():
     """The JAX `build_embedder`'s parameters, in its order and with its
     defaults (SimCLR/resnet18, norm_layer), then the port's
     `imagenet_norm` (the JAX `Embedder.jit_apply`'s argument) and
-    `device`."""
+    `device`; the JAX package's feature widths, and the port's Virchow2
+    (which the JAX package has not) beside them."""
     import inspect
 
     from snuffy_tpu.embed import registry as jax_registry
@@ -382,7 +383,11 @@ def test_build_embedder_takes_the_jax_arguments_and_defaults():
     assert [(p.name, p.default, p.kind) for p in theirs.values()] == \
         [(p.name, p.default, p.kind) for p in ours.values()][:len(theirs)]
     assert list(ours)[len(theirs):] == ["imagenet_norm", "device"]
-    assert registry.EMBEDDER_FEAT_DIMS == jax_registry.EMBEDDER_FEAT_DIMS
+    jax_dims = jax_registry.EMBEDDER_FEAT_DIMS
+    assert {k: v for k, v in registry.EMBEDDER_FEAT_DIMS.items()
+            if k in jax_dims} == jax_dims
+    assert set(registry.EMBEDDER_FEAT_DIMS) - set(jax_dims) == {
+        "vit_huge_patch14_reg4"}
 
 
 def test_evaluation_copies_match():

@@ -105,6 +105,7 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
     dict(h=4, n=777, s=512, dk=32),              # 8 N splits, the last empty
     dict(h=4, n=1200, s=1000, dk=96),            # the multiclass CLI's S
     dict(h=2, n=300, s=500, dk=83, segments=2),  # musk1's head width
+    dict(h=20, n=10240, s=512, dk=128),          # Virchow2's MILNet, Λ 512
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_kernel_matches_plain_on_the_card(cuda_device, dtype, shape, rate):

@@ -127,8 +127,9 @@ def test_traced_serve_request_holds_both_spans_and_the_same_scores(
 
 
 def test_spans_nest_by_call_one_upload_a_batch(two_traced_requests):
-    """serve.request ⊃ serve.embed ⊃ ⌈n / embed_batch⌉ serve.upload, and
-    serve.request ⊃ serve.classify ⊃ serve.milnet, for each request."""
+    """serve.request ⊃ serve.embed ⊃ ⌈n / embed_batch⌉ serve.upload, each
+    followed by its batch's serve.forward, and serve.request ⊃
+    serve.classify ⊃ serve.milnet, for each request."""
     events, _ = two_traced_requests
     requests = _spans(events, "serve.request")
     assert len(requests) == 2
@@ -137,7 +138,11 @@ def test_spans_nest_by_call_one_upload_a_batch(two_traced_requests):
         classify, = _inside(req, _spans(events, "serve.classify"))
         assert embed[1] <= classify[0]
         uploads = _inside(embed, _spans(events, "serve.upload"))
-        assert len(uploads) == math.ceil(n / EMBED_BATCH)
+        forwards = _inside(embed, _spans(events, "serve.forward"))
+        assert len(uploads) == len(forwards) == math.ceil(n / EMBED_BATCH)
+        for i, (up, fwd) in enumerate(zip(uploads, forwards)):
+            assert up[1] <= fwd[0]
+            assert i + 1 == len(uploads) or fwd[1] <= uploads[i + 1][0]
         assert len(_inside(classify, _spans(events, "serve.milnet"))) == 1
 
 
@@ -158,11 +163,12 @@ def test_spans_of_a_request_share_its_id(two_traced_requests):
     requests have two ids."""
     events, _ = two_traced_requests
     requests = _spans(events, "serve.request")
-    inner = [s for name in ("serve.embed", "serve.upload", "serve.classify",
-                            "serve.milnet") for s in _spans(events, name)]
+    inner = [s for name in ("serve.embed", "serve.upload", "serve.forward",
+                            "serve.classify", "serve.milnet")
+             for s in _spans(events, name)]
     for req, n in zip(requests, (10, 5)):
         mine = _inside(req, inner)
-        assert len(mine) == 3 + math.ceil(n / EMBED_BATCH)
+        assert len(mine) == 3 + 2 * math.ceil(n / EMBED_BATCH)
         assert {s[2] for s in mine} == {req[2]}
     assert len({r[2] for r in requests}) == 2
     assert len(inner) == sum(len(_inside(r, inner)) for r in requests)
@@ -189,8 +195,9 @@ def test_every_op_of_a_traced_request_lies_in_its_span(serve_models,
 
 def test_untraced_spans_add_host_seconds_only(serve_models, monkeypatch):
     """With no profiler recording, the serve path opens no profiler range
-    and makes no CUDA event; `timings` carries upload_s and milnet_s, each
-    within its stage's time, and no upload_stream_s."""
+    and makes no CUDA event; `timings` carries upload_s, forward_s and
+    milnet_s, each within its stage's time, and no upload_stream_s or
+    forward_stream_s."""
     embedder, milnet, tiles = serve_models
 
     def refuse(*args, **kwargs):
@@ -202,8 +209,9 @@ def test_untraced_spans_add_host_seconds_only(serve_models, monkeypatch):
     monkeypatch.setattr(torch.cuda, "Event", refuse)
     t = predict_tiles(tiles, embedder, milnet, embed_batch=EMBED_BATCH).timings
     assert 0.0 <= t["upload_s"] <= t["embed_s"]
+    assert 0.0 < t["forward_s"] <= t["embed_s"] - t["upload_s"]
     assert 0.0 <= t["milnet_s"] <= t["classify_s"]
-    assert "upload_stream_s" not in t
+    assert "upload_stream_s" not in t and "forward_stream_s" not in t
 
 
 def test_untraced_timings_count_the_slot_wait_and_no_staging(serve_models):
