@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA H100 and the CUDA
-toolkit. It builds the port's three kernels from csrc/ with nvcc (one nvcc
+toolkit. It builds the port's four kernels from csrc/ with nvcc (one nvcc
 per kernel, all at once), then:
 
   1. environment: torch/CUDA versions, the nvcc builds (registers, stack
@@ -39,9 +39,16 @@ per kernel, all at once), then:
      (f32 over 3xTF32's 165 TFLOP/s, 67 beside it), and
      scaled_dot_product_attention as the library yardstick, timed the
      same ways;
+  4b. residual-norm kernel vs plain: f32 and bf16 at the serve batches'
+     rows (Virchow2 66816 × 1280, ViT-S/16 50432 × 384), x + γ ⊙ b and its
+     LayerNorm: the sum bit for bit, the norm within one bf16 ulp of the
+     largest |y| (f32: 1e-6); kernel ms, device ms and b2b beside the
+     bytes bound, the plain version's ms, F.layer_norm on the same rows
+     timed the same ways as the library yardstick;
   5. serve: ViT-S/16 + MILNet (d=384, 4 heads, Λ=512, ρ=0.5, depth 2,
      bf16) from seeded weights answer requests of 10000, 2500 and 300
-     uint8 224² tiles, 12 dense-attention launches a 256-tile batch; a
+     uint8 224² tiles, 12 dense-attention and 25 residual-norm launches
+     a 256-tile batch (the latter also in the timings' count); a
      small request is checked against the same models in f32 on the CPU
      (plain attention path);
   5b. whole slide: the port's streaming `predict_slide` on a q75 JPEG-
@@ -238,8 +245,9 @@ per kernel, all at once), then:
      `tools/profile_serve.traced_request`, `predict_tiles` under
      `utils/profiling.device_trace` with the program's spans;
      the trace file read back: its size, `serve.embed` and
-     `serve.classify` once each, each K5 launch's kernel in `serve.embed`
-     and each pass of each K1 launch in `serve.classify` (by
+     `serve.classify` once each, each K5 and residual-norm launch's
+     kernel in `serve.embed` (12 and 25 a batch) and each pass of each K1
+     launch in `serve.classify` (by
      the pass names, each kernel placed by the launch call it correlates
      with); the scores bit for bit the same request's outside the trace,
      and that request's first K1 call (bf16, h=4, N=640, S=512, dk=96:
@@ -302,6 +310,12 @@ DENSE_CASES = (("P1-P3", 1536, 197, 197, 64), ("P4", 384, 785, 785, 64),
                ("DINO local", 3072, 37, 37, 64),
                ("S/8 extract", 768, 785, 785, 64),
                ("ragged", 96, 300, 280, 32))
+# Phase 4b: the residual-norm kernel at the serve batches' rows (256
+# tiles of Virchow2's 261 tokens, 1280 wide; of ViT-S/16's 197, 384 wide).
+# y against the plain version, max |diff| relative to max |plain|: one bf16
+# ulp at the largest |y|; f32, the order of the statistics' sums.
+RESIDUAL_NORM_CASES = (("Virchow2", 66816, 1280), ("ViT-S/16", 50432, 384))
+RESIDUAL_NORM_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
 # ViT embeddings, f32: GPU (kernel) vs CPU (plain), absolute.
 EMBED_TOL = 1e-3
 EXTRACT_BAGS, EXTRACT_BATCH = (700, 300), 128
@@ -655,6 +669,79 @@ def phase_dense(fa, dev):
     return worst, record
 
 
+def phase_residual_norm(dev):
+    """The residual-norm kernel alone (s = x + γ ⊙ b, y = LayerNorm(s))
+    against its plain version, at the serve batches' rows: s bit for bit,
+    y within RESIDUAL_NORM_TOL; kernel ms, device ms and b2b beside its
+    bytes bound, the plain version's ms, and F.layer_norm on the same
+    rows of s (its own weights in the input's type) as the library's."""
+    import torch
+    import torch.nn.functional as F
+
+    from snuffy_tpu_torch.ops import kernels
+    from snuffy_tpu_torch.ops.residual_norm import (
+        residual_norm,
+        residual_norm_reference,
+    )
+
+    log("== phase 4b: residual-norm kernel vs plain PyTorch")
+    gen = torch.Generator(dev).manual_seed(11)
+    worst, record = 0.0, None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for label, rows, d in RESIDUAL_NORM_CASES:
+            x = (2 * torch.randn((rows, d), generator=gen, device=dev)
+                 + 3).to(dtype)
+            b = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+            gamma = (0.5 * torch.randn(d, generator=gen, device=dev)).to(
+                dtype)
+            w = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+            bias = 0.1 * torch.randn(d, generator=gen, device=dev)
+            args = (x, w, bias, 1e-6, b, gamma)
+            w_lib, bias_lib = w.to(dtype), bias.to(dtype)
+            with torch.inference_mode():
+                s, y = residual_norm(*args)
+                s_ref, y_ref = residual_norm_reference(*args)
+                torch.cuda.synchronize()
+                log(f"  {name:8s} {label} rows={rows} d={d}")
+                if not torch.equal(s, s_ref):
+                    raise AssertionError(f"{label} {name}: the kernel's sum "
+                                         "differs from the plain one")
+                worst = max(worst, check_kernel(
+                    "y", y, y_ref, RESIDUAL_NORM_TOL[name]))
+
+                def kernel():
+                    return residual_norm(*args)
+
+                def library():
+                    return F.layer_norm(s, (d,), w_lib, bias_lib, 1e-6)
+
+                ms, lib_ms = time_ms(kernel), time_ms(library)
+                plain_ms = time_ms(lambda: residual_norm_reference(*args))
+                trace, lib_trace = traced(kernel), traced(library)
+                b2b, lib_b2b = (back_to_back_ms(f) for f in (kernel, library))
+            if trace is not None and not any(
+                    kernels.RESIDUAL_NORM.passes[0] in key
+                    for key, _ in trace[2]):
+                raise AssertionError("the profiler found no residual_norm "
+                                     "kernel in its call")
+            device, lib_device = (
+                "not traced" if t is None else f"{t[0]:.4f}"
+                for t in (trace, lib_trace))
+            # x and b read, s and y written; γ, w and bias once
+            nbytes = (4 * rows * d + d) * x.element_size() + 2 * d * 4
+            bound, by = bound_ms(nbytes, 10 * rows * d)
+            log(f"    kernel {ms:.4f} ms (device {device}, b2b {b2b:.4f})  "
+                f"plain {plain_ms:.4f} ms  F.layer_norm {lib_ms:.4f} ms "
+                f"(device {lib_device}, b2b {lib_b2b:.4f})  bound "
+                f"{bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB over 3.35 "
+                f"TB/s; {100 * bound / b2b:.1f} % of b2b)")
+            if (name, label) == ("bfloat16", "Virchow2"):
+                record = (ms, plain_ms, bound, by, lib_ms)
+            del x, b, s, y, s_ref, y_ref
+    return worst, record
+
+
 def check_scores(label, got, ref, tol):
     import numpy as np
 
@@ -696,12 +783,14 @@ def phase_serve(cfg, dev, kernels):
         before = kernels.launch_counts()
         pred = predict_tiles(batch, embedder, milnet)
         t = pred.timings
-        grew, dense = (kernels.launch_counts()[k.name] - before[k.name]
-                       for k in (kernels.FWD, kernels.DENSE))
+        grew, dense, norms = (
+            kernels.launch_counts()[k.name] - before[k.name]
+            for k in (kernels.FWD, kernels.DENSE, kernels.RESIDUAL_NORM))
         log(f"  request n_patches={t['n_patches']} embed_s={t['embed_s']:.4f} "
             f"classify_s={t['classify_s']:.4f} total_s={t['total_s']:.4f} "
             f"bag_score={pred.bag_score:.6f} kernel_launches={grew} "
-            f"dense_attention_launches={dense}")
+            f"dense_attention_launches={dense} "
+            f"residual_norm_launches={norms}")
         if t["n_patches"] != n or pred.instance_scores.shape != (n,):
             raise AssertionError("wrong output shape")
         if not (math.isfinite(pred.bag_score) and 0.0 <= pred.bag_score <= 1.0):
@@ -713,6 +802,12 @@ def phase_serve(cfg, dev, kernels):
         if dense != 12 * math.ceil(n / 256):
             raise AssertionError(f"dense attention launched {dense} times, "
                                  "not 12 a 256-tile batch")
+        if not norms == t["residual_norm_launches"] == 25 * math.ceil(
+                n / 256):
+            raise AssertionError(
+                f"residual norm launched {norms} times (timings: "
+                f"{t['residual_norm_launches']}), not 2 · 12 + 1 a 256-tile "
+                "batch")
     serve_launches = kernels.launch_counts()
 
     # Reference on a small input: the same weights in f32, kernel on the
@@ -745,8 +840,9 @@ def phase_serve(cfg, dev, kernels):
 def phase_traced_serve(cfg, embedder, milnet, batch, fa, plain, kernels):
     """Phase 17: phase 5's models answer a request of its tiles under
     `device_trace` (`tools/profile_serve.traced_request`: the program's
-    spans); the trace read back holds each launch of K5 in `serve.embed`
-    and of K1 in `serve.classify`, by the pass names `pass_split`
+    spans); the trace read back holds each launch of K5 and of the
+    residual-norm kernel in `serve.embed` and of K1 in `serve.classify`,
+    by the pass names `pass_split`
     matches; the scores bit for bit the same request's outside the
     trace, whose first K1 call (a bucket no other phase gives K1) is held
     to the plain version (2^-7 of max |plain|). Returns the launches and
@@ -767,10 +863,12 @@ def phase_traced_serve(cfg, embedder, milnet, batch, fa, plain, kernels):
     calls = {}
     with capture_calls(fa, calls):
         want = predict_tiles(batch, embedder, milnet)  # outside the trace
-    spans = {"serve.embed": (kernels.DENSE, kernels.DENSE.passes),
-             "serve.classify": (kernels.FWD, fa.launched_passes(
+    spans = {"serve.embed": [(kernels.DENSE, kernels.DENSE.passes),
+                             (kernels.RESIDUAL_NORM,
+                              kernels.RESIDUAL_NORM.passes)],
+             "serve.classify": [(kernels.FWD, fa.launched_passes(
                  kernels.FWD, bucket_length(n), cfg.big_lambda,
-                 cfg.num_heads))}
+                 cfg.num_heads))]}
     with tempfile.TemporaryDirectory() as tmp:
         for attempt in (1, 2):
             kernels.reset_launches()
@@ -792,12 +890,15 @@ def phase_traced_serve(cfg, embedder, milnet, batch, fa, plain, kernels):
         raise AssertionError("the traced request's scores differ from the "
                              "same request's outside the trace")
     if (launches[kernels.DENSE.name] != 12 * math.ceil(n / 256)
+            or launches[kernels.RESIDUAL_NORM.name] != 25 * math.ceil(n / 256)
             or launches[kernels.FWD.name] != cfg.depth):
         raise AssertionError(f"the traced request launched {launches}")
     if not traced_kernels:
-        log("  K5 in serve.embed, K1 in serve.classify: not traced "
-            "(torch.profiler recorded no device kernels at a second try)")
-    for span, (kernel, passes) in spans.items():
+        log("  K5 and the residual norm in serve.embed, K1 in "
+            "serve.classify: not traced (torch.profiler recorded no device "
+            "kernels at a second try)")
+    for span, kernel, passes in ((span, *k) for span, ks in spans.items()
+                                 for k in ks):
         if not traced_kernels:
             break
         for p in passes:
@@ -4441,6 +4542,7 @@ def main() -> int:
     bwd_err, bwd_record = phase_backward(
         fa, packed_inverted_sparse_attention_bwd, dev)
     dense_err, dense_record = phase_dense(fa, dev)
+    norm_err, norm_record = phase_residual_norm(dev)
     # early in the run: its step profile needs torch.profiler's device
     # times, which late phases have found empty (phases 11, 12d)
     dino_launches, k5_dino_err = phase_dino(dev, fa, kernels)
@@ -4513,7 +4615,8 @@ def main() -> int:
                                 k5_dino_err, k5_mae_err,
                                 multi_err[kernels.DENSE.name],
                                 mesh_err[kernels.DENSE.name]),
-             dense_record)):
+             dense_record),
+            (kernels.RESIDUAL_NORM, norm_err, norm_record)):
         records.append({
             "name": kernel.name,
             "route": "cuda",

@@ -12,6 +12,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from snuffy_tpu_torch.ops.residual_norm import (
+    residual_norm,
+    residual_norm_reference,
+)
+
 LN_EPS = 1e-6
 
 
@@ -24,6 +29,25 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype):
     """flax LayerNorm(dtype=…): normalise in f32, return `dtype`."""
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
                         ln.eps).to(dtype)
+
+
+def residual_layer_norm(x: torch.Tensor, ln: nn.LayerNorm,
+                        dtype: torch.dtype, b: torch.Tensor = None,
+                        gamma: torch.Tensor = None):
+    """(s, layer_norm(s, ln, dtype)) for s = x + γ ⊙ b (x where b is None),
+    in one launch of the residual-norm kernel on the card
+    (`ops/residual_norm.py`; the composed ops on the CPU). It records no
+    gradient: `composed_residual_layer_norm` does."""
+    return residual_norm(x, ln.weight, ln.bias, ln.eps, b, gamma, dtype)
+
+
+def composed_residual_layer_norm(x: torch.Tensor, ln: nn.LayerNorm,
+                                 dtype: torch.dtype, b: torch.Tensor = None,
+                                 gamma: torch.Tensor = None):
+    """`residual_layer_norm` as the composed PyTorch ops, on every device:
+    γ's multiply, the add, then `layer_norm`."""
+    return residual_norm_reference(x, ln.weight, ln.bias, ln.eps, b, gamma,
+                                   dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator

@@ -47,7 +47,14 @@ from torch import nn
 
 from snuffy_tpu_torch.models.layers import LN_EPS, layer_norm, linear
 from snuffy_tpu_torch.models.pos_embed import sincos_2d
-from snuffy_tpu_torch.models.vit import Block, PatchEmbed, Run, init_weights
+from snuffy_tpu_torch.models.vit import (
+    NO_CARRY,
+    Block,
+    PatchEmbed,
+    Run,
+    add_carry,
+    init_weights,
+)
 
 
 class MaskedAutoencoderViT(nn.Module):
@@ -124,7 +131,7 @@ class MaskedAutoencoderViT(nn.Module):
         cls = (self.cls_token + pe[:, :1]).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1)
         for blk in self.blocks:
-            x = blk(x, self.dtype)
+            x = add_carry(*blk(x, NO_CARRY, self.dtype))
         pooled = x[:, 1:].float().mean(dim=1)
         return layer_norm(pooled, self.norm, torch.float32)
 
@@ -192,7 +199,7 @@ class MaskedAutoencoderViT(nn.Module):
             x = x.reshape(b // pack, pack * n_vis, self.embed_dim)
         run = Run(self.training, generator, pack)
         for blk in self.blocks:
-            x = blk(x, self.dtype, run)
+            x = add_carry(*blk(x, NO_CARRY, self.dtype, run))
         latent = layer_norm(x, self.norm, torch.float32)
         if pack > 1:
             latent = latent.reshape(b, n_vis, self.embed_dim)
@@ -206,7 +213,7 @@ class MaskedAutoencoderViT(nn.Module):
         y = torch.cat([y[:, :1], y_], dim=1) + self.decoder_pos_embed
         run = Run(self.training, generator, 1)
         for blk in self.decoder_blocks:
-            y = blk(y, self.dtype, run)
+            y = add_carry(*blk(y, NO_CARRY, self.dtype, run))
         y = layer_norm(y, self.decoder_norm, torch.float32)
         pred = linear(y, self.decoder_pred, torch.float32)[:, 1:]
 

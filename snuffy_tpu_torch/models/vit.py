@@ -15,7 +15,12 @@ attention kernel (`ops/dense_attention.py`), in training too (its
 gradient goes through the plain version): its scores and softmax are f32
 whatever the compute dtype, where the JAX MHSA rounds the scores to bf16
 under `compute_dtype="bfloat16"`. LayerNorm eps is 1e-6 (flax's
-default), stats in f32.
+default), stats in f32. Each LayerNorm takes the residual sum before it,
+LayerScale's γ included, as one call (`Block`): where no gradient is
+recorded and no stochastic depth is drawn (serving, extraction, DINO's
+teacher) that is one launch of the residual-norm kernel
+(`ops/residual_norm.py`), 2 · depth + 1 a forward, the sums bit for bit
+those of the composed ops; elsewhere the composed ops.
 An input whose patch grid differs from the 224² one gets the position
 grid resized as `jax.image.resize(..., "bicubic")` resizes it
 (`interpolate_pos_encoding`): Keys' cubic with a = −0.5 (torch's bicubic
@@ -76,7 +81,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from snuffy_tpu_torch.models.layers import LN_EPS, dropout, layer_norm, linear
+from snuffy_tpu_torch.models.layers import (
+    LN_EPS,
+    composed_residual_layer_norm,
+    dropout,
+    layer_norm,
+    linear,
+    residual_layer_norm,
+)
 from snuffy_tpu_torch.ops.dense_attention import fused_self_attention
 from snuffy_tpu_torch.ops.init import lecun_normal
 
@@ -223,10 +235,30 @@ class LayerScale(nn.Module):
         return x * self.gamma.to(x.dtype)
 
 
+NO_CARRY = (None, None)
+
+
+def add_carry(x: torch.Tensor, carry) -> torch.Tensor:
+    """x + γ ⊙ b for carry = (b, γ), as the next norm would form it (x
+    where b is None; b where γ is None): a block's closing sum."""
+    b, gamma = carry
+    if b is None:
+        return x
+    return x + (b if gamma is None else b * gamma)
+
+
 class Block(nn.Module):
     """Pre-norm transformer block with the optional parallel adapter, fed
     by the post-attention sequence: x = x + dp(attn); x + dp(mlp(norm2(x)))
-    + adapter(x), dp the block's stochastic depth."""
+    + adapter(x), dp the block's stochastic depth.
+
+    Each norm is one call of `norm` (`layers.residual_layer_norm`, or the
+    composed ops of `layers.composed_residual_layer_norm`) on the residual
+    sum before it. So the block takes its input as (x, carry), the sum
+    x + γ ⊙ b of carry = (b, γ) left to its first norm, and returns its
+    own closing sum the same way, for the next norm (`add_carry` forms it
+    alone). With an adapter the block forms (x + y) + adapter(x), in that
+    order, and carries nothing."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, adapter: Optional[dict] = None,
@@ -243,19 +275,24 @@ class Block(nn.Module):
         self.ls1 = LayerScale(dim, init_values) if scaled else None
         self.ls2 = LayerScale(dim, init_values) if scaled else None
 
-    def forward(self, x, dtype, run: Run = EVAL):
-        a = self.attn(layer_norm(x, self.norm1, dtype), dtype, run)
-        if self.ls1 is not None:
-            a = self.ls1(a)
-        x = x + drop_path(a, self.drop_path_rate, run)
-        y = self.mlp(layer_norm(x, self.norm2, dtype), dtype, run)
-        if self.ls2 is not None:
-            y = self.ls2(y)
-        y = drop_path(y, self.drop_path_rate, run)
-        out = x + y
-        if self.adaptmlp is not None:
-            out = out + self.adaptmlp(x, dtype, run)
-        return out
+    def forward(self, x, carry, dtype, run: Run = EVAL,
+                norm=composed_residual_layer_norm):
+        x, h = norm(x, self.norm1, dtype, *carry)
+        a = self.attn(h, dtype, run)
+        x, h = norm(x, self.norm2, dtype, *self._branch(a, self.ls1, run))
+        y = self.mlp(h, dtype, run)
+        carry = self._branch(y, self.ls2, run)
+        if self.adaptmlp is None:
+            return x, carry
+        return add_carry(x, carry) + self.adaptmlp(x, dtype, run), NO_CARRY
+
+    def _branch(self, a, ls: Optional[LayerScale], run: Run):
+        """A residual branch as the next norm adds it: (a, γ), or where
+        stochastic depth is drawn (a scaled by γ and dropped, None)."""
+        if run.train and self.drop_path_rate:
+            a = a if ls is None else ls(a)
+            return drop_path(a, self.drop_path_rate, run), None
+        return a, None if ls is None else ls.gamma.to(a.dtype)
 
 
 class PatchEmbed(nn.Module):
@@ -432,15 +469,23 @@ class VisionTransformer(nn.Module):
             if b % pack:
                 raise ValueError(f"batch {b} not divisible by pack={pack}")
             x = x.reshape(b // pack, pack * seq, self.embed_dim)
+        # The kernel where no gradient is recorded and no stochastic depth
+        # is drawn, 2 · depth + 1 launches a forward; else composed ops.
+        stochastic = run.train and any(blk.drop_path_rate
+                                       for blk in self.blocks)
+        norm = (composed_residual_layer_norm
+                if torch.is_grad_enabled() or stochastic
+                else residual_layer_norm)
+        carry = NO_CARRY
         for blk in self.blocks:
-            x = blk(x, dtype, run)
+            x, carry = blk(x, carry, dtype, run, norm)
+        # the last closing sum and the final norm, every token (per row)
+        x = norm(x, self.norm, dtype, *carry)[1]
         if pack > 1:
             x = x.reshape(b, seq, self.embed_dim)
         if self.pool == "cls_mean":
-            return class_plus_mean(layer_norm(x, self.norm, dtype).float(),
-                                   self.num_prefix)
-        # LayerNorm is per token: normalise the CLS token only.
-        return layer_norm(x[:, 0], self.norm, dtype).float()
+            return class_plus_mean(x.float(), self.num_prefix)
+        return x[:, 0].float()
 
 
 def vit_tiny(**kw) -> VisionTransformer:

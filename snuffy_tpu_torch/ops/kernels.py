@@ -4,6 +4,7 @@ through one path.
   sparse_attention_fwd  csrc/sparse_attention_fwd.cu  (ops/fused_attention.py)
   sparse_attention_bwd  csrc/sparse_attention_bwd.cu  (ops/fused_attention.py)
   dense_attention       csrc/dense_attention.cu       (ops/dense_attention.py)
+  residual_norm         csrc/residual_norm.cu         (ops/residual_norm.py)
 
 Each kernel is built for sm_90a by `_build.py` on first use and called
 through ctypes. `launch` calls a kernel's C entry on the current stream and
@@ -56,7 +57,17 @@ DENSE = Kernel(
     (_P,) * 4 + (_I,) * 5 + (_F, _P),
     passes=("dense_attention",),
 )
-KERNELS = (FWD, BWD, DENSE)
+# No TPU kernel: the JAX block's residual sums and nn.LayerNorms, which
+# XLA fuses (norm1, the attention's sum, norm2, the closing sum, the final
+# norm). Its device kernel's name matches no other kernel's passes and not
+# torch's vectorized_layer_norm_kernel.
+RESIDUAL_NORM = Kernel(
+    "residual_norm", "snuffy_tpu_torch/csrc/residual_norm.cu",
+    "snuffy_tpu/models/vit.py:202,211-212,229,235-236,368-374",
+    (_P,) * 7 + (_I,) * 4 + (_F, _P),
+    passes=("residual_norm",),
+)
+KERNELS = (FWD, BWD, DENSE, RESIDUAL_NORM)
 
 # The bodies of every kernel: the device kernels' names end in
 # _tf32_kernel, _tc_kernel (the dense kernel's _wgmma_kernel) and _kernel.

@@ -44,7 +44,9 @@ host's seconds staging and enqueueing each batch's upload), upload_wait_s
 (the host's seconds waiting for a ring slot), upload_staged (the batches
 staged through the pinned ring) and milnet_s (the MILNet forward's
 dispatch, before its scores are fetched to the host) and forward_s (the
-host's seconds dispatching the embedder's forward, a batch at a time);
+host's seconds dispatching the embedder's forward, a batch at a time),
+and the count residual_norm_launches (the ViT's fused norms, 2 · depth +
+1 a batch on the card);
 while a profiler records on a CUDA device, upload_stream_s (the seconds of
 the copies alone, on the stream that ran them) and forward_stream_s (the
 forwards alone, on the compute stream). Under a profiler its spans
@@ -68,6 +70,7 @@ import numpy as np
 import torch
 
 from snuffy_tpu_torch.data.bucketing import bucket_length
+from snuffy_tpu_torch.ops.kernels import RESIDUAL_NORM
 from snuffy_tpu_torch.tiling.deepzoom import (
     TilerConfig,
     area_resize,
@@ -197,11 +200,14 @@ def embed_bag(
     upload_wait_s (the host's seconds waiting for a ring slot: 0 unless
     staged), upload_staged (the batches staged through the ring: 0 on the
     CPU and for tiles on the device), forward_s (the host's seconds in the
-    embedder's calls, span `serve.forward`) and, under a profiler on the
-    card, upload_stream_s (the copies alone, on the stream that ran them)
-    and forward_stream_s (the forwards alone, on the compute stream)."""
+    embedder's calls, span `serve.forward`), residual_norm_launches (the
+    residual-norm kernel's launches: a ViT's 2 · depth + 1 a batch on the
+    card, 0 on the CPU) and, under a profiler on the card, upload_stream_s
+    (the copies alone, on the stream that ran them) and forward_stream_s
+    (the forwards alone, on the compute stream)."""
     with annotate("serve.embed"):
         n = int(tiles.shape[0])
+        norm_launches = RESIDUAL_NORM.launches
         upload = _uploader(device)
         on_card = timings is not None and device.type == "cuda"
         edges = [] if on_card else None
@@ -228,6 +234,9 @@ def embed_bag(
             timings["upload_stream_s"] = stream_seconds(edges)
         if forward_edges:
             timings["forward_stream_s"] = stream_seconds(forward_edges)
+        if timings is not None:
+            timings["residual_norm_launches"] = (RESIDUAL_NORM.launches
+                                                 - norm_launches)
     return bag
 
 

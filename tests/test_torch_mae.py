@@ -19,7 +19,7 @@ from snuffy_tpu.embed import torch_import as jax_ti
 from snuffy_tpu.models import mae as jax_mae
 from snuffy_tpu_torch.bridge import mae_from_jax
 from snuffy_tpu_torch.embed import torch_import as ti
-from snuffy_tpu_torch.models import mae
+from snuffy_tpu_torch.models import mae, vit
 
 SMALL = dict(img_size=32, patch_size=8, embed_dim=64, depth=2, num_heads=4,
              adapter_bottleneck=8, adapter_scale=4.0)
@@ -101,8 +101,18 @@ def test_dtypes_follow_jax():
     mods = [model.patch_embed] + [m for blk in model.blocks
                                   for m in (blk.attn, blk.mlp, blk.adaptmlp,
                                             blk)]
+    blocks = list(model.blocks)
+
+    def record(mod, a, out):
+        # a block returns (its residual stream, what it carries to the
+        # next norm: nothing with an adapter)
+        if mod in blocks:
+            assert out[1] == vit.NO_CARRY
+            out = out[0]
+        seen.append(out.dtype)
+
     for m in mods:
-        m.register_forward_hook(lambda mod, a, out: seen.append(out.dtype))
+        m.register_forward_hook(record)
     with torch.inference_mode():
         out = model.eval()(torch.from_numpy(images(n=1)))
     f32, bf16 = torch.float32, torch.bfloat16

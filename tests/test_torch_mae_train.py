@@ -46,7 +46,7 @@ from snuffy_tpu.models import mae as jax_mae
 from snuffy_tpu.ssl import augment as jaug
 from snuffy_tpu.ssl import mae_trainer as jtrainer
 from snuffy_tpu_torch.bridge import mae_pretrain_from_jax
-from snuffy_tpu_torch.models import mae
+from snuffy_tpu_torch.models import mae, vit
 from snuffy_tpu_torch.ssl import augment, mae_trainer
 
 SMALL = dict(img_size=32, patch_size=8, embed_dim=64, depth=2, num_heads=4,
@@ -256,6 +256,11 @@ def test_dtypes_follow_jax():
 
     def hook(name):
         def record(mod, args, out):
+            if isinstance(mod, vit.Block):
+                # (its residual stream, what it carries to the next norm:
+                # nothing with an adapter)
+                assert out[1] == vit.NO_CARRY
+                out = out[0]
             seen.setdefault(name, out.dtype)
         return record
 

@@ -16,6 +16,7 @@ from snuffy_tpu.embed.registry import Embedder as JaxEmbedder
 from snuffy_tpu.models.vit import VisionTransformer as JaxViT
 from snuffy_tpu_torch.bridge import load_reference_pth, vit_from_jax
 from snuffy_tpu_torch.embed.registry import Embedder, build_embedder
+from snuffy_tpu_torch.models import vit as vit_module
 from snuffy_tpu_torch.models.vit import VisionTransformer
 
 SMALL = dict(patch_size=16, embed_dim=64, depth=2, num_heads=2)
@@ -57,20 +58,46 @@ def test_vit_cls_matches_jax(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_compute_dtype_reaches_every_block(dtype):
+def test_compute_dtype_reaches_every_block(dtype, monkeypatch):
     """The bf16 tolerance above would also pass an f32 run: check that the
     patch embedding, every attention and MLP branch and every block's
-    residual stream run in the compute dtype."""
+    residual stream run in the compute dtype. Under inference the stream
+    runs through the fused norms (`vit.residual_layer_norm`): each
+    residual sum and its norm, 2 · depth + 1 of them; with grad on,
+    through the composed ops, each block's output (its stream and the
+    branch it carries to the next norm) is hooked."""
+    want = getattr(torch, dtype)
     model = VisionTransformer(compute_dtype=dtype, **SMALL).eval()
     seen = []
     mods = [model.patch_embed] + [m for blk in model.blocks
-                                  for m in (blk.attn, blk.mlp, blk)]
+                                  for m in (blk.attn, blk.mlp)]
     for m in mods:
         m.register_forward_hook(lambda mod, args, out: seen.append(out.dtype))
+    blocks = []
+    for blk in model.blocks:
+        blk.register_forward_hook(lambda mod, args, out: blocks.append(
+            (out[0].dtype, out[1][0].dtype)))
+    stream = []
+    norm = vit_module.residual_layer_norm
+
+    def recorded(*args):
+        s, y = norm(*args)
+        stream.extend((s.dtype, y.dtype))
+        return s, y
+
+    monkeypatch.setattr(vit_module, "residual_layer_norm", recorded)
+    x = torch.from_numpy(tiles(n=1).astype(np.float32) / 255.0)
     with torch.inference_mode():
-        out = model(torch.from_numpy(tiles(n=1).astype(np.float32) / 255.0))
+        out = model(x)
     assert out.dtype == torch.float32
-    assert seen == [getattr(torch, dtype)] * len(mods)
+    assert seen == [want] * len(mods)
+    assert stream == [want] * 2 * (2 * SMALL["depth"] + 1)
+    assert blocks == [(want, want)] * SMALL["depth"]
+    del seen[:], blocks[:], stream[:]
+    out = model(x)
+    assert out.dtype == torch.float32 and out.requires_grad
+    assert seen == [want] * len(mods) and not stream
+    assert blocks == [(want, want)] * SMALL["depth"]
 
 
 @pytest.mark.parametrize("imagenet_norm", [False, True])
